@@ -1,0 +1,111 @@
+"""K2: fused lazy-rollout map statistics (port of
+``protopformer_tpu/kernels/stats.py``).
+
+``fused_map_stats`` returns the per-map discard threshold (the keep-th
+largest value, by bisection on the bit pattern) and the masked row sums in
+one pass over the map. A CUDA tensor goes to the hand-written kernel
+(``csrc/map_stats.cu``); a CPU tensor goes to ``map_stats_plain``, the
+plain PyTorch version of the same steps. Any other device raises.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from protopformer_tpu_torch.kernels import _build
+from protopformer_tpu_torch.ops.rollout import bisect_threshold
+
+
+def bisect_keys(a: torch.Tensor, prefix16: bool) -> torch.Tensor:
+    """(B, ...) fp32 values -> (B, E) int32 bisection keys: the bit
+    pattern, or its high 16 bits by a logical shift."""
+    bits = a.contiguous().view(torch.int32).reshape(a.shape[0], -1)
+    if prefix16:
+        bits = (bits >> 16) & 0xFFFF
+    return bits
+
+
+def threshold_from_key(lo: torch.Tensor, prefix16: bool) -> torch.Tensor:
+    return (lo << 16 if prefix16 else lo).view(torch.float32)
+
+
+def masked_row_sums(a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(B, N, N) fp32 map, (B,) fp32 threshold -> (B, N) fp32."""
+    return torch.where(a >= t[:, None, None], a, 0.0).sum(dim=-1)
+
+
+def map_stats_plain(fmap: torch.Tensor, keep: int, prefix16: bool
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel: (t (B,) fp32, s (B, N) fp32)."""
+    a = fmap.float()
+    keys = bisect_keys(a, prefix16)
+    lo = torch.zeros(a.shape[0], dtype=torch.int32, device=a.device)
+    lo = bisect_threshold(keys, keep, lo, keys.amax(dim=1),
+                          15 if prefix16 else 31)
+    t = threshold_from_key(lo, prefix16)
+    return t, masked_row_sums(a, t)
+
+
+def map_stats_cuda(fmap: torch.Tensor, keep: int, prefix16: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/map_stats.cu`` on a contiguous (B, N, N) CUDA map."""
+    if fmap.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"map_stats: map dtype {fmap.dtype} not fp32/bf16")
+    if fmap.dim() != 3 or fmap.shape[1] != fmap.shape[2]:
+        raise ValueError(f"map_stats: expected (B, N, N), got {tuple(fmap.shape)}")
+    if not fmap.is_contiguous():
+        raise ValueError("map_stats: map must be contiguous")
+    B, N, _ = fmap.shape
+    lib = _build.library()
+    _build.check_smem("map_stats", lib.ppf_map_stats_smem_bytes(N))
+    t = torch.empty(B, dtype=torch.float32, device=fmap.device)
+    s = torch.empty((B, N), dtype=torch.float32, device=fmap.device)
+    stream = torch.cuda.current_stream(fmap.device).cuda_stream
+    code = lib.ppf_map_stats(
+        fmap.data_ptr(), int(fmap.dtype == torch.bfloat16), B, N, keep,
+        int(prefix16), t.data_ptr(), s.data_ptr(), stream,
+    )
+    _build.check_launch("map_stats", code)
+    map_stats_cuda.launches += 1
+    return t, s
+
+
+map_stats_cuda.launches = 0
+
+
+def fused_map_stats(
+    fmap: torch.Tensor,
+    discard_ratio: float = 0.9,
+    exact_discard: bool = False,
+    keep_elements: int = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Threshold + masked row sums of a square (B, N, N) non-negative map.
+
+    Same contract as the JAX ``fused_map_stats``: ``keep_elements`` is the
+    real element count of a zero-padded map; with no discard the threshold
+    is a -inf sentinel and no kernel launches.
+
+    Returns:
+      (t (B,) in the map dtype, s (B, N) fp32).
+    """
+    B, M, N = fmap.shape
+    if M != N:
+        raise ValueError("fused_map_stats is for square self-attention maps")
+    real = keep_elements if keep_elements is not None else M * N
+    keep = real - int(real * discard_ratio)
+    if keep >= real:
+        return (
+            torch.full((B,), float("-inf"), dtype=torch.float32,
+                       device=fmap.device),
+            fmap.float().sum(dim=-1),
+        )
+    prefix16 = not exact_discard
+    if fmap.is_cuda:
+        t, s = map_stats_cuda(fmap, keep, prefix16)
+    elif fmap.device.type == "cpu":
+        t, s = map_stats_plain(fmap, keep, prefix16)
+    else:
+        raise RuntimeError(f"fused_map_stats: no kernel for device {fmap.device}")
+    return t.to(fmap.dtype), s
