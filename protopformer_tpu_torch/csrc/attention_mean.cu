@@ -72,7 +72,10 @@ mean_kernel(const T* __restrict__ qkv, const float* __restrict__ policy,
   const T* qkv_b = qkv + (size_t)b * NP * C3;
   const float rH = 1.0f / (float)H;
 
-  for (int j = threadIdx.x; j < NP; j += blockDim.x) pol[j] = policy[(size_t)b * NP + j];
+  // a null policy is the all-ones policy (K4's ones_policy): attn_policy
+  // is then exactly 1 and the products below leave e unchanged
+  for (int j = threadIdx.x; j < NP; j += blockDim.x)
+    pol[j] = policy ? policy[(size_t)b * NP + j] : 1.f;
   for (int e = threadIdx.x; e < kRows * NP; e += blockDim.x) acc[e] = 0.f;
 
   for (int h = 0; h < H; ++h) {
@@ -160,7 +163,8 @@ cudaError_t launch(const void* qkv, const float* policy, int B, int NP, int C,
 }  // namespace
 
 // qkv: (B, NP, 3C) fp32 or bf16 (is_bf16); policy: (B, NP) fp32 keep-mask
-// (pads 0); out: (B, NP, C) in the qkv dtype; map: (B, NP, NP) fp32.
+// (pads 0), or null for all ones; out: (B, NP, C) in the qkv dtype; map:
+// (B, NP, NP) fp32.
 // scale = hd**-0.5 and eps_over_n = 1e-6/real_n as fp32.
 extern "C" int ppf_attention_mean(const void* qkv, const void* policy, int B,
                                   int NP, int C, int H, int real_n, int is_bf16,

@@ -9,7 +9,11 @@ from typing import Dict
 
 from protopformer_tpu_torch.kernels.attention_core import (
     block_stats_cuda,
+    core_cuda,
+    core_padded_cuda,
     fused_attention_block_stats,
+    fused_attention_core,
+    fused_attention_core_padded,
     fused_attention_mean_padded,
     mean_padded_cuda,
 )
@@ -20,6 +24,8 @@ WRAPPERS = {
     "fused_attention_block_stats": block_stats_cuda,
     "fused_map_stats": map_stats_cuda,
     "fused_attention_mean_padded": mean_padded_cuda,
+    "fused_attention_core": core_cuda,
+    "fused_attention_core_padded": core_padded_cuda,
 }
 
 
@@ -35,6 +41,8 @@ def reset_launch_counts() -> None:
 __all__ = [
     "WRAPPERS",
     "fused_attention_block_stats",
+    "fused_attention_core",
+    "fused_attention_core_padded",
     "fused_attention_mean_padded",
     "fused_map_stats",
     "launch_counts",

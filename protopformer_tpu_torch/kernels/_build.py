@@ -47,6 +47,10 @@ _SIGNATURES = {
     "ppf_attention_mean": [_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT, _INT,
                            _FLOAT, _FLOAT, _VOIDP, _VOIDP, _VOIDP],
     "ppf_attention_mean_smem_bytes": [_INT, _INT, _INT],
+    "ppf_attention_core": [_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT, _INT,
+                           _INT, _FLOAT, _FLOAT, _FLOAT, _FLOAT, _VOIDP,
+                           _VOIDP, _VOIDP],
+    "ppf_attention_core_smem_bytes": [_INT],
 }
 
 # shared memory one block may use on Hopper (sm_90), bytes

@@ -1,4 +1,4 @@
-"""K1 and K3: fused attention kernels (port of part of
+"""K1, K3, K4 and K5: fused attention kernels (port of
 ``protopformer_tpu/kernels/attention_core.py``).
 
 * ``fused_attention_block_stats`` (K1): ones-policy attention in bf16 that
@@ -7,6 +7,10 @@
 * ``fused_attention_mean_padded`` (K3): policy-masked attention with the
   identity escape that emits the raw fp32 head-mean map, pads exactly 0
   (``csrc/attention_mean.cu``).
+* ``fused_attention_core`` (K4) and ``fused_attention_core_padded`` (K5):
+  K3's attention followed by the rollout normalize of its map (exact
+  discard, identity blend, row normalize), emitting the NORMALIZED fp32
+  map (``csrc/attention_core.cu``; K4 is K5 with no pads).
 
 Each public function dispatches on the input's device: a CUDA tensor goes
 to the hand-written kernel, a CPU tensor to the plain PyTorch version
@@ -27,7 +31,10 @@ from protopformer_tpu_torch.kernels.stats import (
     threshold_from_key,
 )
 from protopformer_tpu_torch.ops.masking import eps_softmax
-from protopformer_tpu_torch.ops.rollout import bisect_threshold
+from protopformer_tpu_torch.ops.rollout import (
+    bisect_threshold,
+    normalize_attention_map,
+)
 
 SOFTMAX_EPS = 1e-6
 _ONE_BITS = 0x3F800000  # fp32 bit pattern of 1.0, the static bisection bound
@@ -252,4 +259,155 @@ def fused_attention_mean_padded(
         return mean_padded_plain(qkv, policy, num_heads, real_n)
     raise RuntimeError(
         f"fused_attention_mean_padded: no kernel for device {qkv.device}"
+    )
+
+
+# --- K4 and K5 ----------------------------------------------------------------
+#
+# The JAX functions' ``block_batch`` (samples per grid step) and
+# ``interpret`` were TPU tiling and debugging choices: a CUDA block takes
+# one sample (or one row tile of one), and the CPU runs the plain versions.
+# Neither is carried over. The compute dtype is the qkv dtype, as for K3.
+
+def core_padded_plain(qkv: torch.Tensor, policy: torch.Tensor,
+                      num_heads: int, real_n: int, discard_ratio: float = 0.9,
+                      identity_weight: float = 0.2):
+    """Plain PyTorch version of K5: K3's plain attention, then
+    ``normalize_attention_map`` (exact discard) of the real (real_n, real_n)
+    block of its map, padded back to NP with zeros."""
+    out, raw = mean_padded_plain(qkv, policy, num_heads, real_n)
+    norm = normalize_attention_map(raw[:, :real_n, :real_n], discard_ratio,
+                                   identity_weight, exact_discard=True)
+    pad = qkv.shape[1] - real_n
+    return out, torch.nn.functional.pad(norm, (0, pad, 0, pad))
+
+
+def core_plain(qkv: torch.Tensor, policy, num_heads: int,
+               discard_ratio: float = 0.9, identity_weight: float = 0.2):
+    """Plain PyTorch version of K4: K5's with no pads; ``policy`` None is
+    the all-ones policy."""
+    B, N, _ = qkv.shape
+    if policy is None:
+        policy = torch.ones((B, N), dtype=torch.float32, device=qkv.device)
+    return core_padded_plain(qkv, policy, num_heads, N, discard_ratio,
+                             identity_weight)
+
+
+def _core_launch(name: str, qkv: torch.Tensor, policy, num_heads: int,
+                 real_n: int, discard_ratio: float, identity_weight: float):
+    """Launch ``csrc/attention_core.cu``; ``policy`` None is all ones."""
+    B, NP, C = _check_qkv(name, qkv, num_heads,
+                          (torch.float32, torch.bfloat16))
+    if policy is not None and (policy.shape != (B, NP)
+                               or policy.device != qkv.device):
+        raise ValueError(f"{name}: policy must be ({B}, {NP}) on {qkv.device}")
+    if not 0 < real_n <= NP:
+        raise ValueError(f"{name}: real_n={real_n} not in (0, {NP}]")
+    pol = None if policy is None else policy.float().contiguous()
+    is_bf16 = qkv.dtype == torch.bfloat16
+    hd = C // num_heads
+    lib = _build.library()
+    _build.check_smem(name, lib.ppf_attention_mean_smem_bytes(NP, hd,
+                                                              int(is_bf16)))
+    # the normalize phase holds the real (real_n, real_n) fp32 block
+    _build.check_smem(name, lib.ppf_attention_core_smem_bytes(real_n))
+    E = real_n * real_n
+    keep = E - int(E * discard_ratio)
+    dev = qkv.device
+    out = torch.empty((B, NP, C), dtype=qkv.dtype, device=dev)
+    fmap = torch.empty((B, NP, NP), dtype=torch.float32, device=dev)
+    code = lib.ppf_attention_core(
+        qkv.data_ptr(), None if pol is None else pol.data_ptr(), B, NP, C,
+        num_heads, real_n, keep, int(is_bf16),
+        hd ** -0.5, SOFTMAX_EPS / real_n, identity_weight,
+        1.0 + identity_weight, out.data_ptr(), fmap.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check_launch(name, code)
+    return out, fmap
+
+
+def core_cuda(qkv: torch.Tensor, policy, num_heads: int,
+              discard_ratio: float = 0.9, identity_weight: float = 0.2):
+    """Launch K4 (``csrc/attention_core.cu`` with NP = N); ``policy`` None
+    is the all-ones policy."""
+    out, fmap = _core_launch("attention_core", qkv, policy, num_heads,
+                             qkv.shape[1], discard_ratio, identity_weight)
+    core_cuda.launches += 1
+    return out, fmap
+
+
+core_cuda.launches = 0
+
+
+def core_padded_cuda(qkv: torch.Tensor, policy: torch.Tensor, num_heads: int,
+                     real_n: int, discard_ratio: float = 0.9,
+                     identity_weight: float = 0.2):
+    """Launch K5 (``csrc/attention_core.cu``)."""
+    out, fmap = _core_launch("attention_core_padded", qkv, policy, num_heads,
+                             real_n, discard_ratio, identity_weight)
+    core_padded_cuda.launches += 1
+    return out, fmap
+
+
+core_padded_cuda.launches = 0
+
+
+def fused_attention_core(
+    qkv: torch.Tensor,
+    policy,
+    num_heads: int,
+    discard_ratio: float = 0.9,
+    identity_weight: float = 0.2,
+    ones_policy: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused softmax attention + rollout-map normalization.
+
+    Args:
+      qkv: (B, N, 3C) q|k|v activations in the compute dtype (fp32 or
+        bf16), N <= 240.
+      policy: (B, N) keep-mask, or None (all ones).
+      ones_policy: the all-ones policy whatever ``policy`` holds
+        (pre-prune blocks).
+
+    Returns:
+      (out (B, N, C) pre-projection in the qkv dtype, the normalized
+      rollout map (B, N, N) fp32).
+    """
+    args = (qkv, None if ones_policy else policy, num_heads, discard_ratio,
+            identity_weight)
+    if qkv.is_cuda:
+        return core_cuda(*args)
+    if qkv.device.type == "cpu":
+        return core_plain(*args)
+    raise RuntimeError(f"fused_attention_core: no kernel for device {qkv.device}")
+
+
+def fused_attention_core_padded(
+    qkv: torch.Tensor,
+    policy: torch.Tensor,
+    num_heads: int,
+    real_n: int,
+    discard_ratio: float = 0.9,
+    identity_weight: float = 0.2,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fused_attention_core`` over pre-padded operands.
+
+    Args:
+      qkv: (B, NP, 3C) activations; rows >= real_n are pads.
+      policy: (B, NP) keep-mask with pads 0.
+      real_n: the real token count (<= 240); the eps terms and the discard
+        keep count use it, so the real block matches the unpadded kernel.
+
+    Returns:
+      (out (B, NP, C) in the qkv dtype, the normalized map (B, NP, NP)
+      fp32, every pad row and pad column exactly 0).
+    """
+    args = (qkv, policy, num_heads, real_n, discard_ratio, identity_weight)
+    if qkv.is_cuda:
+        return core_padded_cuda(*args)
+    if qkv.device.type == "cpu":
+        return core_padded_plain(*args)
+    raise RuntimeError(
+        f"fused_attention_core_padded: no kernel for device {qkv.device}"
     )

@@ -12,6 +12,11 @@ dtype (bf16 speed or fp32 parity), LayerNorm statistics are fp32.
   * a pre-prune block (``tap=True``) with the all-ones policy in bf16 runs
     K1 (``fused_attention_block_stats``) and returns the lazy-rollout
     triple (map, threshold, row sums);
+  * a block whose map is consumed normalized (``normalized=True``, the
+    eager rollout of ``DeiTBackbone.masked_forward_thresh``) runs K4
+    (``fused_attention_core``) with exact discard, or K3 followed by the
+    plain ``normalize_attention_map`` with the 16-bit prefix discard (K4
+    is exact only), and returns the normalized fp32 map;
   * every other block runs K3 (``fused_attention_mean_padded``) on the
     unpadded sequence and returns the raw fp32 head-mean map. The pad to a
     multiple of 128 tokens was the TPU's lane width and is not carried over.
@@ -27,9 +32,11 @@ import torch.nn.functional as F
 
 from protopformer_tpu_torch.kernels.attention_core import (
     fused_attention_block_stats,
+    fused_attention_core,
     fused_attention_mean_padded,
 )
 from protopformer_tpu_torch.ops.activations import gelu_exact, gelu_speed
+from protopformer_tpu_torch.ops.rollout import normalize_attention_map
 
 Policy = Union[str, torch.Tensor]
 
@@ -85,12 +92,13 @@ class Attention(nn.Module):
     """Multi-head self-attention on the kernel-on structure.
 
     Args:
-      rollout: (discard_ratio, exact_discard) of the lazy rollout; the
-        exact flag selects K1's map storage dtype (fp32 exact, bf16 speed).
+      rollout: (discard_ratio, identity_weight, exact_discard) of the
+        rollout; the exact flag selects K1's map storage dtype (fp32 exact,
+        bf16 speed) and the discard of a normalized map.
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool,
-                 dtype: torch.dtype, rollout: Tuple[float, bool]):
+                 dtype: torch.dtype, rollout: Tuple[float, float, bool]):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
@@ -98,29 +106,40 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, policy: Policy, tap: bool = True):
+    def forward(self, x: torch.Tensor, policy: Policy, tap: bool = True,
+                normalized: bool = False):
         """``policy`` is ``"ones"`` (static all-ones) or a (B, N) keep-mask.
-        ``tap=False`` marks a block whose map is never consumed: K1 is
-        skipped there, as in the JAX package.
+        ``tap=False`` marks a block whose lazy-rollout triple is not
+        consumed: K1 is skipped there, as in the JAX package.
+        ``normalized=True`` asks for the normalized rollout map.
 
-        Returns (out (B, N, C), aux): aux is (map, t, s) after K1, else the
-        raw fp32 (B, N, N) head-mean map.
+        Returns (out (B, N, C), aux): aux is (map, t, s) after K1, the
+        normalized fp32 (B, N, N) map under ``normalized``, else the raw
+        fp32 (B, N, N) head-mean map.
         """
         B, N, _ = x.shape
         qkv = dense(x, self.qkv, self.dtype)
-        if tap and isinstance(policy, str) and self.dtype != torch.float32:
-            ratio, exact = self.rollout
+        ratio, identity_weight, exact = self.rollout
+        ones = isinstance(policy, str)
+        if tap and ones and self.dtype != torch.float32:
             out, fmap, t, s = fused_attention_block_stats(
                 qkv, self.num_heads, ratio, exact
             )
             return dense(out, self.proj, self.dtype), (fmap, t, s)
-        if isinstance(policy, str):
+        pol = None if ones else policy.reshape(B, N).float()
+        if normalized and exact:
+            out, norm = fused_attention_core(
+                qkv, pol, self.num_heads, ratio, identity_weight
+            )
+            return dense(out, self.proj, self.dtype), norm
+        if pol is None:
             pol = torch.ones((B, N), dtype=torch.float32, device=x.device)
-        else:
-            pol = policy.reshape(B, N).float()
         out, fmap = fused_attention_mean_padded(
             qkv, pol, self.num_heads, real_n=N
         )
+        if normalized:
+            fmap = normalize_attention_map(fmap, ratio, identity_weight,
+                                           exact_discard=False)
         return dense(out, self.proj, self.dtype), fmap
 
 
@@ -129,7 +148,7 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  qkv_bias: bool, layer_norm_eps: float, dtype: torch.dtype,
-                 rollout: Tuple[float, bool]):
+                 rollout: Tuple[float, float, bool]):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=layer_norm_eps)
@@ -137,9 +156,11 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=layer_norm_eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
 
-    def forward(self, x: torch.Tensor, policy: Policy,
-                tap: bool = True) -> Tuple[torch.Tensor, Optional[object]]:
-        h, aux = self.attn(layer_norm(x, self.norm1, self.dtype), policy, tap)
+    def forward(self, x: torch.Tensor, policy: Policy, tap: bool = True,
+                normalized: bool = False
+                ) -> Tuple[torch.Tensor, Optional[object]]:
+        h, aux = self.attn(layer_norm(x, self.norm1, self.dtype), policy, tap,
+                           normalized)
         x = x + h
         x = x + self.mlp(layer_norm(x, self.norm2, self.dtype))
         return x, aux

@@ -1,9 +1,18 @@
-"""Lazy attention rollout (part of ``protopformer_tpu/ops/rollout.py``).
+"""Attention rollout (port of ``protopformer_tpu/ops/rollout.py``, the
+DeiT part).
 
-The pruning forward keeps, per pre-prune block, the RAW head-fused map F,
-its discard threshold t (the keep-th largest value of the flattened map)
-and the masked row sums s; the CLS row of the rollout product then follows
-from ``rollout_row_scores_lazy`` without materializing a normalized map.
+Lazy: the pruning forward keeps, per pre-prune block, the RAW head-fused
+map F, its discard threshold t (the keep-th largest value of the flattened
+map) and the masked row sums s; the CLS row of the rollout product then
+follows from ``rollout_row_scores_lazy`` without materializing a
+normalized map.
+
+Eager: ``normalize_attention_map`` materializes the normalized map (discard,
+identity blend, row normalize), and ``rollout_row_scores`` /
+``rollout_step`` / ``attn_rollout`` multiply such maps. Every rollout
+product is an fp32 ``torch.matmul`` (the JAX package's
+``Precision.HIGHEST``); on the card that needs TF32 off for matmuls,
+PyTorch's default.
 
 The k-th largest of a non-negative float map is found by bisection on its
 bit pattern (value order equals integer order for non-negative floats);
@@ -208,3 +217,85 @@ def rollout_row_scores_lazy(
             identity_weight * u
         )
     return v
+
+
+def normalize_attention_map(
+    attn_fused: torch.Tensor,
+    discard_ratio: float = 0.9,
+    identity_weight: float = 0.2,
+    exact_discard: bool = True,
+    signed: bool = False,
+) -> torch.Tensor:
+    """Discard + identity-blend + row-normalize one (B, M, N) fused map.
+
+    The lowest ``discard_ratio`` of the flattened M*N values are zeroed
+    (every value below the keep-th largest, exact or, with
+    ``exact_discard=False``, its 16-bit prefix floor), the identity is
+    blended in at ``identity_weight`` (row-truncated when M < N) and each
+    row divided by its sum. Returns (B, M, N) fp32.
+    """
+    if signed:
+        raise NotImplementedError(
+            "normalize_attention_map(signed=True) (CaiT's mixed-sign maps) is"
+            " not ported yet: ROADMAP.md Queue 1 item 8"
+        )
+    B, M, N = attn_fused.shape
+    a = attn_fused.float()
+    keep = M * N - int(M * N * discard_ratio)
+    if keep < M * N:
+        kth_fn = kth_largest if exact_discard else kth_largest_prefix16
+        kth = kth_fn(a.reshape(B, M * N), keep)
+        a = torch.where(a >= kth[:, None, None], a, 0.0)
+    eye = torch.eye(N, dtype=torch.float32, device=a.device)[:M]
+    a = (a + identity_weight * eye) / (1.0 + identity_weight)
+    return a / a.sum(dim=-1, keepdim=True)
+
+
+def rollout_step(
+    result: torch.Tensor,
+    attn: torch.Tensor,
+    discard_ratio: float = 0.9,
+    head_fusion: str = "mean",
+    identity_weight: float = 0.2,
+) -> torch.Tensor:
+    """Fold one block's (B, H, N, N) probabilities into the (B, N, N)
+    running product: ``normalize(fuse(attn)) @ result``."""
+    a = normalize_attention_map(
+        _fuse_heads(attn, head_fusion), discard_ratio, identity_weight
+    )
+    return torch.matmul(a, result)
+
+
+def identity_rollout(batch: int, n: int, device=None) -> torch.Tensor:
+    """Initial rollout carry: (batch, n, n) fp32 identities."""
+    eye = torch.eye(n, dtype=torch.float32, device=device)
+    return eye.expand(batch, n, n)
+
+
+def rollout_row_scores(
+    norm_maps: Sequence[torch.Tensor], seed_row: torch.Tensor
+) -> torch.Tensor:
+    """``seed_row @ (a_L @ ... @ a_1)`` as a chain of vector-matrix
+    products over per-layer (B, N, N) normalized maps in forward order;
+    seed_row (B, R, N). Returns (B, R, N) fp32."""
+    v = seed_row.float()
+    for a in reversed(list(norm_maps)):
+        v = torch.matmul(v, a)
+    return v
+
+
+def attn_rollout(
+    all_attn: torch.Tensor,
+    discard_ratio: float = 0.9,
+    head_fusion: str = "mean",
+    identity_weight: float = 0.2,
+) -> torch.Tensor:
+    """Full rollout over a stacked (L, B, H, N, N) attention tensor (a
+    Python loop in place of the JAX package's ``lax.scan``). Returns
+    (B, N, N) fp32; the CLS->patch scores are ``out[:, 0, 1:]``."""
+    L, B, H, N, _ = all_attn.shape
+    result = identity_rollout(B, N, all_attn.device)
+    for attn in all_attn:
+        result = rollout_step(result, attn, discard_ratio, head_fusion,
+                              identity_weight)
+    return result

@@ -73,9 +73,19 @@ def test_serving_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
         ServingEngine(backbone_preset("deit_micro_test"), PPNetConfig(), {})
 
 
+def test_bench_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from protopformer_tpu_torch.cli import bench_kernels
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_kernels.run()
+
+
 def test_kernels_have_no_path_for_other_devices():
     from protopformer_tpu_torch.kernels import (
         fused_attention_block_stats,
+        fused_attention_core,
+        fused_attention_core_padded,
         fused_attention_mean_padded,
         fused_map_stats,
     )
@@ -90,6 +100,12 @@ def test_kernels_have_no_path_for_other_devices():
     with pytest.raises(RuntimeError, match="no kernel"):
         fused_attention_mean_padded(
             torch.empty((2, 8, 12), device=meta), torch.empty((2, 8)), 2, 8
+        )
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fused_attention_core(torch.empty((2, 8, 12), device=meta), None, 2)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fused_attention_core_padded(
+            torch.empty((2, 8, 12), device=meta), torch.empty((2, 8)), 2, 6
         )
 
 

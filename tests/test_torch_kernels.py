@@ -1,10 +1,12 @@
-"""K1-K3 of the PyTorch port against the JAX package's Pallas kernels.
+"""K1-K5 of the PyTorch port against the JAX package's Pallas kernels.
 
 On the CPU each public kernel function runs its plain PyTorch version; the
 JAX kernels run in interpret mode, as tests/test_kernels.py runs them.
 The CUDA kernels themselves are held against their plain versions on the
 card by tests/test_torch_gpu.py.
 """
+
+import json
 
 import numpy as np
 import jax.numpy as jnp
@@ -159,3 +161,93 @@ def test_mean_padded_plain_matches_jax_kernel_bf16(rng):
     assert out.dtype == torch.bfloat16 and fmap.dtype == torch.float32
     np.testing.assert_allclose(to_np(out), to_np(w_out), atol=1e-2)
     np.testing.assert_allclose(to_np(fmap), to_np(w_map), atol=1e-2)
+
+
+# --- K4 and K5: fused_attention_core(_padded) ----------------------------------
+
+def _bf16_ulp_of_max(x):
+    return 2.0 ** -8 * float(np.abs(x).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ones", [True, False])
+def test_core_plain_matches_jax_kernel(rng, dtype, ones):
+    """Mirrors tests/test_kernels.py::test_fused_attention_core_matches_jax,
+    kernel to kernel: the normalized map within 1e-6 with the same kept
+    entries; out within 1e-5 (fp32) or one bf16 ulp of max|out| (bf16:
+    probs @ v sums its fp32 products in another order, then rounds)."""
+    B, N, C, H = 4, 17, 24, 2
+    qkv, pol = _qkv_policy(rng, B, N, C, ones)
+    w_out, w_map = j_ac.fused_attention_core(
+        jnp.asarray(qkv).astype(dtype), None if ones else jnp.asarray(pol), H,
+        ones_policy=ones, compute_dtype=getattr(jnp, dtype), interpret=True,
+    )
+    out, fmap = t_ac.fused_attention_core(
+        torch.from_numpy(qkv).to(getattr(torch, dtype)),
+        None if ones else torch.from_numpy(pol), H, ones_policy=ones,
+    )
+    assert out.dtype == getattr(torch, dtype) and fmap.dtype == torch.float32
+    w_map = to_np(w_map)
+    np.testing.assert_array_equal(to_np(fmap) > 0, w_map > 0)
+    np.testing.assert_allclose(to_np(fmap), w_map, atol=1e-6)
+    np.testing.assert_allclose(to_np(fmap).sum(-1), 1.0, atol=1e-6)
+    tol = 1e-5 if dtype == "float32" else _bf16_ulp_of_max(to_np(w_out))
+    np.testing.assert_allclose(to_np(out), to_np(w_out), atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_core_padded_plain_matches_jax_kernel(rng, dtype):
+    """K5 at NP=32 over 17 real tokens: the JAX kernel's map within 1e-6,
+    every pad row and column exactly 0 in both (the JAX code blends the
+    identity only on the real diagonal), and the real block equal to K4's
+    on the unpadded operands."""
+    B, N, NP, C, H = 4, 17, 32, 24, 2
+    qkv, pol = _qkv_policy(rng, B, N, C, ones=False)
+    qkv_pad = np.pad(qkv, ((0, 0), (0, NP - N), (0, 0)))
+    pol_pad = np.pad(pol, ((0, 0), (0, NP - N)))
+    w_out, w_map = j_ac.fused_attention_core_padded(
+        jnp.asarray(qkv_pad).astype(dtype), jnp.asarray(pol_pad), H, N,
+        compute_dtype=getattr(jnp, dtype), interpret=True,
+    )
+    td = getattr(torch, dtype)
+    out, fmap = t_ac.fused_attention_core_padded(
+        torch.from_numpy(qkv_pad).to(td), torch.from_numpy(pol_pad), H, N
+    )
+    got, want = to_np(fmap), to_np(w_map)
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    for m in (got, want):
+        assert np.abs(m[:, N:]).max() == 0.0 and np.abs(m[:, :, N:]).max() == 0.0
+    tol = 1e-5 if dtype == "float32" else _bf16_ulp_of_max(to_np(w_out))
+    np.testing.assert_allclose(to_np(out)[:, :N], to_np(w_out)[:, :N], atol=tol)
+    out4, map4 = t_ac.fused_attention_core(
+        torch.from_numpy(qkv).to(td), torch.from_numpy(pol), H
+    )
+    assert torch.equal(map4, fmap[:, :N, :N])
+    assert torch.equal(out4, out[:, :N])
+
+
+def test_core_plain_is_the_plain_normalize_of_k3s_map(rng):
+    """The two-phase design: K4 = K3's raw map, then normalize_attention_map
+    (exact) of it."""
+    B, N, C, H = 3, 24, 16, 2
+    qkv, pol = _qkv_policy(rng, B, N, C, ones=False)
+    qkv, pol = torch.from_numpy(qkv), torch.from_numpy(pol)
+    out, fmap = t_ac.fused_attention_core(qkv, pol, H, 0.8, 0.3)
+    k3_out, raw = t_ac.fused_attention_mean_padded(qkv, pol, H, N)
+    assert torch.equal(out, k3_out)
+    want = t_roll.normalize_attention_map(raw, 0.8, 0.3, exact_discard=True)
+    np.testing.assert_allclose(to_np(fmap), to_np(want), atol=1e-6)
+
+
+def test_bench_kernels_cli_times_the_three_paths_on_cpu(capsys):
+    from protopformer_tpu_torch.cli import bench_kernels
+
+    t_kernels.reset_launch_counts()
+    assert bench_kernels.main(["--device", "cpu", "--batch", "1",
+                               "--iters", "1", "--warmup", "0"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["device"] == "cpu" and (res["n"], res["np"]) == (197, 256)
+    assert set(res["ms_per_block"]) == {
+        "plain", "fused_attention_core", "fused_attention_core_padded"}
+    # the CPU runs the plain versions: no kernel launched
+    assert sum(t_kernels.launch_counts().values()) == 0

@@ -180,3 +180,116 @@ def test_bottleneck_add_on_and_cait_backbone_raise():
         t_construct(bk, dataclasses.replace(pp, add_on_layers_type="bottleneck"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         create_backbone("cait_xxs24_224")
+
+
+# --- masked_forward_thresh (eager rollout) -----------------------------------
+
+def _thresh_inputs(seed=5):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
+    token_attn = rng.uniform(0, 2.0 / 16, size=(2, 16)).astype(np.float32)
+    return x, token_attn
+
+
+def test_masked_forward_thresh_fp32_matches_jax():
+    """tests/test_models.py::test_deit_masked_forward_thresh's call on the
+    same weights in both frameworks: cls_token_attn within 1e-5, x within
+    1e-4."""
+    params = jax_params(BK, PP, seed=0)
+    x, token_attn = _thresh_inputs()
+    want_x, want_attn = jax.jit(lambda p, im, ta: j_construct(BK, PP).apply(
+        {"params": p}, im,
+        method=lambda m, im: m.features.masked_forward_thresh(
+            *m.features.embed_all(im), ta, [(2, 9)]
+        ),
+    ))(params, jnp.asarray(x), jnp.asarray(token_attn))
+    backbone = port_model(BK, PP, params).features
+    with torch.inference_mode():
+        got_x, got_attn = backbone.masked_forward_thresh(
+            *backbone.embed_all(torch.from_numpy(x)),
+            torch.from_numpy(token_attn), [(2, 9)],
+        )
+    assert got_x.shape == (2, 17, 24) and got_attn.shape == (2, 16)
+    np.testing.assert_allclose(to_np(got_attn), to_np(want_attn), atol=1e-5)
+    np.testing.assert_allclose(to_np(got_x), to_np(want_x), atol=1e-4)
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["speed", "exact"])
+def test_masked_forward_thresh_bf16_matches_jax(exact):
+    """The same call in bf16 (exact: K4's plain version on the pre-prune
+    blocks; speed: K3's and the prefix normalize): cls_token_attn and x
+    within serving's bf16 bound of JAX's bf16 forward, rtol 2e-2 plus
+    2e-2 * max|JAX|."""
+    bk = dataclasses.replace(BK, rollout_exact_discard=exact)
+    params = jax_params(bk, PP, seed=0)
+    x, token_attn = _thresh_inputs()
+    want_x, want_attn = jax.jit(lambda p, im, ta: j_construct(
+        bk, PP, compute_dtype=jnp.bfloat16).apply(
+        {"params": p}, im,
+        method=lambda m, im: m.features.masked_forward_thresh(
+            *m.features.embed_all(im), ta, [(2, 9)]
+        ),
+    ))(params, jnp.asarray(x), jnp.asarray(token_attn))
+    backbone = port_model(bk, PP, params, torch.bfloat16).features
+    with torch.inference_mode():
+        got_x, got_attn = backbone.masked_forward_thresh(
+            *backbone.embed_all(torch.from_numpy(x)),
+            torch.from_numpy(token_attn), [(2, 9)],
+        )
+    assert got_x.dtype == torch.bfloat16 and got_attn.dtype == torch.float32
+    for got, want in ((got_attn, want_attn), (got_x, want_x)):
+        want = to_np(want)
+        np.testing.assert_allclose(to_np(got), want, rtol=2e-2,
+                                   atol=2e-2 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("dtype,exact,want", [
+    (torch.bfloat16, True, {"core": 2, "mean": 1}),
+    (torch.bfloat16, False, {"core": 0, "mean": 3}),
+    (torch.float32, True, {"core": 2, "mean": 1}),
+], ids=["bf16-exact", "bf16-speed", "fp32"])
+def test_masked_forward_thresh_routes(monkeypatch, dtype, exact, want):
+    """The pre-prune blocks take K4 with exact discard (K3 and the prefix
+    normalize otherwise), the others K3; K1 never runs (tap=False)."""
+    from protopformer_tpu_torch.models import layers
+
+    calls = {"core": 0, "mean": 0, "block_stats": 0}
+
+    def spy(name, fn):
+        def wrapped(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        monkeypatch.setattr(layers, fn.__name__, wrapped)
+
+    spy("core", layers.fused_attention_core)
+    spy("mean", layers.fused_attention_mean_padded)
+    spy("block_stats", layers.fused_attention_block_stats)
+    bk, pp = port_configs(
+        dataclasses.replace(BK, rollout_exact_discard=exact), PP
+    )
+    backbone = t_construct(bk, pp, dtype,
+                           generator=torch.Generator().manual_seed(0)).features
+    x, token_attn = _thresh_inputs()
+    with torch.inference_mode():
+        out, attn = backbone.masked_forward_thresh(
+            *backbone.embed_all(torch.from_numpy(x)),
+            torch.from_numpy(token_attn), [(2, 9)],
+        )
+    assert calls == dict(want, block_stats=0)
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    assert torch.isfinite(attn).all() and (attn >= 0).all()
+
+
+@pytest.mark.parametrize("ndim", [3, 4])
+def test_normalize_block_attention_matches_jax(rng, ndim):
+    from protopformer_tpu.models.deit import normalize_block_attention as j_nba
+    from protopformer_tpu_torch.models.deit import normalize_block_attention
+
+    probs = rng.uniform(size=(2, 2, 17, 17)).astype(np.float32) + 1e-3
+    probs /= probs.sum(-1, keepdims=True)
+    if ndim == 3:
+        probs = probs.mean(1)
+    bk, _ = port_configs(BK, PP)
+    want = j_nba(jnp.asarray(probs), BK)
+    got = normalize_block_attention(torch.from_numpy(probs), bk)
+    np.testing.assert_allclose(to_np(got), to_np(want), atol=1e-6)

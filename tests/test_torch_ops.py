@@ -207,3 +207,55 @@ def test_rollout_row_scores_lazy_matches_jax(rng, bf16):
         torch.from_numpy(seed), 0.2,
     )
     np.testing.assert_allclose(to_np(got), to_np(want), atol=1e-6)
+
+
+# --- eager rollout -----------------------------------------------------------
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "prefix16"])
+@pytest.mark.parametrize("M", [24, 1], ids=["self", "class-row"])
+def test_normalize_attention_map_matches_jax(rng, exact, M):
+    maps = _prob_maps(rng, 3, M, 24)
+    want = j_roll.normalize_attention_map(jnp.asarray(maps), 0.9, 0.2, exact)
+    got = t_roll.normalize_attention_map(torch.from_numpy(maps), 0.9, 0.2, exact)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(to_np(got) > 0, to_np(want) > 0)
+    np.testing.assert_allclose(to_np(got), to_np(want), atol=1e-6)
+
+
+def test_normalize_attention_map_signed_is_not_ported():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        t_roll.normalize_attention_map(torch.zeros((1, 4, 4)), signed=True)
+
+
+def _attn_stack(rng, L, B, H, N):
+    """(L, B, H, N, N) softmax-like per-head probabilities."""
+    return _prob_maps(rng, L * B * H, N, N).reshape(L, B, H, N, N)
+
+
+def test_rollout_step_and_attn_rollout_match_jax(rng):
+    L, B, H, N = 3, 2, 2, 17
+    attn = _attn_stack(rng, L, B, H, N)
+    init = t_roll.identity_rollout(B, N)
+    np.testing.assert_array_equal(to_np(init), to_np(j_roll.identity_rollout(B, N)))
+    want = j_roll.rollout_step(j_roll.identity_rollout(B, N), jnp.asarray(attn[0]))
+    got = t_roll.rollout_step(init, torch.from_numpy(attn[0]))
+    np.testing.assert_allclose(to_np(got), to_np(want), atol=1e-6)
+    want = j_roll.attn_rollout(jnp.asarray(attn), 0.8, "mean", 0.3)
+    got = t_roll.attn_rollout(torch.from_numpy(attn), 0.8, "mean", 0.3)
+    assert got.shape == (B, N, N) and got.dtype == torch.float32
+    np.testing.assert_allclose(to_np(got), to_np(want), atol=1e-5)
+
+
+def test_rollout_row_scores_matches_jax_and_the_full_product(rng):
+    B, N, L = 2, 17, 3
+    norm = [to_np(t_roll.normalize_attention_map(
+        torch.from_numpy(_prob_maps(rng, B, N, N)))) for _ in range(L)]
+    seed = np.zeros((B, 1, N), np.float32)
+    seed[:, 0, 0] = 1.0
+    want = j_roll.rollout_row_scores([jnp.asarray(m) for m in norm],
+                                     jnp.asarray(seed))
+    got = t_roll.rollout_row_scores([torch.from_numpy(m) for m in norm],
+                                    torch.from_numpy(seed))
+    np.testing.assert_allclose(to_np(got), to_np(want), atol=1e-6)
+    full = norm[2] @ norm[1] @ norm[0]
+    np.testing.assert_allclose(to_np(got)[:, 0], full[:, 0], atol=1e-6)
