@@ -9,10 +9,17 @@ CUDA card (an H100 is the target):
 Phases, in order; any failure ends the run with a non-zero exit:
   1. the card's name and power limit, as nvidia-smi reports them;
   2. build the CUDA kernels from protopformer_tpu_torch/csrc (one nvcc per
-     source, all started together) and print each kernel's ptxas report;
+     source, all started together), print each kernel's ptxas report, and
+     from cuobjdump's SASS check that K1's and K3's bf16 kernels use the
+     tensor cores (HMMA) and K3's fp32 kernel does not;
   3. each kernel against its plain PyTorch version on the card at the main
      path's shapes (B=160; N=197, and N=82 after the prune-point gather),
      then timed with CUDA events beside its plain version and its bound;
+     K1 (a cluster of CTAs per sample): t bit-equal to masked_map_stats on
+     its own map, s within 1e-6; against the plain version the map within
+     one bf16 ulp of its largest entry, out within 2 bf16 ulps of max|out|,
+     at most 1e-4 of the map's entries and 2 of the 160 t values
+     differing;
      K4 and K5 (the normalized-map cores) are held against the plain
      normalize of K3's raw map and against their plain versions, K4 also
      and K5 only at the kernel bench's shapes and inputs (B=256);
@@ -47,6 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -111,15 +119,81 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def bf16_ulp(x: torch.Tensor) -> float:
+    """The bf16 ulp (2^-7 of the power of two below) at max|x|."""
+    return math.ldexp(1.0, math.frexp(float(x.float().abs().max()))[1] - 8)
+
+
+def k1_contract(out, fmap, t, s, p_out, p_map, p_t, own_t, own_s) -> dict:
+    """K1 against the plain version, as ``check_kernels`` describes; returns
+    the readings, the limits and whether each holds."""
+    B, N = fmap.shape[:2]
+    map_diff = (fmap != p_map).flatten(1)
+    t_diff = t != p_t.to(t.dtype)
+    got = {"s": max_err(s, own_s), "map": max_err(fmap, p_map),
+           "out": max_err(out, p_out),
+           "map_entries_differ": int(map_diff.sum()),
+           "t_differ": int(t_diff.sum())}
+    limit = {"s": 1e-6, "map": bf16_ulp(p_map), "out": 2 * bf16_ulp(p_out),
+             "map_entries_differ": max(int(1e-4 * fmap.numel()), N),
+             "t_differ": max(1, B // 80)}
+    return {"got": got, "limit": limit, "of": {"map": fmap.numel(), "t": B},
+            "t_equal_own": bool(torch.equal(t, own_t)),
+            "t_only_where_map_differs": bool(
+                (map_diff.any(dim=1) | ~t_diff).all()),
+            "holds": all(got[k] <= limit[k] for k in got)}
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+# --- phase 2: what the kernels were compiled to ---------------------------------
+
+# kernel family -> (test of a SASS function name, whether it must use HMMA)
+SASS_FAMILIES = {
+    "K1 block_stats_kernel (bf16)": (lambda n: "block_stats_kernel" in n, True),
+    "K3 mean_kernel (bf16)": (lambda n: "bf16k" in n and "mean_kernel" in n,
+                              True),
+    "K3 mean_kernel (fp32)": (lambda n: "f32k" in n and "mean_kernel" in n,
+                              False),
+}
+
+
+def check_sass() -> dict:
+    """K1's and K3's bf16 kernels run on tensor cores (HMMA in every
+    instantiation) and K3's fp32 kernel on CUDA cores only (no HMMA, so no
+    TF32): per SASS function of the built library (``cuobjdump -sass``),
+    whether it holds an HMMA instruction."""
+    from protopformer_tpu_torch.kernels import _build
+
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run(
+        [str(cuobjdump), "-sass", str(_build.BUILD_DIR / _build.LIB_NAME)],
+        check=True, capture_output=True, text=True, timeout=300).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            funcs[name] = False
+        elif name is not None and "HMMA" in line:
+            funcs[name] = True
+    summary = {}
+    for family, (pick, want_hmma) in SASS_FAMILIES.items():
+        uses = [hmma for name, hmma in funcs.items() if pick(name)]
+        summary[family] = {"functions": len(uses), "with_HMMA": sum(uses)}
+        require(bool(uses) and all(u == want_hmma for u in uses),
+                f"SASS of {family}: HMMA in {sum(uses)} of {len(uses)} "
+                f"functions, expected {'all' if want_hmma else 'none'}")
+    return summary
 
 
 # --- phase 3: each kernel against its plain version ---------------------------
 
 def check_kernels(dev: torch.device, gen: torch.Generator) -> dict:
     """Returns {entry name: partial kernel record} for the kernels line."""
+    from protopformer_tpu_torch.kernels import _build
     from protopformer_tpu_torch.kernels import attention_core as ac
     from protopformer_tpu_torch.kernels import stats
     from protopformer_tpu_torch.ops.rollout import masked_map_stats
@@ -128,30 +202,41 @@ def check_kernels(dev: torch.device, gen: torch.Generator) -> dict:
     E = N * N
     keep = E - int(E * DISCARD)
 
-    # K1 on a bf16 (B, N, 3C) qkv, both map storage modes. The kernel rounds
-    # where the plain version does, so its map and t must equal the plain
-    # version's bit for bit; out may differ by one bf16 ulp where cuBLAS
-    # sums the fp32 products of probs @ v in another order.
+    # K1 on a bf16 (B, N, 3C) qkv, both map storage modes: t bit-equal to
+    # masked_map_stats on the kernel's own map, s within 1e-6 of that map's
+    # masked row sums. The kernel sums the dots on tensor cores in another
+    # order than the plain version, so a bf16 logit can move by one ulp and
+    # with it that logit's row of the map. Against the plain version: the
+    # map within one bf16 ulp of its largest entry and out within 2 bf16
+    # ulps of max|out|; at most 1e-4 of the map's entries (or one row, N)
+    # differ; t differs in at most max(1, B // 80) samples, each one whose
+    # map differs. A wrong scale, a dropped bf16 rounding or a wrong row of
+    # a band breaks these.
+    if dev.type == "cuda":
+        lib = _build.library()
+        cluster = {
+            "ctas_per_sample": lib.ppf_attention_block_stats_cluster_size(N),
+            "resident_clusters": lib.ppf_attention_block_stats_active_clusters(
+                N, C // H)}
+        log(f"K1 launch at B={B}, N={N}: {B} clusters, {json.dumps(cluster)}")
+        require(cluster["ctas_per_sample"] > 1
+                and cluster["resident_clusters"] > 0,
+                "K1: not a multi-CTA cluster launch")
     qkv = torch.randn((B, N, 3 * C), generator=gen).to(dev, torch.bfloat16)
     for exact in (False, True):
         mode = "exact" if exact else "speed"
         out, fmap, t, s = ac.fused_attention_block_stats(qkv, H, DISCARD, exact)
-        p_out, p_map, p_t, p_s = ac.block_stats_plain(qkv, H, keep, exact)
+        p_out, p_map, p_t, _ = ac.block_stats_plain(qkv, H, keep, exact)
         own_t, _ = masked_map_stats(fmap, DISCARD, exact_discard=exact)
+        own_s = stats.masked_row_sums(fmap.float(), t.float())
         torch.cuda.synchronize()
-        require(torch.equal(fmap, p_map),
-                f"K1 {mode}: map differs from the plain version")
-        require(torch.equal(t, p_t.to(t.dtype)),
-                f"K1 {mode}: t differs from the plain version")
-        require(torch.equal(t, own_t),
+        res = k1_contract(out, fmap, t, s, p_out, p_map, p_t, own_t, own_s)
+        log(f"K1 {mode}: {json.dumps(res)}")
+        require(res["t_equal_own"],
                 f"K1 {mode}: t differs from masked_map_stats on its own map")
-        out_tol = 2.0 ** -8 * float(p_out.float().abs().max())
-        errs = {"s": max_err(s, p_s), "map": max_err(fmap, p_map),
-                "out": max_err(out, p_out)}
-        log(f"K1 {mode}: map and t bit-equal; max abs err {json.dumps(errs)} "
-            f"(tolerance s 1e-6, out one bf16 ulp of max|out| = {out_tol!r})")
-        require(errs["s"] <= 1e-6 and errs["out"] <= out_tol,
-                f"K1 {mode}: outside tolerance")
+        require(res["holds"] and res["t_only_where_map_differs"],
+                f"K1 {mode}: outside its contract with the plain version")
+        errs = {k: res["got"][k] for k in ("s", "map", "out")}
         map_bytes = 4 if exact else 2
         nbytes = (B * N * 3 * C * 2 + B * N * C * 2 + B * E * map_bytes
                   + B * 4 + B * N * 4)
@@ -678,6 +763,7 @@ def main() -> int:
                    if "Used" in ln or "spill" in ln]
              for src, rep in info["ptxas"].items()}
     log("ptxas: " + json.dumps(ptxas))
+    log("sass: " + json.dumps(check_sass()))
 
     gen = torch.Generator().manual_seed(0)
     t0 = time.perf_counter()

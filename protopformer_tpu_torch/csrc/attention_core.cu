@@ -24,12 +24,14 @@
 // Bound on an H100: K4 in bf16 at B=160, N=197 moves 73.2 MB (qkv, out,
 // the fp32 map) = 21.9 us at 3.35 TB/s; in fp32 the products (4.77 GFLOP
 // on the 67 TFLOP/s CUDA cores, 71 us) bound it. K5 at NP=256 moves
-// ~105 MB (31 us). Design cost: phase 1 writes the raw map and phase 2
+// ~105 MB (31 us). Phase 1 is K3's (tensor cores in bf16, register-blocked
+// SIMT in fp32). Design cost: phase 1 writes the raw map and phase 2
 // reads it back, about 50 MB more traffic at B=160 than a fused kernel
 // would need (the TPU kernel kept the map in VMEM between the two). The
 // padded (256 x 256) fp32 map (262,144 B) does not fit the 232,448 B a
 // Hopper block may use, so phase 2 holds only the real block: real_n <= 240.
-// Fusing the phases, tensor cores and TMA loads are later work.
+// Fusing the phases (a cluster per sample, as K1 does) and a radix select
+// in place of the 31 counting passes are later work.
 #include "common.cuh"
 
 extern "C" int ppf_attention_mean(const void* qkv, const void* policy, int B,

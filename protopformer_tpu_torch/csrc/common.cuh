@@ -1,12 +1,18 @@
-// Shared device helpers for the port's Hopper kernels (K1-K3).
+// Shared device helpers for the port's Hopper kernels (K1-K5).
 //
-// Every kernel here runs one thread block per sample (or per row tile of
-// a sample), keeps the per-head K/V tiles in shared memory and computes on
-// CUDA cores with explicit IEEE rounding (__fmul_rn / __fadd_rn /
-// __fdiv_rn) wherever the JAX reference rounds, so each step matches the
-// plain PyTorch version beside the wrapper.
+// Rounding: every step the JAX reference rounds is written with explicit
+// IEEE intrinsics (__fmul_rn / __fadd_rn / __fdiv_rn), so nvcc's FMA
+// contraction cannot merge it with its neighbour.
+//
+// Tensor-core pieces (K1, and K3 in bf16): a warp computes one 16-row tile
+// of S = Q K^T and then of O = P V with mma.sync m16n8k16 (bf16 in, fp32
+// accumulate), its operands loaded from shared memory with ldmatrix. The
+// fragment of thread (g = lane / 4, t = lane % 4) holds, for an accumulator
+// n-tile of 8 columns, rows g and g + 8 at columns 2t and 2t + 1; the same
+// registers, packed to bf16, are the A operand of the P V product.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -14,6 +20,8 @@
 #include <climits>
 
 namespace ppf {
+
+namespace cg = cooperative_groups;
 
 constexpr int kWarp = 32;
 
@@ -32,6 +40,18 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// Sum / maximum over the four threads of a quad (the threads that share an
+// mma accumulator row).
+__device__ __forceinline__ float quad_sum(float v) {
+  v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
 __device__ __forceinline__ int warp_sum_int(int v) {
@@ -71,21 +91,6 @@ __device__ __forceinline__ int block_max_int(int v, int* red) {
   return m;
 }
 
-// Two consecutive elements as floats (bf16 widens exactly).
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -100,7 +105,7 @@ __device__ __forceinline__ int bisect_key(float x, bool prefix16) {
 
 // Largest key v in [lo, hi] with count(key(a[e]) >= v) >= keep, by `steps`
 // bisection steps over the block-resident map `a` of E values. The caller
-// has synchronised after writing `a`.
+// has synchronised after writing `a`. (K2 and K4's normalize.)
 __device__ __forceinline__ int block_bisect(const float* a, int E, int keep,
                                             bool prefix16, int lo, int hi,
                                             int steps, int* red) {
@@ -123,87 +128,354 @@ __device__ __forceinline__ float threshold_from_key(int lo, bool prefix16) {
   return __int_as_float(prefix16 ? (lo << 16) : lo);
 }
 
-// s[i] = sum_j a[i, j] * [a[i, j] >= t] over the resident (N, N) map, one
-// warp per row.
-__device__ __forceinline__ void block_masked_row_sums(const float* a, int N,
+// s[i] = sum_j a[i, j] * [a[i, j] >= t] over `rows` resident rows of `cols`
+// (<= 256) values at row stride `stride`, one warp per row.
+__device__ __forceinline__ void block_masked_row_sums(const float* a, int rows,
+                                                      int cols, int stride,
                                                       float t, float* s) {
   const int lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
-  for (int i = threadIdx.x >> 5; i < N; i += nw) {
-    float acc = 0.f;
-    for (int j = lane; j < N; j += kWarp) {
-      const float v = a[i * N + j];
-      acc += v >= t ? v : 0.f;
+  for (int i = threadIdx.x >> 5; i < rows; i += nw) {
+    float v[8];  // the lane's values of the row, loaded together
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int j = lane + kWarp * u;
+      v[u] = j < cols ? a[i * stride + j] : 0.f;
     }
+    float acc = 0.f;
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (lane + kWarp * u < cols) acc += v[u] >= t ? v[u] : 0.f;
     acc = warp_sum(acc);
     if (lane == 0) s[i] = acc;
   }
 }
 
-// Dot products of one query row (fp32 in shared memory) with the key rows
-// j = lane + 32 * u, u < MAXT, of a shared (N, kstride) K tile; fp32
-// accumulation. kstride = hd + 2 elements keeps the lanes' 4- and 8-byte
-// loads on distinct banks.
-template <typename T, int MAXT>
-__device__ __forceinline__ void row_dots(const float* q, const T* Ks,
-                                         int kstride, int N, int hd,
-                                         float (&dots)[MAXT]) {
+// --- radix select ------------------------------------------------------------
+
+// Run by one warp whose lane l holds in c[u] the count of digit 255 - 8l - u
+// (lane 0 the largest digits): the digit d that holds the k-th largest key
+// (1-based) and the count of keys in the digits above d, written to sel[0]
+// and sel[1].
+__device__ __forceinline__ void warp_pick_digit(const int (&c)[8], int k,
+                                                int* sel) {
   const int lane = threadIdx.x & 31;
+  int sum = 0;
 #pragma unroll
-  for (int u = 0; u < MAXT; ++u) dots[u] = 0.f;
-  for (int d = 0; d < hd; d += 2) {
-    const float2 qv = *reinterpret_cast<const float2*>(q + d);
+  for (int u = 0; u < 8; ++u) sum += c[u];
+  int incl = sum;
 #pragma unroll
-    for (int u = 0; u < MAXT; ++u) {
-      const int j = lane + kWarp * u;
-      if (j < N) {
-        const float2 kv = load2(Ks + j * kstride + d);
-        dots[u] = fmaf(qv.x, kv.x, dots[u]);
-        dots[u] = fmaf(qv.y, kv.y, dots[u]);
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  int run = incl - sum;
+  if (run < k && k <= incl) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (run + c[u] >= k) {
+        sel[0] = 255 - 8 * lane - u;
+        sel[1] = run;
+        break;
+      }
+      run += c[u];
+    }
+  }
+}
+
+// The portable limit of CTAs in a thread-block cluster.
+constexpr int kMaxClusterSize = 8;
+
+// Shared ints the select's histograms take: one of 256 per pass.
+__host__ __device__ inline int radix_hist_ints(bool prefix16) {
+  return (prefix16 ? 2 : 4) * 256;
+}
+
+// min(hi, keep-th largest key) over the non-negative fp32 values that the
+// CTAs of the calling cluster hold in shared memory, each `rows` x `cols`
+// (cols <= 256) at row stride `stride`. The key is the fp32 bit pattern, or
+// its high 16 bits in prefix16 mode. Digit by digit from the top, 8 bits a
+// pass (2 passes on 16-bit keys, 4 on 32-bit ones): each CTA counts its
+// keys that match the digits chosen so far into its histogram for the
+// pass, and one warp of each CTA sums the cluster's histograms through
+// distributed shared memory and picks the digit. Every CTA returns the same
+// key. This is the value the bisection of block_bisect returns from
+// [0, hi], for any keys, since both find the largest v <= hi with
+// count(key >= v) >= keep. `hist` (radix_hist_ints ints, shared) is zeroed
+// by the caller before a barrier that precedes the call, which also
+// publishes `a`; `sel` is 2 shared ints. Called by every thread of every
+// CTA.
+__device__ __forceinline__ unsigned cluster_radix_select(
+    const float* a, int rows, int cols, int stride, bool prefix16, int keep,
+    unsigned hi, int* hist, int* sel) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nranks = static_cast<int>(cluster.num_blocks());
+  const int lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  const int bits = prefix16 ? 16 : 32;
+  unsigned prefix = 0;
+  int k = keep;
+  for (int pass = 0; pass < bits / 8; ++pass) {
+    const int shift = bits - 8 * (pass + 1);
+    int* h = hist + pass * 256;
+    // Each thread counts runs of equal digits in a register and adds a run
+    // to the histogram when its digit changes: the keys of a map share
+    // their top digits, so the early passes make few shared atomics.
+    int cur = -1, run = 0;
+    for (int r = threadIdx.x >> 5; r < rows; r += nw) {
+      float v[8];  // the row's values of this lane, loaded together
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int c = lane + kWarp * u;
+        v[u] = c < cols ? a[r * stride + c] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        unsigned key = __float_as_uint(v[u]);
+        if (prefix16) key >>= 16;
+        const bool counted = lane + kWarp * u < cols &&
+                             (pass == 0 || (key >> (shift + 8)) == prefix);
+        const int digit = counted ? static_cast<int>((key >> shift) & 255u) : -1;
+        if (digit != cur) {
+          if (run) atomicAdd(&h[cur], run);
+          cur = digit;
+          run = 0;
+        }
+        run += counted;
+      }
+    }
+    if (run) atomicAdd(&h[cur], run);
+    cluster.sync();
+    if (threadIdx.x < kWarp) {
+      // lane l sums digits 248 - 8l .. 255 - 8l of every CTA's histogram,
+      // all the remote reads in flight at once
+      int4 part[kMaxClusterSize][2];
+#pragma unroll
+      for (int q = 0; q < kMaxClusterSize; ++q) {
+        if (q < nranks) {
+          const int4* src = reinterpret_cast<const int4*>(
+              cluster.map_shared_rank(h, q) + 248 - 8 * lane);
+          part[q][0] = src[0];
+          part[q][1] = src[1];
+        }
+      }
+      int c[8] = {0, 0, 0, 0, 0, 0, 0, 0};  // c[u]: digit 255 - 8l - u
+#pragma unroll
+      for (int q = 0; q < kMaxClusterSize; ++q) {
+        if (q < nranks) {
+          c[7] += part[q][0].x; c[6] += part[q][0].y;
+          c[5] += part[q][0].z; c[4] += part[q][0].w;
+          c[3] += part[q][1].x; c[2] += part[q][1].y;
+          c[1] += part[q][1].z; c[0] += part[q][1].w;
+        }
+      }
+      warp_pick_digit(c, k, sel);
+    }
+    __syncthreads();
+    prefix = (prefix << 8) | static_cast<unsigned>(sel[0]);
+    k -= sel[1];
+  }
+  cluster.sync();  // no CTA leaves while another still reads its histograms
+  return min(prefix, hi);
+}
+
+// --- asynchronous copies and tensor-core fragments ---------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes 16 zero bytes.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copy one head's (rows_valid, hd) slice at column `col` of the packed
+// (N, 3C) qkv rows of one sample into a shared tile of `rows_alloc` rows
+// and `width` columns at row stride `stride` (elements), in 16-byte
+// chunks: rows >= rows_valid and columns >= hd are zeros. hd * sizeof(T)
+// and the row pitch are multiples of 16 bytes. Issues cp.async only; the
+// caller waits (cp_async_wait_all) and synchronises.
+template <typename T>
+__device__ __forceinline__ void load_head_async(const T* qkv_b, int C3,
+                                                int col, int hd,
+                                                int rows_valid, int rows_alloc,
+                                                int width, T* dst,
+                                                int stride) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int cpr = width / kVec;
+  for (int idx = threadIdx.x; idx < rows_alloc * cpr; idx += blockDim.x) {
+    const int n = idx / cpr;
+    const int c = (idx - n * cpr) * kVec;
+    const bool ok = n < rows_valid && c < hd;
+    const T* src = ok ? qkv_b + (size_t)n * C3 + col + c : qkv_b;
+    cp_async16(dst + n * stride + c, src, ok ? 16 : 0);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a (16x16, row-major) * b (16x8, col-major), bf16 in, fp32 out.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Rounds x and y to bf16 (nearest even) with one conversion of the pair;
+// returns the packed pair, x in the low half.
+__device__ __forceinline__ uint32_t round2_bf16(float& x, float& y) {
+  const uint32_t p = pack_bf16(x, y);
+  x = __uint_as_float(p << 16);
+  y = __uint_as_float(p & 0xffff0000u);
+  return p;
+}
+
+// A fragments of a 16-row query tile, straight from global memory: `q`
+// points at the tile's first row at its head's column; rows >= rows_valid
+// and columns >= hd are zeros.
+__device__ __forceinline__ void load_q_frags(uint32_t (&qa)[4][4],
+                                             const __nv_bfloat16* q, int C3,
+                                             int rows_valid, int hd) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = g + 8 * (r & 1);
+      const int col = 16 * kk + 2 * t + 8 * (r >> 1);
+      qa[kk][r] = (row < rows_valid && col < hd)
+                      ? *reinterpret_cast<const uint32_t*>(q + (size_t)row * C3 + col)
+                      : 0u;
+    }
+  }
+}
+
+// S (16 x 16 KT) = Q K^T for one warp's tile; Ks holds 16 KT key rows at
+// row stride kstride (kv_stride: 8 mod 16 elements, so ldmatrix's eight
+// 16-byte rows fall on distinct banks); hk = padded head dim / 16.
+template <int KT>
+__device__ __forceinline__ void warp_qk(float (&S)[2 * KT][4],
+                                        const uint32_t (&qa)[4][4],
+                                        const __nv_bfloat16* Ks, int kstride,
+                                        int hk) {
+  const int lane = threadIdx.x & 31;
+  const int row = (lane & 7) + ((lane >> 4) << 3);
+  const int col = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int n = 0; n < 2 * KT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) S[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk < hk) {
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        uint32_t b[4];
+        ldmatrix_x4(b, Ks + (16 * j + row) * kstride + 16 * kk + col);
+        mma_bf16(S[2 * j], qa[kk], b[0], b[1]);
+        mma_bf16(S[2 * j + 1], qa[kk], b[2], b[3]);
       }
     }
   }
 }
 
-// out[d] = sum_j p[j] * V[j, d] for this lane's column pairs, fp32
-// accumulation in ascending j; p is the warp's shared probability row.
-template <typename T, typename TO>
-__device__ __forceinline__ void row_av(const float* p, const T* Vs, int N,
-                                       int hd, TO* out) {
-  const int lane = threadIdx.x & 31;
-  for (int d = 2 * lane; d < hd; d += 2 * kWarp) {
-    float ox = 0.f, oy = 0.f;
-    for (int j = 0; j < N; ++j) {
-      const float pj = p[j];
-      const float2 v = load2(Vs + j * hd + d);
-      ox = fmaf(pj, v.x, ox);
-      oy = fmaf(pj, v.y, oy);
-    }
-    store2(out + d, ox, oy);
+// P's A fragments from the probabilities held in S's accumulator layout,
+// each rounded to bf16 (nearest even).
+template <int KT>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[KT][4],
+                                       const float (&S)[2 * KT][4]) {
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+    pa[j][0] = pack_bf16(S[2 * j][0], S[2 * j][1]);
+    pa[j][1] = pack_bf16(S[2 * j][2], S[2 * j][3]);
+    pa[j][2] = pack_bf16(S[2 * j + 1][0], S[2 * j + 1][1]);
+    pa[j][3] = pack_bf16(S[2 * j + 1][2], S[2 * j + 1][3]);
   }
 }
 
-// Copy one head's (N, hd) slice at column offset `col` of the packed
-// (N, 3C) qkv rows into a shared tile of row stride `stride`; rows at or
-// past `zero_from` are written as zeros.
-template <typename T>
-__device__ __forceinline__ void load_head(const T* qkv_b, int N, int C3,
-                                          int col, int hd, T* dst,
-                                          int stride, int zero_from) {
-  const int pairs = hd / 2;
-  for (int idx = threadIdx.x; idx < N * pairs; idx += blockDim.x) {
-    const int n = idx / pairs;
-    const int d = 2 * (idx - n * pairs);
-    if (n < zero_from) {
-      const float2 v = load2(qkv_b + (size_t)n * C3 + col + d);
-      store2(dst + n * stride + d, v.x, v.y);
-    } else {
-      store2(dst + n * stride + d, 0.f, 0.f);
+// O (16 x 16 hk) = P V, fp32 accumulation; Vs holds 16 KT value rows.
+template <int KT>
+__device__ __forceinline__ void warp_pv(float (&O)[8][4],
+                                        const uint32_t (&pa)[KT][4],
+                                        const __nv_bfloat16* Vs, int vstride,
+                                        int hk) {
+  const int lane = threadIdx.x & 31;
+  const int row = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int col = (lane >> 4) * 8;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) O[n][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+#pragma unroll
+    for (int dn = 0; dn < 4; ++dn) {
+      if (dn < hk) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, Vs + (16 * j + row) * vstride + 16 * dn + col);
+        mma_bf16(O[2 * dn], pa[j], b[0], b[1]);
+        mma_bf16(O[2 * dn + 1], pa[j], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// Store O rounded to bf16: `out` points at the tile's first row at its
+// head's column (row pitch C); rows >= rows_valid and columns >= hd skipped.
+__device__ __forceinline__ void store_o(__nv_bfloat16* out, int C,
+                                        const float (&O)[8][4], int rows_valid,
+                                        int hd) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (col < hd) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = g + 8 * half;
+        if (row < rows_valid)
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * C + col) =
+              __floats2bfloat162_rn(O[n][2 * half], O[n][2 * half + 1]);
+      }
     }
   }
 }
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
+
+// Row stride (elements) of a bf16 K or V tile with hd columns: hd padded
+// to 16, plus 8 so that ldmatrix's 8 rows fall on distinct banks.
+__host__ __device__ inline int kv_stride(int hd) { return (hd + 15) / 16 * 16 + 8; }
 
 }  // namespace ppf
 
@@ -218,5 +490,42 @@ __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t(
     case 6: { constexpr int MAXT = 6; __VA_ARGS__ } break;      \
     case 7: { constexpr int MAXT = 7; __VA_ARGS__ } break;      \
     case 8: { constexpr int MAXT = 8; __VA_ARGS__ } break;      \
+    default: return cudaErrorInvalidValue;                      \
+  }
+
+namespace ppf {
+
+// Key tiles of 16 a tensor-core kernel is instantiated for at N tokens:
+// ceil(N / 16) rounded up to the next of 2, 4, 6, 8, 10, 13, 16 (N = 197
+// takes 13, 82 takes 6, 256 takes 16), so that a build compiles 7 of the
+// 16 possible tile counts. Tiles past ceil(N / 16) hold zero K and V rows
+// and pad columns only. Above 256 tokens: 0, which no kernel takes.
+__host__ __device__ inline int key_tiles(int N) {
+  const int t = (N + 15) / 16;
+  if (t <= 8) return t <= 2 ? 2 : (t + 1) / 2 * 2;
+  return t <= 10 ? 10 : t <= 13 ? 13 : t <= 16 ? 16 : 0;
+}
+
+// Whether n-tile n (8 key columns) of a KT-tile row holds pad columns
+// (>= N). KT exceeds ceil(N / 16) by at most 2, so only the last 6
+// n-tiles can: in an unrolled loop over n the test of every other n-tile
+// folds away at compile time.
+template <int KT>
+__device__ __forceinline__ bool pad_ntile(int n, int N) {
+  return n >= 2 * KT - 6 && 8 * (n + 1) > N;
+}
+
+}  // namespace ppf
+
+// Runs the statements given for KT = ppf::key_tiles(N) (N <= 256).
+#define PPF_DISPATCH_KT(N, ...)                                 \
+  switch (ppf::key_tiles(N)) {                                  \
+    case 2: { constexpr int KT = 2; __VA_ARGS__ } break;        \
+    case 4: { constexpr int KT = 4; __VA_ARGS__ } break;        \
+    case 6: { constexpr int KT = 6; __VA_ARGS__ } break;        \
+    case 8: { constexpr int KT = 8; __VA_ARGS__ } break;        \
+    case 10: { constexpr int KT = 10; __VA_ARGS__ } break;      \
+    case 13: { constexpr int KT = 13; __VA_ARGS__ } break;      \
+    case 16: { constexpr int KT = 16; __VA_ARGS__ } break;      \
     default: return cudaErrorInvalidValue;                      \
   }

@@ -38,7 +38,7 @@ map_stats_kernel(const T* __restrict__ map, int N, int keep, bool prefix16,
                                    prefix16 ? 15 : 31, red);
   const float t = ppf::threshold_from_key(lo, prefix16);
   if (threadIdx.x == 0) t_out[blockIdx.x] = t;
-  ppf::block_masked_row_sums(a, N, t, s_out + (size_t)blockIdx.x * N);
+  ppf::block_masked_row_sums(a, N, N, N, t, s_out + (size_t)blockIdx.x * N);
 }
 
 template <typename T>

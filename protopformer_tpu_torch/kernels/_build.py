@@ -44,6 +44,8 @@ _SIGNATURES = {
                                   _FLOAT, _FLOAT, _VOIDP, _VOIDP, _VOIDP,
                                   _VOIDP, _VOIDP],
     "ppf_attention_block_stats_smem_bytes": [_INT, _INT],
+    "ppf_attention_block_stats_cluster_size": [_INT],
+    "ppf_attention_block_stats_active_clusters": [_INT, _INT],
     "ppf_attention_mean": [_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT, _INT,
                            _FLOAT, _FLOAT, _VOIDP, _VOIDP, _VOIDP],
     "ppf_attention_mean_smem_bytes": [_INT, _INT, _INT],

@@ -54,8 +54,14 @@ def _check_qkv(name: str, qkv: torch.Tensor, num_heads: int,
         raise ValueError(f"{name}: qkv must be contiguous")
     B, N, C3 = qkv.shape
     C = C3 // 3
-    if C % num_heads or (C // num_heads) % 2:
-        raise ValueError(f"{name}: head dim C/H = {C}/{num_heads} must be even")
+    # the kernels copy head slices in 16-byte chunks and tile the head dim
+    # in at most 4 tensor-core k-steps of 16
+    step = 16 // qkv.element_size()
+    if C % num_heads or (C // num_heads) % step or C // num_heads > 64:
+        raise ValueError(f"{name}: head dim C/H = {C}/{num_heads} must be a "
+                         f"multiple of {step} and at most 64")
+    if qkv.data_ptr() % 16:
+        raise ValueError(f"{name}: qkv must be 16-byte aligned")
     if N > 256:
         raise ValueError(f"{name}: at most 256 tokens, got {N}")
     return B, N, C
@@ -65,11 +71,14 @@ def _check_qkv(name: str, qkv: torch.Tensor, num_heads: int,
 
 def block_stats_plain(qkv: torch.Tensor, num_heads: int, keep: int,
                       exact_discard: bool):
-    """Plain PyTorch version of K1, rounding step for step as the kernel:
+    """Plain PyTorch version of K1, rounding where the kernel rounds:
     bf16 logits = bf16(fp32 dot) * bf16(hd**-0.5); ``eps_softmax``'s bf16
     branch (bf16 exp, fp32 row sum + 1e-6, bf16 reciprocal multiply);
     acc += fp32(probs) * (1/H); out = fp32-accumulated probs @ v rounded
-    to bf16."""
+    to bf16. The kernel sums the dots on tensor cores in another order, so
+    a bf16 logit may differ by one ulp and move its row of the map: the
+    kernel's map is held to this one within one bf16 ulp of its largest
+    entry, its t and s to ``masked_map_stats`` on its own map."""
     B, N, C3 = qkv.shape
     C = C3 // 3
     H = num_heads

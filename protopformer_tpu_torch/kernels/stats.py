@@ -27,6 +27,36 @@ def bisect_keys(a: torch.Tensor, prefix16: bool) -> torch.Tensor:
     return bits
 
 
+def radix_select_keys(keys: torch.Tensor, keep: int, key_bits: int,
+                      digit_bits: int, hi: int) -> torch.Tensor:
+    """Plain statement of K1's radix select (``csrc/common.cuh``,
+    ``cluster_radix_select``): per row of the (B, E) non-negative integer
+    ``keys`` (each below ``2**key_bits``), min(hi, the keep-th largest
+    key), found digit by digit from the top, ``digit_bits`` bits a pass.
+    Each pass counts the keys that match the digits chosen so far by their
+    next digit and takes the digit that holds the keep-th largest. This is
+    what ``bisect_threshold`` returns from [0, hi] on the same keys: both
+    find the largest v <= hi with count(keys >= v) >= keep. Returns (B,)
+    in the keys' dtype."""
+    k64 = keys.to(torch.int64)
+    B = k64.shape[0]
+    radix = 1 << digit_bits
+    dev = keys.device
+    prefix = torch.zeros(B, dtype=torch.int64, device=dev)
+    k = torch.full((B,), keep, dtype=torch.int64, device=dev)
+    for shift in range(key_bits - digit_bits, -1, -digit_bits):
+        match = (k64 >> (shift + digit_bits)) == prefix[:, None]
+        digit = (k64 >> shift) & (radix - 1)
+        hist = torch.zeros((B, radix + 1), dtype=torch.int64, device=dev)
+        hist.scatter_add_(1, digit, match.to(torch.int64))
+        # at_or_above[:, d]: matching keys whose digit is d or larger
+        at_or_above = hist.flip(1).cumsum(1).flip(1)
+        d = (at_or_above[:, :radix] >= k[:, None]).sum(1) - 1
+        k = k - at_or_above.gather(1, (d + 1)[:, None])[:, 0]
+        prefix = (prefix << digit_bits) | d
+    return prefix.clamp(max=hi).to(keys.dtype)
+
+
 def threshold_from_key(lo: torch.Tensor, prefix16: bool) -> torch.Tensor:
     return (lo << 16 if prefix16 else lo).view(torch.float32)
 

@@ -8,16 +8,26 @@ machine run it without the suite's conftest (which imports JAX):
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
 Tolerances: thresholds t bit-equal, row sums 1e-6, fp32 outputs 1e-5 and
-maps 1e-6 (those of the JAX package's kernel tests); K1's map bit-equal to
-its plain version and its bf16 output within one bf16 ulp of the largest
-output; K3's bf16 output 1e-2. K4/K5 emit a map normalized after a k-th
-largest discard, where a one-ulp difference in the raw map can move an
-entry across the threshold: each is held against the plain normalize of
-K3's raw map on the same inputs (the same device code, so the same raw
-map: identical kept entries, map within 1e-6), and against its plain
-version (out as above; map within 1e-6 on every sample whose kept entries
-agree).
+maps 1e-6 (those of the JAX package's kernel tests); K3's bf16 output 1e-2.
+K1 sums the dots of QK^T on tensor cores, in another order than the plain
+version's fp32 matmul, and rounds each logit to bf16 at once: a logit can
+then land one bf16 ulp away and move its row of the map, so the map is not
+bit-equal to the plain version's, and t, an order statistic of the map,
+may differ from the plain t as well. K1 is held as chip_smoke.py holds it:
+t bit-equal to masked_map_stats on the kernel's own map and s within 1e-6
+of that map's masked row sums; against the plain version the map within
+one bf16 ulp of its largest entry, out within 2 bf16 ulps of max|out|, at
+most 1e-4 of the map's entries (or one row) differing, and t differing in
+at most max(1, B // 80) samples, each one whose map differs. K4/K5
+emit a map normalized after a k-th largest discard, where a one-ulp
+difference in the raw map can move an entry across the threshold: each is
+held against the plain normalize of K3's raw map on the same inputs (the
+same device code, so the same raw map: identical kept entries, map within
+1e-6), and against its plain version (out as above; map within 1e-6 on
+every sample whose kept entries agree).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -50,6 +60,11 @@ def _max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+def _bf16_ulp(x):
+    """The bf16 ulp (2^-7 of the power of two below) at max|x|."""
+    return math.ldexp(1.0, math.frexp(float(x.float().abs().max()))[1] - 8)
+
+
 def _prob_maps(rng, B, N):
     maps = rng.uniform(size=(B, N, N)).astype(np.float32)
     return torch.from_numpy(maps / maps.sum(-1, keepdims=True))
@@ -63,27 +78,31 @@ def _qkv_policy(rng, B, N, NP, C):
     return torch.from_numpy(qkv), torch.from_numpy(np.pad(pol, ((0, 0), (0, NP - N))))
 
 
+@pytest.mark.parametrize("B", [1, 3, 8])
 @pytest.mark.parametrize("exact", [True, False])
-@pytest.mark.parametrize("N,C,H", [(197, 192, 3), (24, 16, 2)])
-def test_block_stats_kernel_matches_plain(rng, cuda, exact, N, C, H):
-    qkv = torch.from_numpy(rng.normal(size=(8, N, 3 * C)).astype(np.float32))
+# N=40 runs the kernel built for 4 key tiles on 3 tiles of tokens
+@pytest.mark.parametrize("N,C,H", [(197, 192, 3), (24, 16, 2), (40, 64, 2)])
+def test_block_stats_kernel_matches_plain(rng, cuda, exact, N, C, H, B):
+    qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * C)).astype(np.float32))
     qkv = qkv.to(cuda, torch.bfloat16)
     before = kernels.launch_counts()["fused_attention_block_stats"]
     out, fmap, t, s = ac.fused_attention_block_stats(qkv, H, 0.9, exact)
     assert kernels.launch_counts()["fused_attention_block_stats"] == before + 1
-    p_out, p_map, p_t, p_s = ac.block_stats_plain(
+    p_out, p_map, p_t, _ = ac.block_stats_plain(
         qkv, H, N * N - int(N * N * 0.9), exact
     )
     own_t, _ = masked_map_stats(fmap, 0.9, exact_discard=exact)
     torch.cuda.synchronize()
-    # the kernel rounds where the plain version does: map and t bit-equal
-    assert torch.equal(fmap, p_map)
-    assert torch.equal(t, p_t.to(t.dtype))
+    assert fmap.dtype == (torch.float32 if exact else torch.bfloat16)
     assert torch.equal(t, own_t)
-    assert _max_err(s, p_s) <= 1e-6
-    # probs @ v may sum its fp32 products in another order than cuBLAS:
-    # at most one bf16 ulp of the largest output apart
-    assert _max_err(out, p_out) <= 2.0 ** -8 * float(p_out.float().abs().max())
+    assert _max_err(s, stats.masked_row_sums(fmap.float(), t.float())) <= 1e-6
+    assert _max_err(fmap, p_map) <= _bf16_ulp(p_map)
+    assert _max_err(out, p_out) <= 2 * _bf16_ulp(p_out)
+    map_diff = (fmap != p_map).flatten(1)
+    assert int(map_diff.sum()) <= max(int(1e-4 * fmap.numel()), N)
+    t_diff = t != p_t.to(t.dtype)
+    assert int(t_diff.sum()) <= max(1, B // 80)
+    assert bool((map_diff.any(dim=1) | ~t_diff).all())
 
 
 @pytest.mark.parametrize("exact", [True, False])
@@ -114,6 +133,9 @@ def test_map_stats_kernel_padded_keep_elements(rng, cuda):
     (torch.float32, 197, 197, 192, 3),
     (torch.float32, 17, 24, 24, 2),
     (torch.bfloat16, 82, 82, 192, 3),
+    (torch.bfloat16, 197, 256, 192, 3),
+    # the kernel built for 4 key tiles on 3 tiles of tokens
+    (torch.bfloat16, 35, 40, 64, 2),
 ])
 def test_mean_padded_kernel_matches_plain(rng, cuda, dtype, N, NP, C, H):
     qkv, pol = _qkv_policy(rng, 8, N, NP, C)

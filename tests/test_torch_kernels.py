@@ -104,6 +104,66 @@ def test_map_stats_plain_padded_keep_elements(rng):
     assert float(got_t.min()) > 0.0
 
 
+_RADIX_CASES = ("fp32", "bf16", "ties", "all_equal", "keep_1", "keep_E-1",
+                "ones", "above_hi", "zeros")
+
+
+def _radix_case(case, rng):
+    """(B, E) non-negative fp32 maps and the keep count of one case."""
+    B, N = 3, 24
+    E = N * N
+    maps = _prob_maps(rng, B, N).reshape(B, E)
+    keep = E - int(E * 0.9)
+    if case == "bf16":
+        maps = to_np(torch.from_numpy(maps).bfloat16())
+    elif case == "ties":  # the keep-th value repeated across the boundary
+        order = np.argsort(-maps, axis=1)
+        for b in range(B):
+            maps[b, order[b, keep - 4:keep + 4]] = maps[b, order[b, keep - 1]]
+    elif case == "all_equal":
+        maps[:] = 1.0 / N
+    elif case == "keep_1":
+        keep = 1
+    elif case == "keep_E-1":
+        keep = E - 1
+    elif case == "ones":  # the keep-th largest is exactly 1.0, hi0 itself
+        maps[:, :keep + 10] = 1.0
+    elif case == "above_hi":  # the keep-th largest is above 1.0: clamped
+        maps[:, :keep + 10] = rng.uniform(1.0, 4.0, size=(B, keep + 10))
+    elif case == "zeros":  # fewer than keep entries are non-zero
+        maps[:, keep // 2:] = 0.0
+    return np.ascontiguousarray(maps, dtype=np.float32), keep
+
+
+@pytest.mark.parametrize("prefix16", [False, True], ids=["fp32_keys", "prefix16"])
+@pytest.mark.parametrize("case", _RADIX_CASES)
+def test_radix_select_matches_jax_and_the_bisection(rng, case, prefix16):
+    """K1's threshold: the radix select of the keep-th largest key, clamped
+    to [0, bits(1.0)], is bit-equal to the JAX package's bisections over
+    that bracket (kth_largest / kth_largest_prefix16 with bound=1.0) and to
+    the port's bisect_threshold as K1's plain version runs it; unclamped,
+    to the JAX bisections from [0, max]."""
+    maps, keep = _radix_case(case, rng)
+    keys = t_stats.bisect_keys(torch.from_numpy(maps), prefix16)
+    bits, hi0 = (16, 0x3F80) if prefix16 else (32, 0x3F800000)
+    j_fn = j_roll.kth_largest_prefix16 if prefix16 else j_roll.kth_largest
+
+    def jax_key(bound):
+        key = to_np(j_fn(jnp.asarray(maps), keep, bound=bound)).view(np.int32)
+        return key >> 16 if prefix16 else key
+
+    got = t_stats.radix_select_keys(keys, keep, bits, 8, hi0)
+    np.testing.assert_array_equal(to_np(got), jax_key(1.0))
+    lo = torch.zeros(keys.shape[0], dtype=torch.int32)
+    bisected = t_roll.bisect_threshold(keys, keep, lo, torch.full_like(lo, hi0),
+                                       15 if prefix16 else 31)
+    assert torch.equal(got, bisected)
+    full = t_stats.radix_select_keys(keys, keep, bits, 8, (1 << bits) - 1)
+    np.testing.assert_array_equal(to_np(full), jax_key(None))
+    if case == "above_hi":
+        assert bool((got == hi0).all()) and bool((full > hi0).all())
+
+
 def test_map_stats_no_discard_sentinel_launches_nothing(rng):
     maps = torch.from_numpy(_prob_maps(rng, 2, 8))
     t_kernels.reset_launch_counts()
