@@ -20,9 +20,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      one bf16 ulp of its largest entry, out within 2 bf16 ulps of max|out|,
      at most 1e-4 of the map's entries and 2 of the 160 t values
      differing;
+     K2 (t bit-equal, s within 1e-6) and K4/K5's normalize launch split
+     one sample's map over a cluster of CTAs: each prints its cluster size
+     and how many clusters the card holds at once;
      K4 and K5 (the normalized-map cores) are held against the plain
      normalize of K3's raw map and against their plain versions, K4 also
-     and K5 only at the kernel bench's shapes and inputs (B=256);
+     and K5 only at the kernel bench's shapes and inputs (B=256); the
+     device time of each of their two launches (attention, normalize)
+     comes from a torch.profiler trace;
   4. serving: one ServingEngine per mode (bf16 speed, bf16 exact, fp32
      parity) over seeded random DeiT-Tiny/16@224 weights with 2000 local
      and 2000 global prototypes answers requests of 1, 160 and 333 images;
@@ -290,7 +295,15 @@ def check_kernels(dev: torch.device, gen: torch.Generator) -> dict:
             bound=bound(nbytes, (4.0 * B * n * n * C, peak)),
         )
 
-    # K2 on the fp32 head-mean maps K3 just emitted (the parity path)
+    # K2 on the fp32 head-mean maps K3 just emitted (the parity path), one
+    # sample over a cluster of CTAs
+    if dev.type == "cuda":
+        cluster = {"ctas_per_sample": lib.ppf_map_stats_cluster_size(N),
+                   "resident_clusters": lib.ppf_map_stats_active_clusters(N, 0)}
+        log(f"K2 launch at B={B}, N={N}: {B} clusters, {json.dumps(cluster)}")
+        require(cluster["ctas_per_sample"] > 1
+                and cluster["resident_clusters"] > 0,
+                "K2: not a multi-CTA cluster launch")
     t, s = stats.fused_map_stats(fmap32, DISCARD, exact_discard=True)
     p_t, p_s = stats.map_stats_plain(fmap32, keep, prefix16=False)
     torch.cuda.synchronize()
@@ -307,8 +320,10 @@ def check_kernels(dev: torch.device, gen: torch.Generator) -> dict:
         max_abs_err=err,
         ms=time_ms(lambda: stats.fused_map_stats(fmap32, DISCARD, True)),
         plain_ms=time_ms(lambda: stats.map_stats_plain(fmap32, keep, False)),
-        # 31 counting passes and the masked row sums, one operation each
-        bound=bound(nbytes, (32.0 * B * E, FP32_FLOPS)),
+        # the work, not the algorithm: one comparison per entry for the
+        # select and one for the masked row sums; the bytes term (the map
+        # read once, t and s written once) is as before
+        bound=bound(nbytes, (2.0 * B * E, FP32_FLOPS)),
     )
     return records
 
@@ -319,6 +334,21 @@ def _kept(norm_map: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(norm_map.shape[-1], dtype=torch.bool,
                     device=norm_map.device)
     return (norm_map > 0) & ~eye
+
+
+def phase_ms(fn, reps: int = 5) -> dict:
+    """Device ms per call of the two launches of a K4/K5 call, from a
+    torch.profiler trace of ``reps`` calls (``profile_chunk``): the
+    normalize (``normalize_kernel``) and the attention before it."""
+    prof = profile_chunk(fn, reps=reps, top=4)
+    phases = {"attention": 0.0, "normalize": 0.0}
+    for k in prof["top"]:
+        key = "normalize" if "normalize_kernel" in k["name"] else "attention"
+        phases[key] += k["ms"]
+    require(len(prof["top"]) == 2 and all(k["calls"] == 1 for k in prof["top"])
+            and phases["normalize"] > 0,
+            f"expected one attention and one normalize launch a call: {prof}")
+    return phases
 
 
 def check_core_kernels(dev: torch.device, gen: torch.Generator) -> dict:
@@ -340,9 +370,11 @@ def check_core_kernels(dev: torch.device, gen: torch.Generator) -> dict:
     counted (expected 0), the map within 1e-6 on every sample whose kept
     entries agree."""
     from protopformer_tpu_torch.cli.bench_kernels import bench_inputs
+    from protopformer_tpu_torch.kernels import _build
     from protopformer_tpu_torch.kernels import attention_core as ac
     from protopformer_tpu_torch.ops.rollout import normalize_attention_map
 
+    lib = _build.library()
     records = {}
     qkv = torch.randn((B, N, 3 * C), generator=gen).to(dev, torch.bfloat16)
     qkv32 = torch.randn((B, N, 3 * C), generator=gen).to(dev)
@@ -399,6 +431,16 @@ def check_core_kernels(dev: torch.device, gen: torch.Generator) -> dict:
         require(errs["map_vs_plain"] is not None
                 and errs["map_vs_plain"] <= 1e-6,
                 f"{name}: map outside tolerance of the plain version")
+        # the normalize: one sample's real block over a cluster of CTAs
+        cluster = {"ctas_per_sample": lib.ppf_attention_core_cluster_size(n),
+                   "resident_clusters":
+                       lib.ppf_attention_core_active_clusters(n, np_)}
+        phases = phase_ms(kernel)
+        log(f"{name}: normalize launch {bq} clusters, {json.dumps(cluster)}; "
+            f"device ms per call by phase {json.dumps(phases)}")
+        require(cluster["ctas_per_sample"] > 1
+                and cluster["resident_clusters"] > 0,
+                f"{name}: the normalize is not a multi-CTA cluster launch")
         el = q.element_size()
         nbytes = (bq * np_ * 3 * C * el + bq * np_ * C * el
                   + bq * np_ * np_ * 4 + (0 if p is None else bq * np_ * 4))
@@ -412,10 +454,12 @@ def check_core_kernels(dev: torch.device, gen: torch.Generator) -> dict:
             max_abs_err=max(v for v in errs.values() if v is not None),
             ms=time_ms(kernel),
             plain_ms=time_ms(plain),
-            # the products over all NP rows and columns; 31 counting passes
-            # and the row sums over the real block, one operation each
+            # the work, not the algorithm: the products over all NP rows
+            # and columns; over the real block one comparison per entry for
+            # the select and one operation for the blend. The bytes term
+            # (qkv, policy read once; out, the map written once) is as before
             bound=bound(nbytes, (4.0 * bq * np_ * np_ * C, peak),
-                        (32.0 * bq * n * n, FP32_FLOPS)),
+                        (2.0 * bq * n * n, FP32_FLOPS)),
         )
     return records
 

@@ -46,14 +46,13 @@ constexpr int kBandRows = 16 * kTilesPerCta;
 
 struct Layout {
   int np, astride, kstride;
-  size_t hist, sel, acc, kv, total;
+  size_t radix, acc, kv, total;
   __host__ __device__ Layout(int N, int hd) {
     np = 16 * ppf::key_tiles(N);
     astride = np + 8;  // 8 or 24 mod 32: a quad's float2 rows spread over banks
     kstride = ppf::kv_stride(hd);
-    hist = 0;  // the radix select's, sized for the fp32 keys
-    sel = hist + ppf::radix_hist_ints(false) * sizeof(int);
-    acc = ppf::align16(sel + 2 * sizeof(int));
+    radix = 0;  // the radix select's ints
+    acc = ppf::align16(radix + ppf::radix_smem_ints() * sizeof(int));
     kv = ppf::align16(acc + (size_t)kBandRows * astride * sizeof(float));
     total = ppf::align16(kv + (size_t)np * kstride * sizeof(__nv_bfloat16));
   }
@@ -76,8 +75,7 @@ block_stats_kernel(const __nv_bfloat16* __restrict__ qkv, int N, int C, int H,
   const int hk = (hd + 15) / 16;
   const int C3 = 3 * C;
   const Layout L(N, hd);
-  int* hist = reinterpret_cast<int*>(smem + L.hist);
-  int* sel = reinterpret_cast<int*>(smem + L.sel);
+  int* radix = reinterpret_cast<int*>(smem + L.radix);
   float* acc = reinterpret_cast<float*>(smem + L.acc);
   __nv_bfloat16* kv = reinterpret_cast<__nv_bfloat16*>(smem + L.kv);
 
@@ -102,8 +100,7 @@ block_stats_kernel(const __nv_bfloat16* __restrict__ qkv, int N, int C, int H,
 
   for (int e = threadIdx.x; e < kBandRows * L.astride / 4; e += blockDim.x)
     reinterpret_cast<float4*>(acc)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int e = threadIdx.x; e < ppf::radix_hist_ints(false); e += blockDim.x)
-    hist[e] = 0;
+  ppf::zero_radix_smem(radix);
 
   for (int h = 0; h < H; ++h) {
     __syncthreads();  // the previous head's V no longer read
@@ -223,31 +220,20 @@ block_stats_kernel(const __nv_bfloat16* __restrict__ qkv, int N, int C, int H,
   const bool prefix16 = !exact;
   const unsigned key = ppf::cluster_radix_select(
       acc, band, N, L.astride, prefix16, keep,
-      prefix16 ? (0x3F800000u >> 16) : 0x3F800000u, hist, sel);
+      prefix16 ? (0x3F800000u >> 16) : 0x3F800000u, radix);
   const float thr = ppf::threshold_from_key(static_cast<int>(key), prefix16);
   if (rank == 0 && threadIdx.x == 0) t_out[b] = thr;
   ppf::block_masked_row_sums(acc, band, N, L.astride, thr,
                              s_out + (size_t)b * N + row0);
 }
 
-// Launch configuration of a (cluster size, B) grid of kThreads-thread CTAs
-// in clusters of one sample each; `attr` must outlive the launch call.
+// The cluster launch of B samples at N tokens; `attr` must outlive the
+// launch call.
 cudaLaunchConfig_t cluster_config(int B, int N, size_t smem,
                                   cudaStream_t stream,
                                   cudaLaunchAttribute* attr) {
-  const int cs = cluster_size(N);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs, B, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
+  return ppf::cluster_launch_config(cluster_size(N), B, kThreads, smem, stream,
+                                    attr);
 }
 
 }  // namespace

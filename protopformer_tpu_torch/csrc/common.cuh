@@ -17,8 +17,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <climits>
-
 namespace ppf {
 
 namespace cg = cooperative_groups;
@@ -54,74 +52,22 @@ __device__ __forceinline__ float quad_max(float v) {
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-__device__ __forceinline__ int warp_sum_int(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ int warp_max_int(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Block-wide sums / maxima; `red` is shared scratch of >= 32 ints. Every
-// thread gets the result. The leading barrier keeps a previous call's
-// readers off `red` while it is rewritten.
-__device__ __forceinline__ int block_sum_int(int v, int* red) {
-  v = warp_sum_int(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int total = 0;
-  const int nw = blockDim.x >> 5;
-  for (int w = 0; w < nw; ++w) total += red[w];
-  return total;
-}
-
-__device__ __forceinline__ int block_max_int(int v, int* red) {
-  v = warp_max_int(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int m = red[0];
-  const int nw = blockDim.x >> 5;
-  for (int w = 1; w < nw; ++w) m = max(m, red[w]);
-  return m;
-}
+__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// Bisection key of a non-negative map value: the fp32 bit pattern, or its
-// high 16 bits (a logical shift, as the JAX kernels do) in prefix16 mode.
-__device__ __forceinline__ int bisect_key(float x, bool prefix16) {
-  return prefix16 ? static_cast<int>(__float_as_uint(x) >> 16)
-                  : __float_as_int(x);
-}
-
-// Largest key v in [lo, hi] with count(key(a[e]) >= v) >= keep, by `steps`
-// bisection steps over the block-resident map `a` of E values. The caller
-// has synchronised after writing `a`. (K2 and K4's normalize.)
-__device__ __forceinline__ int block_bisect(const float* a, int E, int keep,
-                                            bool prefix16, int lo, int hi,
-                                            int steps, int* red) {
-  for (int it = 0; it < steps; ++it) {
-    const int mid = lo + (hi - lo + 1) / 2;
-    int c = 0;
-    for (int e = threadIdx.x; e < E; e += blockDim.x)
-      c += bisect_key(a[e], prefix16) >= mid;
-    c = block_sum_int(c, red);
-    if (c >= keep) {
-      lo = mid;
-    } else {
-      hi = mid - 1;
-    }
-  }
-  return lo;
+// x / d rounded to nearest, from y = __frcp_rn(d), the correctly rounded
+// reciprocal: q = x y, then twice q += (x - q d) y by FMAs. For a normal
+// quotient this is div.rn's result (Markstein's theorem; held against
+// __fdiv_rn by tests/test_torch_gpu.py), and x = +0 gives +0. It has no
+// branch to div.rn's slow path, so the divisions of a row overlap.
+__device__ __forceinline__ float div_by_recip(float x, float d, float y) {
+  float q = __fmul_rn(x, y);
+  q = __fmaf_rn(__fmaf_rn(-q, d, x), y, q);
+  return __fmaf_rn(__fmaf_rn(-q, d, x), y, q);
 }
 
 __device__ __forceinline__ float threshold_from_key(int lo, bool prefix16) {
@@ -183,45 +129,59 @@ __device__ __forceinline__ void warp_pick_digit(const int (&c)[8], int k,
   }
 }
 
-// The portable limit of CTAs in a thread-block cluster.
-constexpr int kMaxClusterSize = 8;
+// The largest cluster a launch here takes: a sample of at most 256 rows
+// over CTAs of 64 rows (K1's four 16-row tiles, or kMapBandRows).
+constexpr int kMaxClusterSize = 4;
 
-// Shared ints the select's histograms take: one of 256 per pass.
-__host__ __device__ inline int radix_hist_ints(bool prefix16) {
-  return (prefix16 ? 2 : 4) * 256;
+// Copies of the counting histogram, one per lane group of lane % 16.
+constexpr int kHistCopies = 16;
+
+// Shared ints the select takes: per pass the CTA's 256 digit counts (4
+// passes at most), the picked digit and the count above it (2, padded to
+// 4), and the counting scratch of kHistCopies copies of 256 16-bit
+// counters, two digits a word.
+__host__ __device__ constexpr int radix_smem_ints() {
+  return 4 * 256 + 4 + 128 * kHistCopies;
 }
 
 // min(hi, keep-th largest key) over the non-negative fp32 values that the
 // CTAs of the calling cluster hold in shared memory, each `rows` x `cols`
 // (cols <= 256) at row stride `stride`. The key is the fp32 bit pattern, or
-// its high 16 bits in prefix16 mode. Digit by digit from the top, 8 bits a
-// pass (2 passes on 16-bit keys, 4 on 32-bit ones): each CTA counts its
-// keys that match the digits chosen so far into its histogram for the
-// pass, and one warp of each CTA sums the cluster's histograms through
-// distributed shared memory and picks the digit. Every CTA returns the same
-// key. This is the value the bisection of block_bisect returns from
+// its high 16 bits in prefix16 mode; a value whose sign bit is set (-0.0)
+// has key 0, since the JAX kernels bisect signed keys and never count it.
+// Digit by digit from the top, 8 bits a pass (2 passes on 16-bit keys, 4 on
+// 32-bit ones): each CTA counts its keys that match the digits chosen so
+// far by their next digit, and one warp of each CTA sums the cluster's
+// counts through distributed shared memory and picks the digit. Every CTA
+// returns the same key. This is the value a bisection returns from
 // [0, hi], for any keys, since both find the largest v <= hi with
-// count(key >= v) >= keep. `hist` (radix_hist_ints ints, shared) is zeroed
+// count(key >= v) >= keep; the keep-th largest key is never above the
+// largest, so hi at the top of the key space gives the bisection from
+// [0, max] of the JAX kernels.
+//
+// The keys of a map share their top digits, so one histogram would take
+// 32 lanes' atomics on a few counters. Lane l counts into copy l % 16 at
+// word (digit / 2) * 16 + l % 16: at most two lanes of a warp share a bank.
+// The CTA then sums the copies into its counts for the pass (each thread
+// two digits over 8 copies, zeroing what it read) before the cluster
+// barrier. `smem` (radix_smem_ints ints, shared, 16-byte aligned) is zeroed
 // by the caller before a barrier that precedes the call, which also
-// publishes `a`; `sel` is 2 shared ints. Called by every thread of every
-// CTA.
+// publishes `a`. Called by every thread of every CTA.
 __device__ __forceinline__ unsigned cluster_radix_select(
     const float* a, int rows, int cols, int stride, bool prefix16, int keep,
-    unsigned hi, int* hist, int* sel) {
+    unsigned hi, int* smem) {
   cg::cluster_group cluster = cg::this_cluster();
   const int nranks = static_cast<int>(cluster.num_blocks());
   const int lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
+  int* sel = smem + 4 * 256;
+  unsigned* scratch = reinterpret_cast<unsigned*>(sel + 4);
+  unsigned* mine = scratch + (lane & (kHistCopies - 1));
   const int bits = prefix16 ? 16 : 32;
   unsigned prefix = 0;
   int k = keep;
   for (int pass = 0; pass < bits / 8; ++pass) {
     const int shift = bits - 8 * (pass + 1);
-    int* h = hist + pass * 256;
-    // Each thread counts runs of equal digits in a register and adds a run
-    // to the histogram when its digit changes: the keys of a map share
-    // their top digits, so the early passes make few shared atomics.
-    int cur = -1, run = 0;
     for (int r = threadIdx.x >> 5; r < rows; r += nw) {
       float v[8];  // the row's values of this lane, loaded together
 #pragma unroll
@@ -232,29 +192,47 @@ __device__ __forceinline__ unsigned cluster_radix_select(
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         unsigned key = __float_as_uint(v[u]);
+        key = (key >> 31) ? 0u : key;
         if (prefix16) key >>= 16;
+        // every entry adds, 0 where it is not counted: no branch splits
+        // the warp
         const bool counted = lane + kWarp * u < cols &&
                              (pass == 0 || (key >> (shift + 8)) == prefix);
-        const int digit = counted ? static_cast<int>((key >> shift) & 255u) : -1;
-        if (digit != cur) {
-          if (run) atomicAdd(&h[cur], run);
-          cur = digit;
-          run = 0;
-        }
-        run += counted;
+        const unsigned digit = (key >> shift) & 255u;
+        atomicAdd(mine + (digit >> 1) * kHistCopies,
+                  static_cast<unsigned>(counted) << ((digit & 1) << 4));
       }
     }
-    if (run) atomicAdd(&h[cur], run);
+    __syncthreads();
+    // thread t sums digits 2p, 2p + 1 (p = t / 2) over copies 8h .. 8h + 7
+    // (h = t % 2), rotated so that a warp's reads fall on 32 banks; its
+    // partner t ^ 1 holds the other 8 copies
+    int* counts = smem + pass * 256;
+    for (int t = threadIdx.x; t < 256; t += blockDim.x) {
+      const int p = t >> 1, h = t & 1;
+      unsigned lo = 0, hi16 = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        unsigned* w = scratch + p * kHistCopies + 8 * h + ((i + (p >> 1)) & 7);
+        const unsigned x = *w;
+        *w = 0u;
+        lo += x & 0xffffu;
+        hi16 += x >> 16;
+      }
+      lo += __shfl_xor_sync(0xffffffffu, lo, 1);
+      hi16 += __shfl_xor_sync(0xffffffffu, hi16, 1);
+      counts[t] = static_cast<int>(h ? hi16 : lo);
+    }
     cluster.sync();
     if (threadIdx.x < kWarp) {
-      // lane l sums digits 248 - 8l .. 255 - 8l of every CTA's histogram,
-      // all the remote reads in flight at once
+      // lane l sums digits 248 - 8l .. 255 - 8l of every CTA's counts, all
+      // the remote reads in flight at once
       int4 part[kMaxClusterSize][2];
 #pragma unroll
       for (int q = 0; q < kMaxClusterSize; ++q) {
         if (q < nranks) {
           const int4* src = reinterpret_cast<const int4*>(
-              cluster.map_shared_rank(h, q) + 248 - 8 * lane);
+              cluster.map_shared_rank(counts, q) + 248 - 8 * lane);
           part[q][0] = src[0];
           part[q][1] = src[1];
         }
@@ -275,8 +253,192 @@ __device__ __forceinline__ unsigned cluster_radix_select(
     prefix = (prefix << 8) | static_cast<unsigned>(sel[0]);
     k -= sel[1];
   }
-  cluster.sync();  // no CTA leaves while another still reads its histograms
+  cluster.sync();  // no CTA leaves while another still reads its counts
   return min(prefix, hi);
+}
+
+// Zeroes the select's shared ints; a barrier must follow before the call.
+__device__ __forceinline__ void zero_radix_smem(int* smem) {
+  for (int e = threadIdx.x; e < radix_smem_ints() / 4; e += blockDim.x)
+    reinterpret_cast<int4*>(smem)[e] = make_int4(0, 0, 0, 0);
+}
+
+// Launch configuration of a (cs, B) grid of `threads`-thread CTAs in
+// clusters of cs along x: one sample a cluster, blockIdx.x its CTA's rank
+// and blockIdx.y the sample. `attr` must outlive the launch call.
+inline cudaLaunchConfig_t cluster_launch_config(int cs, int B, int threads,
+                                                size_t smem,
+                                                cudaStream_t stream,
+                                                cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, B, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// --- one sample's map over a cluster (K2, and K4/K5's normalize) -------------
+
+// Rows of the map a CTA holds at most, its threads, and the CTAs an SM
+// holds at once: as many as the shared memory of ~50-row bands of 197 fp32
+// allows, so that more of B=160's clusters of 4 run in the first round
+// (the kernels' __launch_bounds__ cap their registers to fit).
+constexpr int kMapBandRows = 64;
+constexpr int kMapThreads = 256;
+constexpr int kMapCtasPerSm = 4;
+
+// CTAs per sample: 4 at 197 or 256 rows (bands of 49-64 rows), 1 up to 64.
+__host__ __device__ inline int map_cluster_size(int rows) {
+  return (rows + kMapBandRows - 1) / kMapBandRows;
+}
+
+// Where the band starts in shared memory: after the select's ints.
+__host__ __device__ inline size_t map_band_offset() {
+  return align16(radix_smem_ints() * sizeof(int));
+}
+
+// Row stride of a band in shared memory for rows of `cols` values at global
+// row stride `stride`: the least one >= cols congruent to stride mod 4, so
+// that each row lands as its source is aligned (load_band).
+__host__ __device__ inline int band_stride(int cols, int stride) {
+  return cols + ((stride - cols) & 3);
+}
+
+// Shared bytes of one CTA: the band of at most ceil(rows / cluster) rows of
+// `cols` values in fp32 (global row stride `stride`), behind up to 3 floats
+// that align it with its source (cluster_map_select).
+__host__ __device__ inline size_t map_band_smem(int rows, int cols,
+                                                int stride) {
+  const int cs = map_cluster_size(rows);
+  const size_t band = (rows + cs - 1) / cs;
+  return map_band_offset() +
+         (3 + band * band_stride(cols, stride)) * sizeof(float);
+}
+
+__device__ __forceinline__ void widen16(const float* p, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+
+// bf16 -> fp32 is exact: the bf16 bits become the high half.
+__device__ __forceinline__ void widen16(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Copies `rows` rows of `cols` values of T at row stride `stride` from
+// global `src` to shared fp32 at row stride `dstride` from `dst`, widened
+// exactly. Each row is cut into the 16-byte-aligned chunks of the address
+// space it overlaps: whole chunks move as one 16-byte load and 16- or
+// 32-byte stores, the partial ones at a row's ends value by value; each
+// thread keeps 4 chunks in flight. Contiguous rows (stride == cols ==
+// dstride) are one range, so a row that does not start on 16 bytes (197
+// fp32 values are 788 bytes) costs nothing. `dst` lies at a float index
+// congruent mod 4 to src's element index, and dstride to stride, so that an
+// aligned chunk lands on 16 bytes.
+template <typename T>
+__device__ __forceinline__ void load_band(float* dst, int dstride,
+                                          const T* src, int rows, int cols,
+                                          int stride) {
+  constexpr int V = 16 / sizeof(T);  // values in a chunk
+  constexpr int U = 4;               // chunks a thread has in flight
+  if (stride == cols) {
+    cols *= rows;
+    rows = 1;
+  }
+  // ceil((cols + V - 1) / V) chunks cover a row at any alignment
+  const int cpr = (cols + 2 * V - 2) / V;
+  const int total = rows * cpr;
+  for (int i0 = threadIdx.x; i0 < total; i0 += U * blockDim.x) {
+    float v[U][V];
+    int r[U], c0[U];  // a chunk's row and first column
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * blockDim.x;
+      r[u] = i / cpr;
+      const T* row = src + r[u] * stride;
+      const int lead = static_cast<int>(
+          (reinterpret_cast<uintptr_t>(row) / sizeof(T)) & (V - 1));
+      c0[u] = i < total ? (i - r[u] * cpr) * V - lead : cols;
+      const T* p = row + c0[u];
+      if (c0[u] >= 0 && c0[u] + V <= cols) {
+        widen16(p, v[u]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const int c = c0[u] + j;
+          v[u][j] = c >= 0 && c < cols ? to_float(p[j]) : 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float* q = dst + r[u] * dstride + c0[u];
+      if (c0[u] >= 0 && c0[u] + V <= cols) {
+#pragma unroll
+        for (int j = 0; j < V; j += 4)
+          *reinterpret_cast<float4*>(q + j) =
+              make_float4(v[u][j], v[u][j + 1], v[u][j + 2], v[u][j + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const int c = c0[u] + j;
+          if (c >= 0 && c < cols) q[j] = v[u][j];
+        }
+      }
+    }
+  }
+}
+
+// A CTA's share of one sample's map: its rows, resident in shared memory.
+struct MapBand {
+  const float* a;  // the band's first row
+  int stride;      // its row stride (band_stride)
+  int row0;        // the map row it starts at
+  int rows;
+};
+
+// The keep-th largest key (cluster_radix_select, hi at the top of the key
+// space) of one sample's real `rows` x `cols` map of T at row stride
+// `stride` (cols <= 256), split over the calling cluster of
+// map_cluster_size(rows) CTAs (blockIdx.x the rank): each CTA loads a band
+// of whole rows, rows * rank / cs up to the next, into `smem`
+// (map_band_smem bytes) as fp32, pad columns left out, and the cluster
+// selects over the bands.
+// The rows are whole, so each CTA's epilogue on `band` needs no cluster
+// traffic. Called by every thread of every CTA.
+template <typename T>
+__device__ __forceinline__ unsigned cluster_map_select(
+    const T* map, int rows, int cols, int stride, bool prefix16, int keep,
+    unsigned char* smem, MapBand& band) {
+  const int cs = static_cast<int>(gridDim.x);
+  const int rank = static_cast<int>(blockIdx.x);
+  band.row0 = rank * rows / cs;
+  band.rows = (rank + 1) * rows / cs - band.row0;
+  int* radix = reinterpret_cast<int*>(smem);
+  const T* src = map + (size_t)band.row0 * stride;
+  const int pad = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(src) / sizeof(T)) & 3);
+  float* a = reinterpret_cast<float*>(smem + map_band_offset()) + pad;
+  band.a = a;
+  band.stride = band_stride(cols, stride);
+  zero_radix_smem(radix);
+  load_band(a, band.stride, src, band.rows, cols, stride);
+  __syncthreads();  // publishes the band and the zeroed counts
+  return cluster_radix_select(a, band.rows, cols, band.stride, prefix16, keep,
+                              prefix16 ? 0xFFFFu : 0xFFFFFFFFu, radix);
 }
 
 // --- asynchronous copies and tensor-core fragments ---------------------------
@@ -470,8 +632,6 @@ __device__ __forceinline__ void store_o(__nv_bfloat16* out, int C,
     }
   }
 }
-
-__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
 
 // Row stride (elements) of a bf16 K or V tile with hd columns: hd padded
 // to 16, plus 8 so that ldmatrix's 8 rows fall on distinct banks.

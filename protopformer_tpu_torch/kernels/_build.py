@@ -39,7 +39,8 @@ _FLOAT = ctypes.c_float
 _SIGNATURES = {
     "ppf_map_stats": [_VOIDP, _INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP,
                       _VOIDP],
-    "ppf_map_stats_smem_bytes": [_INT],
+    "ppf_map_stats_cluster_size": [_INT],
+    "ppf_map_stats_active_clusters": [_INT, _INT],
     "ppf_attention_block_stats": [_VOIDP, _INT, _INT, _INT, _INT, _INT, _INT,
                                   _FLOAT, _FLOAT, _VOIDP, _VOIDP, _VOIDP,
                                   _VOIDP, _VOIDP],
@@ -52,7 +53,8 @@ _SIGNATURES = {
     "ppf_attention_core": [_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT, _INT,
                            _INT, _FLOAT, _FLOAT, _FLOAT, _FLOAT, _VOIDP,
                            _VOIDP, _VOIDP],
-    "ppf_attention_core_smem_bytes": [_INT],
+    "ppf_attention_core_cluster_size": [_INT],
+    "ppf_attention_core_active_clusters": [_INT, _INT],
 }
 
 # shared memory one block may use on Hopper (sm_90), bytes

@@ -26,18 +26,17 @@ import torch
 
 from protopformer_tpu_torch.kernels import _build
 from protopformer_tpu_torch.kernels.stats import (
+    MAX_N,
     bisect_keys,
     masked_row_sums,
+    radix_select_keys,
     threshold_from_key,
 )
 from protopformer_tpu_torch.ops.masking import eps_softmax
-from protopformer_tpu_torch.ops.rollout import (
-    bisect_threshold,
-    normalize_attention_map,
-)
+from protopformer_tpu_torch.ops.rollout import normalize_attention_map
 
 SOFTMAX_EPS = 1e-6
-_ONE_BITS = 0x3F800000  # fp32 bit pattern of 1.0, the static bisection bound
+_ONE_BITS = 0x3F800000  # fp32 bit pattern of 1.0, K1's static threshold bound
 
 
 def _bf16_value(x: float) -> float:
@@ -62,8 +61,8 @@ def _check_qkv(name: str, qkv: torch.Tensor, num_heads: int,
                          f"multiple of {step} and at most 64")
     if qkv.data_ptr() % 16:
         raise ValueError(f"{name}: qkv must be 16-byte aligned")
-    if N > 256:
-        raise ValueError(f"{name}: at most 256 tokens, got {N}")
+    if N > MAX_N:
+        raise ValueError(f"{name}: at most {MAX_N} tokens, got {N}")
     return B, N, C
 
 
@@ -75,10 +74,12 @@ def block_stats_plain(qkv: torch.Tensor, num_heads: int, keep: int,
     bf16 logits = bf16(fp32 dot) * bf16(hd**-0.5); ``eps_softmax``'s bf16
     branch (bf16 exp, fp32 row sum + 1e-6, bf16 reciprocal multiply);
     acc += fp32(probs) * (1/H); out = fp32-accumulated probs @ v rounded
-    to bf16. The kernel sums the dots on tensor cores in another order, so
-    a bf16 logit may differ by one ulp and move its row of the map: the
-    kernel's map is held to this one within one bf16 ulp of its largest
-    entry, its t and s to ``masked_map_stats`` on its own map."""
+    to bf16; the threshold is the radix select of the keep-th largest key
+    of the stored map, clamped to bits(1.0). The kernel sums the dots on
+    tensor cores in another order, so a bf16 logit may differ by one ulp
+    and move its row of the map: the kernel's map is held to this one
+    within one bf16 ulp of its largest entry, its t and s to
+    ``masked_map_stats`` on its own map."""
     B, N, C3 = qkv.shape
     C = C3 // 3
     H = num_heads
@@ -98,10 +99,9 @@ def block_stats_plain(qkv: torch.Tensor, num_heads: int, keep: int,
     fmap = acc.to(torch.float32 if exact_discard else torch.bfloat16)
     a = fmap.float()
     prefix16 = not exact_discard
-    keys = bisect_keys(a, prefix16)
-    lo = torch.zeros(B, dtype=torch.int32, device=qkv.device)
-    hi = torch.full_like(lo, _ONE_BITS >> 16 if prefix16 else _ONE_BITS)
-    lo = bisect_threshold(keys, keep, lo, hi, 15 if prefix16 else 31)
+    lo = radix_select_keys(bisect_keys(a, prefix16), keep,
+                           16 if prefix16 else 32, 8,
+                           _ONE_BITS >> 16 if prefix16 else _ONE_BITS)
     t = threshold_from_key(lo, prefix16)
     return torch.cat(outs, dim=-1), fmap, t, masked_row_sums(a, t)
 
@@ -318,8 +318,6 @@ def _core_launch(name: str, qkv: torch.Tensor, policy, num_heads: int,
     lib = _build.library()
     _build.check_smem(name, lib.ppf_attention_mean_smem_bytes(NP, hd,
                                                               int(is_bf16)))
-    # the normalize phase holds the real (real_n, real_n) fp32 block
-    _build.check_smem(name, lib.ppf_attention_core_smem_bytes(real_n))
     E = real_n * real_n
     keep = E - int(E * discard_ratio)
     dev = qkv.device
@@ -374,7 +372,7 @@ def fused_attention_core(
 
     Args:
       qkv: (B, N, 3C) q|k|v activations in the compute dtype (fp32 or
-        bf16), N <= 240.
+        bf16), N <= 256.
       policy: (B, N) keep-mask, or None (all ones).
       ones_policy: the all-ones policy whatever ``policy`` holds
         (pre-prune blocks).
@@ -405,8 +403,9 @@ def fused_attention_core_padded(
     Args:
       qkv: (B, NP, 3C) activations; rows >= real_n are pads.
       policy: (B, NP) keep-mask with pads 0.
-      real_n: the real token count (<= 240); the eps terms and the discard
-        keep count use it, so the real block matches the unpadded kernel.
+      real_n: the real token count (<= NP <= 256); the eps terms and the
+        discard keep count use it, so the real block matches the unpadded
+        kernel.
 
     Returns:
       (out (B, NP, C) in the qkv dtype, the normalized map (B, NP, NP)

@@ -2,8 +2,9 @@
 ``protopformer_tpu/kernels/stats.py``).
 
 ``fused_map_stats`` returns the per-map discard threshold (the keep-th
-largest value, by bisection on the bit pattern) and the masked row sums in
-one pass over the map. A CUDA tensor goes to the hand-written kernel
+largest value on the bit pattern, which the JAX kernel bisects for and the
+port's kernels find by a radix select) and the masked row sums in one pass
+over the map. A CUDA tensor goes to the hand-written kernel
 (``csrc/map_stats.cu``); a CPU tensor goes to ``map_stats_plain``, the
 plain PyTorch version of the same steps. Any other device raises.
 """
@@ -15,12 +16,13 @@ from typing import Tuple
 import torch
 
 from protopformer_tpu_torch.kernels import _build
-from protopformer_tpu_torch.ops.rollout import bisect_threshold
+
+MAX_N = 256  # tokens a map may have: a cluster of 4 CTAs of 64 rows
 
 
 def bisect_keys(a: torch.Tensor, prefix16: bool) -> torch.Tensor:
-    """(B, ...) fp32 values -> (B, E) int32 bisection keys: the bit
-    pattern, or its high 16 bits by a logical shift."""
+    """(B, ...) fp32 values -> (B, E) int32 keys, those the JAX kernels
+    bisect: the bit pattern, or its high 16 bits by a logical shift."""
     bits = a.contiguous().view(torch.int32).reshape(a.shape[0], -1)
     if prefix16:
         bits = (bits >> 16) & 0xFFFF
@@ -29,16 +31,19 @@ def bisect_keys(a: torch.Tensor, prefix16: bool) -> torch.Tensor:
 
 def radix_select_keys(keys: torch.Tensor, keep: int, key_bits: int,
                       digit_bits: int, hi: int) -> torch.Tensor:
-    """Plain statement of K1's radix select (``csrc/common.cuh``,
-    ``cluster_radix_select``): per row of the (B, E) non-negative integer
-    ``keys`` (each below ``2**key_bits``), min(hi, the keep-th largest
-    key), found digit by digit from the top, ``digit_bits`` bits a pass.
-    Each pass counts the keys that match the digits chosen so far by their
-    next digit and takes the digit that holds the keep-th largest. This is
-    what ``bisect_threshold`` returns from [0, hi] on the same keys: both
-    find the largest v <= hi with count(keys >= v) >= keep. Returns (B,)
-    in the keys' dtype."""
-    k64 = keys.to(torch.int64)
+    """Plain statement of the kernels' radix select (``csrc/common.cuh``,
+    ``cluster_radix_select``, run by K1, K2 and K4/K5's normalize): per
+    row of the (B, E) integer ``keys`` (``key_bits`` wide, as
+    ``bisect_keys`` makes them), min(hi, the keep-th largest key), found
+    digit by digit from the top, ``digit_bits`` bits a pass. A key whose
+    top bit, the fp32 sign, is set (-0.0) counts as 0, as the JAX
+    kernels' signed bisection never counts it. Each pass counts the keys
+    that match the digits chosen so far by their next digit and takes the
+    digit that holds the keep-th largest. This is what ``bisect_threshold``
+    returns from [0, hi] on the same keys: both find the largest v <= hi
+    with count(keys >= v) >= keep. Returns (B,) in the keys' dtype."""
+    k64 = keys.to(torch.int64) & ((1 << key_bits) - 1)
+    k64 = torch.where(k64 >> (key_bits - 1) == 1, 0, k64)
     B = k64.shape[0]
     radix = 1 << digit_bits
     dev = keys.device
@@ -68,12 +73,14 @@ def masked_row_sums(a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def map_stats_plain(fmap: torch.Tensor, keep: int, prefix16: bool
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: (t (B,) fp32, s (B, N) fp32)."""
+    """Plain PyTorch version of the kernel: the radix select of the
+    keep-th largest key over the whole key space (the JAX kernel's
+    bisection from [0, max]), then the masked row sums. Returns
+    (t (B,) fp32, s (B, N) fp32)."""
     a = fmap.float()
-    keys = bisect_keys(a, prefix16)
-    lo = torch.zeros(a.shape[0], dtype=torch.int32, device=a.device)
-    lo = bisect_threshold(keys, keep, lo, keys.amax(dim=1),
-                          15 if prefix16 else 31)
+    bits = 16 if prefix16 else 32
+    lo = radix_select_keys(bisect_keys(a, prefix16), keep, bits, 8,
+                           (1 << bits) - 1)
     t = threshold_from_key(lo, prefix16)
     return t, masked_row_sums(a, t)
 
@@ -88,8 +95,9 @@ def map_stats_cuda(fmap: torch.Tensor, keep: int, prefix16: bool
     if not fmap.is_contiguous():
         raise ValueError("map_stats: map must be contiguous")
     B, N, _ = fmap.shape
+    if N > MAX_N:
+        raise ValueError(f"map_stats: at most {MAX_N} tokens, got {N}")
     lib = _build.library()
-    _build.check_smem("map_stats", lib.ppf_map_stats_smem_bytes(N))
     t = torch.empty(B, dtype=torch.float32, device=fmap.device)
     s = torch.empty((B, N), dtype=torch.float32, device=fmap.device)
     stream = torch.cuda.current_stream(fmap.device).cuda_stream

@@ -28,6 +28,7 @@ every sample whose kept entries agree).
 """
 
 import math
+import subprocess
 
 import numpy as np
 import pytest
@@ -105,15 +106,40 @@ def test_block_stats_kernel_matches_plain(rng, cuda, exact, N, C, H, B):
     assert bool((map_diff.any(dim=1) | ~t_diff).all())
 
 
+@pytest.mark.parametrize("B", [1, 3, 8])
 @pytest.mark.parametrize("exact", [True, False])
-@pytest.mark.parametrize("N", [197, 24])
-def test_map_stats_kernel_matches_plain(rng, cuda, exact, N):
-    maps = _prob_maps(rng, 8, N).to(cuda)
+# one CTA a sample at 17 and 24 tokens, a cluster of 2 at 82 and 4 at 197
+# (bands of 49-50 rows) and 256 (64 rows)
+@pytest.mark.parametrize("N", [17, 24, 82, 197, 256])
+def test_map_stats_kernel_matches_plain(rng, cuda, exact, N, B):
+    maps = _prob_maps(rng, B, N).to(cuda)
     if not exact:
         maps = maps.bfloat16()
+    before = kernels.launch_counts()["fused_map_stats"]
     t, s = stats.fused_map_stats(maps, 0.9, exact_discard=exact)
+    assert kernels.launch_counts()["fused_map_stats"] == before + 1
     want_t, want_s = stats.fused_map_stats(maps.cpu(), 0.9, exact_discard=exact)
     assert torch.equal(t.cpu(), want_t)
+    assert _max_err(s.cpu(), want_s) <= 1e-6
+
+
+@pytest.mark.parametrize("exact,dtype", [(True, torch.float32),
+                                         (False, torch.float32),
+                                         (False, torch.bfloat16)])
+def test_map_stats_kernel_negative_zero(rng, cuda, exact, dtype):
+    """-0.0 entries count as zeros in the select, as in the plain version:
+    a row of them in every map, and all but keep - 3 entries of map 2."""
+    B, N = 3, 197
+    maps = _prob_maps(rng, B, N)
+    keep = N * N - int(N * N * 0.9)
+    maps[:, 5, :] = -0.0
+    maps[2].view(-1)[keep - 3:] = -0.0
+    maps = maps.to(dtype)
+    t, s = stats.fused_map_stats(maps.to(cuda), 0.9, exact_discard=exact)
+    want_t, want_s = stats.fused_map_stats(maps, 0.9, exact_discard=exact)
+    assert torch.equal(t.cpu().float().view(torch.int32),
+                       want_t.float().view(torch.int32))
+    assert float(want_t[2]) == 0.0
     assert _max_err(s.cpu(), want_s) <= 1e-6
 
 
@@ -182,6 +208,8 @@ def _check_core(qkv, pol, H, real_n, out, fmap, p_out, p_map):
     (torch.bfloat16, 197, 192, 3, True),
     (torch.float32, 197, 192, 3, False),
     (torch.float32, 24, 16, 2, True),
+    (torch.bfloat16, 256, 192, 3, True),
+    (torch.float32, 256, 192, 3, False),
 ])
 def test_core_kernel_matches_plain(rng, cuda, dtype, N, C, H, ones):
     qkv, pol = _qkv_policy(rng, 8, N, N, C)
@@ -198,6 +226,10 @@ def test_core_kernel_matches_plain(rng, cuda, dtype, N, C, H, ones):
 @pytest.mark.parametrize("dtype,N,NP,C,H", [
     (torch.bfloat16, 197, 256, 192, 3),
     (torch.float32, 17, 32, 24, 2),
+    # the normalize over a cluster takes every real_n <= 256
+    (torch.bfloat16, 250, 256, 192, 3),
+    (torch.bfloat16, 256, 256, 192, 3),
+    (torch.float32, 250, 256, 192, 3),
 ])
 def test_core_padded_kernel_matches_plain(rng, cuda, dtype, N, NP, C, H):
     qkv, pol = _qkv_policy(rng, 8, N, NP, C)
@@ -219,11 +251,67 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
             torch.zeros((2, 24, 48), device=cuda).transpose(1, 2), torch.ones(
                 (2, 48), device=cuda), 2, 48,
         )
-    with pytest.raises(ValueError):
-        stats.fused_map_stats(torch.zeros((2, 300, 300), device=cuda), 0.9)
-    # the normalize phase holds the real block: real_n <= 240
-    with pytest.raises(ValueError, match="shared memory"):
+    # every kernel takes at most 256 tokens
+    with pytest.raises(ValueError, match="at most 256"):
+        stats.fused_map_stats(torch.zeros((2, 257, 257), device=cuda), 0.9)
+    with pytest.raises(ValueError, match="at most 256"):
+        ac.fused_attention_core(torch.zeros((2, 257, 48), device=cuda),
+                                None, 2, ones_policy=True)
+    with pytest.raises(ValueError, match="at most 256"):
         ac.fused_attention_core_padded(
-            torch.zeros((2, 256, 48), device=cuda),
-            torch.ones((2, 256), device=cuda), 2, 250,
+            torch.zeros((2, 264, 48), device=cuda),
+            torch.ones((2, 264), device=cuda), 2, 250,
         )
+
+
+_DIV_CHECK = r"""
+#include <cstdio>
+#include <cstdlib>
+#include "common.cuh"
+__device__ unsigned long long bad;
+__device__ void count(float x, float d, float y) {
+  if (__float_as_uint(ppf::div_by_recip(x, d, y)) !=
+      __float_as_uint(__fdiv_rn(x, d)))
+    atomicAdd(&bad, 1ull);
+}
+__global__ void check(float d, unsigned lo, unsigned n) {
+  const float y = __frcp_rn(d);
+  if (blockIdx.x == 0 && threadIdx.x == 0) count(0.f, d, y);
+  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x)
+    count(__uint_as_float(lo + i), d, y);
+}
+int main(int argc, char** argv) {
+  unsigned long long total = 0;
+  for (int k = 1; k < argc; ++k) {
+    unsigned long long zero = 0, n = 0;
+    cudaMemcpyToSymbol(bad, &zero, sizeof(zero));
+    check<<<1320, 256>>>(strtof(argv[k], nullptr), 0x2B800000u,
+                         0x40800000u - 0x2B800000u);
+    if (cudaMemcpyFromSymbol(&n, bad, sizeof(n)) != cudaSuccess) return 2;
+    total += n;
+  }
+  printf("%llu\n", total);
+  return 0;
+}
+"""
+
+
+def test_division_by_reciprocal_matches_div_rn(cuda, tmp_path):
+    """K4/K5's normalize divides by a correctly rounded reciprocal with two
+    FMA corrections (``common.cuh::div_by_recip``): bit-equal to
+    ``__fdiv_rn`` for +0 and every fp32 numerator in [2^-40, 4), over
+    1 + identity_weight = 1.2 and 15 seeded divisors in [0.15, 100)."""
+    from protopformer_tpu_torch.kernels import _build
+
+    src, exe = tmp_path / "div_check.cu", tmp_path / "div_check"
+    src.write_text(_DIV_CHECK)
+    subprocess.run([_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17",
+                    "-O3", "-I", str(_build.CSRC), "-o", str(exe), str(src)],
+                   check=True, capture_output=True, timeout=300)
+    divisors = [1.2] + list(np.random.default_rng(7).uniform(0.15, 100.0, 15))
+    out = subprocess.run([str(exe), *(repr(float(np.float32(d)))
+                                      for d in divisors)],
+                         check=True, capture_output=True, text=True,
+                         timeout=300)
+    assert out.stdout.strip() == "0"

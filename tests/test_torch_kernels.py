@@ -164,6 +164,61 @@ def test_radix_select_matches_jax_and_the_bisection(rng, case, prefix16):
         assert bool((got == hi0).all()) and bool((full > hi0).all())
 
 
+def _negative_zero_maps(rng, B=3, N=24):
+    """(B, N, N) probability maps holding -0.0 entries: a row of them in
+    every map, every 7th entry of map 1, and all but keep - 3 entries of
+    map 2, whose threshold is then 0."""
+    maps = _prob_maps(rng, B, N)
+    E = N * N
+    keep = E - int(E * 0.9)
+    maps[:, 5, :] = -0.0
+    maps[1].reshape(-1)[::7] = -0.0
+    maps[2].reshape(-1)[keep - 3:] = -0.0
+    return maps, keep
+
+
+@pytest.mark.parametrize("exact,dtype", [(True, "float32"),
+                                         (False, "float32"),
+                                         (False, "bfloat16")],
+                         ids=["exact", "prefix16", "prefix16_bf16"])
+def test_select_counts_negative_zero_as_zero(rng, exact, dtype):
+    """A -0.0 entry is a zero: the JAX kernels bisect signed keys and never
+    count it, so the radix select (K1, K2, K4/K5's normalize) maps a key
+    whose sign bit is set to 0. Held bit for bit against JAX's
+    masked_map_stats and the port's bisect_threshold on the signed keys in
+    both modes, and against the JAX kernel (interpret mode) in exact mode.
+    In prefix16 mode the JAX kernel shifts the keys logically
+    (kernels/stats.py:44), which makes -0.0 the largest 16-bit key; the
+    port follows masked_map_stats, the contract that kernel names."""
+    maps, keep = _negative_zero_maps(rng)
+    t_in = torch.from_numpy(maps).to(getattr(torch, dtype))
+    j_in = jnp.asarray(maps).astype(dtype)
+    got_t, got_s = t_stats.fused_map_stats(t_in, 0.9, exact_discard=exact)
+    want_t, want_s = j_roll.masked_map_stats(j_in, 0.9, exact_discard=exact)
+    bits = lambda t: to_np(t.float() if isinstance(t, torch.Tensor)
+                           else t.astype(jnp.float32)).view(np.int32)
+    np.testing.assert_array_equal(bits(got_t), bits(want_t))
+    np.testing.assert_allclose(to_np(got_s), to_np(want_s), atol=1e-6)
+    assert float(got_t.float()[2]) == 0.0 and float(got_t.float()[0]) > 0.0
+    if exact:
+        k_t, k_s = j_stats.fused_map_stats(j_in, 0.9, exact_discard=True,
+                                           interpret=True)
+        np.testing.assert_array_equal(bits(got_t), bits(k_t))
+        np.testing.assert_allclose(to_np(got_s), to_np(k_s), atol=1e-6)
+
+    a = t_in.float()
+    key_bits = 32 if exact else 16
+    selected = t_stats.radix_select_keys(t_stats.bisect_keys(a, not exact),
+                                         keep, key_bits, 8, (1 << key_bits) - 1)
+    # the signed keys of the JAX bisections: an arithmetic shift keeps
+    # -0.0 negative
+    signed = a.reshape(3, -1).view(torch.int32) >> (32 - key_bits)
+    lo = torch.zeros(3, dtype=torch.int32)
+    bisected = t_roll.bisect_threshold(signed, keep, lo, signed.amax(dim=1),
+                                       key_bits - 1)
+    assert torch.equal(selected, bisected)
+
+
 def test_map_stats_no_discard_sentinel_launches_nothing(rng):
     maps = torch.from_numpy(_prob_maps(rng, 2, 8))
     t_kernels.reset_launch_counts()
