@@ -43,6 +43,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
      exact must keep x within rtol 2e-2 plus 2e-2 * max|ref| and
      cls_token_attn within phase 5's selection contract;
   4c. the kernel bench (cli.bench_kernels.run) once; K5 must launch;
+  4d. CaiT: one ServingEngine per mode over seeded random CaiT-XXS-24
+     weights (24 talking-heads blocks, 2 class-attention blocks, the same
+     prototypes and classes, reserve at class-attention block 1 keeping
+     81) answers the same requests; the launch counters must read 0 for
+     every kernel (its blocks and its signed statistics run no kernel of
+     kernels/); a throughput_probe of 1,600 images, 2 reps, and a profile
+     of one chunk; then on 2 images the card against the CPU: fp32
+     cls_token_attn within 1e-5, logits within 1e-4 and the same top-81;
+     bf16 speed and exact keep at least 76 of the CPU fp32 top-81, drop
+     none of fp32 rank below 60, and keep the logits within phase 5's
+     bound;
   5. the card against the CPU: fp32 parity on 2 images (logits within
      1e-4, the same top-81 tokens), and bf16 speed and bf16 exact against
      the CPU's fp32 forward (at least 74 of the top-81 tokens kept, none
@@ -81,6 +92,7 @@ N_GATHERED = 82  # CLS + the 81 kept tokens after the prune-point gather
 DISCARD = 0.9
 REQUESTS = (1, 160, 333)
 PROBE_IMAGES = 160 * 8
+CAIT_PROBE_IMAGES = 160 * 10
 
 
 def log(msg: str) -> None:
@@ -780,6 +792,98 @@ def bench(dev: torch.device) -> dict:
     return {"bench": {"launches": launches}}
 
 
+# --- phase 4d: CaiT serving -------------------------------------------------------
+
+def cait(dev: torch.device, rng: np.random.Generator) -> dict:
+    """CaiT-XXS-24 PPNet serving in three modes, each launching no kernel,
+    then the card against the CPU on 2 images. Returns {mode: {"launches",
+    "img_per_sec"}}."""
+    from protopformer_tpu_torch import kernels
+    from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
+    from protopformer_tpu_torch.models import construct_ppnet
+    from protopformer_tpu_torch.serving import ServingEngine
+
+    ppnet = PPNetConfig(reserve_layers=(1,), reserve_token_nums=(81,))
+    modes = {
+        "cait_bf16_speed": (backbone_preset("cait_xxs24_224",
+                                            rollout_exact_discard=False),
+                            torch.bfloat16),
+        "cait_bf16_exact": (backbone_preset("cait_xxs24_224"), torch.bfloat16),
+        "cait_fp32_parity": (backbone_preset("cait_xxs24_224"), torch.float32),
+    }
+    state_dict = construct_ppnet(
+        modes["cait_fp32_parity"][0], ppnet, torch.float32,
+        generator=torch.Generator().manual_seed(3)).state_dict()
+    results = {}
+    for mode, (backbone, dtype) in modes.items():
+        engine = ServingEngine(backbone, ppnet, state_dict, batch_size=B,
+                               compute_dtype=dtype, with_attn=True,
+                               device=dev)
+        requests = [rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+                    for n in REQUESTS]
+        kernels.reset_launch_counts()
+        answers = [engine(imgs) for imgs in requests]
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        log(f"serve {mode}: launches {json.dumps(launches)}")
+        require(set(launches.values()) == {0},
+                f"serve {mode}: a CaiT forward launched a kernel")
+        for n, res in zip(REQUESTS, answers):
+            require(res.logits.shape == (n, ppnet.num_classes)
+                    and res.cls_token_attn.shape == (n, 196)
+                    and bool(np.isfinite(res.logits).all()
+                             and np.isfinite(res.cls_token_attn).all()),
+                    f"serve {mode}: wrong shape or non-finite output for "
+                    f"{n} images")
+        probe = engine.throughput_probe(n_images=CAIT_PROBE_IMAGES, reps=2)
+        log(f"serve {mode}: throughput_probe {json.dumps(probe)}")
+        # one forward: a CaiT chunk makes ~10,000 launches, and reading
+        # their trace takes seconds per forward
+        t0 = time.perf_counter()
+        log(f"serve {mode}: profile "
+            f"{json.dumps(profile_forward(engine, reps=1))} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        results[mode] = {"launches": launches,
+                         "img_per_sec": probe["img_per_sec"]}
+        del engine
+
+    imgs = rng.integers(0, 256, (2, 224, 224, 3), dtype=np.uint8)
+
+    def run(bk, dtype, device):
+        return ServingEngine(bk, ppnet, state_dict, batch_size=2,
+                             compute_dtype=dtype, with_attn=True,
+                             device=device)(imgs)
+
+    backbone, _ = modes["cait_fp32_parity"]
+    cpu = run(backbone, torch.float32, "cpu")
+    card = run(backbone, torch.float32, dev)
+    errs = {"cls_token_attn": float(np.abs(card.cls_token_attn
+                                           - cpu.cls_token_attn).max()),
+            "logits": float(np.abs(card.logits - cpu.logits).max())}
+    same = [a == b for a, b in zip(top81(card.cls_token_attn),
+                                   top81(cpu.cls_token_attn))]
+    log(f"cait card vs cpu fp32: max abs err {json.dumps(errs)} (tolerance "
+        f"cls_token_attn 1e-5, logits 1e-4); same top-81 set {same}")
+    require(errs["cls_token_attn"] <= 1e-5 and errs["logits"] <= 1e-4
+            and all(same), "cait fp32 card vs CPU: outside contract")
+    atol = 2e-2 * float(np.abs(cpu.logits).max())
+    for mode in ("cait_bf16_speed", "cait_bf16_exact"):
+        bf16 = run(modes[mode][0], torch.bfloat16, dev)
+        overlap, worst_drop = selection(bf16.cls_token_attn,
+                                        cpu.cls_token_attn)
+        excess = np.abs(bf16.logits - cpu.logits) - (
+            atol + 2e-2 * np.abs(cpu.logits))
+        log(f"card {mode} vs cpu fp32: top-81 overlap {overlap}, lowest "
+            f"fp32 rank dropped {worst_drop}; logits max abs err "
+            f"{float(np.abs(bf16.logits - cpu.logits).max())!r} (bound rtol "
+            f"2e-2, atol {atol!r})")
+        require(min(overlap) >= 76, f"{mode} selection: overlap below 76/81")
+        require(all(r is None or r >= 60 for r in worst_drop),
+                f"{mode} selection: dropped a token of fp32 rank below 60")
+        require(bool((excess <= 0).all()), f"{mode} logits: outside bound")
+    return results
+
+
 # --- main ----------------------------------------------------------------------
 
 def main() -> int:
@@ -833,6 +937,9 @@ def main() -> int:
     t0 = time.perf_counter()
     card_vs_cpu(dev, state_dict, rng)
     log(f"card vs cpu: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cait_served = cait(dev, rng)
+    log(f"cait: {time.perf_counter() - t0:.1f} s")
 
     # launches of each record's kernel on the paths that run it
     per_record_mode = {
@@ -863,7 +970,7 @@ def main() -> int:
     require(set(kernels.WRAPPERS) == {r["kernel"] for r in records.values()},
             "a kernel of the path has no record")
     log("serving img/s: " + json.dumps(
-        {m: r["img_per_sec"] for m, r in served.items()}))
+        {m: r["img_per_sec"] for m, r in {**served, **cait_served}.items()}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

@@ -6,6 +6,7 @@ exporter (``protopformer_tpu/checkpoint/torch_convert.py:282-425``):
   flax Dense kernel (in, out)          -> Linear weight (out, in)  [.T]
   flax Conv kernel (h, w, in, out)     -> Conv2d weight (out, in, h, w)
   flax LayerNorm scale/bias            -> weight/bias
+  CaiT LayerScale gamma_1/gamma_2      -> as they are
   add-on Dense layers_j                -> add_on_layers.{2j} 1x1 conv
   prototypes (P, C)                    -> (P, C, 1, 1), plus ``ones``
   frozen heads (P, cls)                -> (cls, P) [.T]
@@ -39,22 +40,49 @@ def _layernorm(tree: Tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
     out[f"{prefix}.bias"] = _a(tree["bias"])
 
 
-def _deit(params: Tree, depth: int) -> Dict[str, np.ndarray]:
+def _embed(params: Tree) -> Dict[str, np.ndarray]:
+    """CLS token, position embedding, patch-embed conv and final norm."""
     sd = {"cls_token": _a(params["cls_token"]),
           "pos_embed": _a(params["pos_embed"])}
     proj = params["patch_embed"]["proj"]
     sd["patch_embed.proj.weight"] = _a(proj["kernel"]).transpose(3, 2, 0, 1)
     sd["patch_embed.proj.bias"] = _a(proj["bias"])
     _layernorm(params["norm"], "norm", sd)
+    return sd
+
+
+def _block(blk: Tree, p: str, attn_linears, out: Dict[str, np.ndarray]
+           ) -> None:
+    """One block's LayerScale gammas (CaiT), norms, attention and MLP."""
+    for gamma in ("gamma_1", "gamma_2"):
+        if gamma in blk:
+            out[f"{p}.{gamma}"] = _a(blk[gamma])
+    _layernorm(blk["norm1"], f"{p}.norm1", out)
+    _layernorm(blk["norm2"], f"{p}.norm2", out)
+    for lin in attn_linears:
+        _linear(blk["attn"][lin], f"{p}.attn.{lin}", out)
+    _linear(blk["mlp"]["fc1"], f"{p}.mlp.fc1", out)
+    _linear(blk["mlp"]["fc2"], f"{p}.mlp.fc2", out)
+
+
+def _deit(params: Tree, depth: int) -> Dict[str, np.ndarray]:
+    sd = _embed(params)
     for i in range(depth):
-        blk = params[f"blocks_{i}"]
-        p = f"blocks.{i}"
-        _layernorm(blk["norm1"], f"{p}.norm1", sd)
-        _layernorm(blk["norm2"], f"{p}.norm2", sd)
-        _linear(blk["attn"]["qkv"], f"{p}.attn.qkv", sd)
-        _linear(blk["attn"]["proj"], f"{p}.attn.proj", sd)
-        _linear(blk["mlp"]["fc1"], f"{p}.mlp.fc1", sd)
-        _linear(blk["mlp"]["fc2"], f"{p}.mlp.fc2", sd)
+        _block(params[f"blocks_{i}"], f"blocks.{i}", ("qkv", "proj"), sd)
+    return sd
+
+
+def _cait(params: Tree, depth: int, depth_token_only: int
+          ) -> Dict[str, np.ndarray]:
+    """Talking heads' ``proj_l``/``proj_w`` are Linear(H, H); the
+    class-attention blocks keep separate q/k/v."""
+    sd = _embed(params)
+    for i in range(depth):
+        _block(params[f"blocks_{i}"], f"blocks.{i}",
+               ("qkv", "proj", "proj_l", "proj_w"), sd)
+    for i in range(depth_token_only):
+        _block(params[f"blocks_token_only_{i}"], f"blocks_token_only.{i}",
+               ("q", "k", "v", "proj"), sd)
     return sd
 
 
@@ -63,20 +91,20 @@ def state_dict_from_jax(
     arch: str,
     depth: int,
     global_proto_per_class: int = 10,
+    depth_token_only: int = 2,
 ) -> Dict[str, torch.Tensor]:
     """JAX ``PPNet`` params tree -> reference-layout state dict.
 
     Key for key and value for value what the JAX package's
-    ``export_ppnet_state_dict`` emits for a DeiT PPNet; with no global
+    ``export_ppnet_state_dict`` emits for a DeiT or CaiT PPNet (``arch``;
+    CaiT with ``depth_token_only`` class-attention blocks); with no global
     branch, ``last_layer_global.weight`` is synthesized at the frozen
     class-identity pattern of ``global_proto_per_class`` prototypes per
     class, as the reference model always registers it.
     """
-    if arch != "deit":
-        raise NotImplementedError(
-            f"arch={arch!r} is not ported yet: ROADMAP.md Queue 1 item 8"
-        )
-    sd = {f"features.{k}": v for k, v in _deit(params["features"], depth).items()}
+    feats = (_deit(params["features"], depth) if arch == "deit"
+             else _cait(params["features"], depth, depth_token_only))
+    sd = {f"features.{k}": v for k, v in feats.items()}
     add_on = params["add_on_layers"]
     for j in range(len(add_on)):
         layer = add_on[f"layers_{j}"]

@@ -43,7 +43,8 @@ class BackboneConfig:
     rollout_identity_weight: float = 0.2
     rollout_head_fusion: str = "mean"
     rollout_exact_discard: bool = True
-    # the kernel-on structure ignores it, as the JAX kernels do
+    # DeiT's kernel-on structure ignores it, as the JAX kernels do; CaiT's
+    # signed statistics honour it
     rollout_discard_sample: int = 1
     rollout_stats_batched: str = "off"
     use_pallas: str = "auto"
@@ -212,7 +213,6 @@ class PPNetConfig:
 
 # (field, value that is ported) -> the ROADMAP.md item that ports the rest
 _NOT_PORTED = (
-    ("arch", "deit", "Queue 1 item 8 (CaiT)"),
     ("distilled", False, "Queue 1 item 7 (DistilledDeiT)"),
     ("attn_impl", "headloop",
      "Queue 1 item 14 (non-headloop attn_impl is an XLA lowering choice)"),

@@ -1,3 +1,4 @@
+from protopformer_tpu_torch.models.cait import CaiTBackbone
 from protopformer_tpu_torch.models.deit import DeiTBackbone
 from protopformer_tpu_torch.models.ppnet import (
     EvalOutput,
@@ -11,6 +12,7 @@ from protopformer_tpu_torch.models.registry import (
 
 __all__ = [
     "BACKBONE_REGISTRY",
+    "CaiTBackbone",
     "DeiTBackbone",
     "EvalOutput",
     "PPNet",

@@ -20,6 +20,13 @@ dtype (bf16 speed or fp32 parity), LayerNorm statistics are fp32.
   * every other block runs K3 (``fused_attention_mean_padded``) on the
     unpadded sequence and returns the raw fp32 head-mean map. The pad to a
     multiple of 128 tokens was the TPU's lane width and is not carried over.
+
+CaiT's blocks (``layers.py:635-829`` of the JAX package) run plain PyTorch
+products, as the JAX package runs them outside any Pallas kernel:
+``TalkingHeadAttention`` mixes the heads before and after its softmax, so
+its maps are not probabilities; ``ClassAttention`` attends from the CLS
+row only; the LayerScale blocks scale each residual branch by fp32 gammas
+cast to the compute dtype.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from protopformer_tpu_torch.kernels.attention_core import (
     fused_attention_mean_padded,
 )
 from protopformer_tpu_torch.ops.activations import gelu_exact, gelu_speed
+from protopformer_tpu_torch.ops.masking import class_attn_softmax_with_policy
 from protopformer_tpu_torch.ops.rollout import normalize_attention_map
 
 Policy = Union[str, torch.Tensor]
@@ -164,3 +172,136 @@ class Block(nn.Module):
         x = x + h
         x = x + self.mlp(layer_norm(x, self.norm2, self.dtype))
         return x, aux
+
+
+def _scale(head_dim: int, dtype: torch.dtype) -> float:
+    """``head_dim ** -0.5`` rounded to ``dtype``, as the JAX package's
+    weakly typed constant is before it multiplies q."""
+    return float(torch.tensor(head_dim ** -0.5, dtype=dtype))
+
+
+def _mix_heads(a: torch.Tensor, layer: nn.Linear, dtype: torch.dtype
+               ) -> torch.Tensor:
+    """Talking heads: a Linear(H, H) over the head axis of (B, H, N, M)."""
+    return dense(a.permute(0, 2, 3, 1), layer, dtype).permute(0, 3, 1, 2)
+
+
+class TalkingHeadAttention(nn.Module):
+    """CaiT self-attention with talking heads: q scaled before QK^T,
+    ``proj_l`` mixes the heads of the logits and ``proj_w`` those of the
+    fp32 softmax cast back, both in the compute dtype.
+
+    Returns (out (B, N, C), the fp32 head mean (B, N, N) of the mixed
+    probabilities): rows need not sum to 1, and entries may be negative.
+    """
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+        self.proj_l = nn.Linear(num_heads, num_heads)
+        self.proj_w = nn.Linear(num_heads, num_heads)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        B, N, C = x.shape
+        H, dt = self.num_heads, self.dtype
+        qkv = dense(x, self.qkv, dt).reshape(B, N, 3, H, C // H)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        q = q * _scale(C // H, dt)
+        logits = _mix_heads(torch.matmul(q, k.transpose(-1, -2)),
+                            self.proj_l, dt)
+        probs = torch.softmax(logits.float(), dim=-1).to(dt)
+        probs = _mix_heads(probs, self.proj_w, dt)
+        out = torch.matmul(probs, v).transpose(1, 2).reshape(B, N, C)
+        return dense(out, self.proj, dt), probs.float().mean(dim=1)
+
+
+class ClassAttention(nn.Module):
+    """CaiT class attention: separate q/k/v, the query from the CLS row
+    only. Without a policy the softmax is a plain fp32 one; with a policy
+    it is ``class_attn_softmax_with_policy``.
+
+    Returns (out (B, 1, C), probabilities (B, H, 1, N) in the compute
+    dtype)."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.q = nn.Linear(dim, dim, bias=qkv_bias)
+        self.k = nn.Linear(dim, dim, bias=qkv_bias)
+        self.v = nn.Linear(dim, dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, policy: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        B, N, C = x.shape
+        H, dt = self.num_heads, self.dtype
+
+        def heads(t):
+            return t.reshape(B, -1, H, C // H).transpose(1, 2)
+
+        q = heads(dense(x[:, :1], self.q, dt)) * _scale(C // H, dt)
+        k = heads(dense(x, self.k, dt))
+        v = heads(dense(x, self.v, dt))
+        logits = torch.matmul(q, k.transpose(-1, -2))
+        if policy is None:
+            probs = torch.softmax(logits.float(), dim=-1).to(dt)
+        else:
+            probs = class_attn_softmax_with_policy(logits, policy)
+        out = torch.matmul(probs, v).transpose(1, 2).reshape(B, 1, C)
+        return dense(out, self.proj, dt), probs
+
+
+class LayerScaleBlock(nn.Module):
+    """CaiT self-attention block: pre-LN talking-heads attention and MLP,
+    each branch scaled by its LayerScale gamma. Returns (x, fp32 head-mean
+    map)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
+                 qkv_bias: bool, init_values: float, layer_norm_eps: float,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.norm1 = nn.LayerNorm(dim, eps=layer_norm_eps)
+        self.attn = TalkingHeadAttention(dim, num_heads, qkv_bias, dtype)
+        self.norm2 = nn.LayerNorm(dim, eps=layer_norm_eps)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        self.gamma_1 = nn.Parameter(torch.full((dim,), init_values))
+        self.gamma_2 = nn.Parameter(torch.full((dim,), init_values))
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        h, fmap = self.attn(layer_norm(x, self.norm1, self.dtype))
+        x = x + self.gamma_1.to(h.dtype) * h
+        h = self.mlp(layer_norm(x, self.norm2, self.dtype))
+        return x + self.gamma_2.to(h.dtype) * h, fmap
+
+
+class LayerScaleBlockClassAttn(nn.Module):
+    """CaiT class-attention block: updates the CLS token (B, 1, C) from
+    [CLS; patches]. Returns (x_cls, per-head probabilities)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
+                 qkv_bias: bool, init_values: float, layer_norm_eps: float,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.norm1 = nn.LayerNorm(dim, eps=layer_norm_eps)
+        self.attn = ClassAttention(dim, num_heads, qkv_bias, dtype)
+        self.norm2 = nn.LayerNorm(dim, eps=layer_norm_eps)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        self.gamma_1 = nn.Parameter(torch.full((dim,), init_values))
+        self.gamma_2 = nn.Parameter(torch.full((dim,), init_values))
+
+    def forward(self, x: torch.Tensor, x_cls: torch.Tensor,
+                policy: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        u = torch.cat([x_cls, x], dim=1)
+        h, probs = self.attn(layer_norm(u, self.norm1, self.dtype), policy)
+        x_cls = x_cls + self.gamma_1.to(h.dtype) * h
+        h = self.mlp(layer_norm(x_cls, self.norm2, self.dtype))
+        return x_cls + self.gamma_2.to(h.dtype) * h, probs

@@ -70,7 +70,8 @@ class AddOnLayers(nn.Sequential):
 
 
 class PPNet(nn.Module):
-    """Dual-branch prototype classifier over the pruning DeiT backbone."""
+    """Dual-branch prototype classifier over a pruning backbone (DeiT or
+    CaiT)."""
 
     def __init__(self, backbone_config: BackboneConfig, config: PPNetConfig,
                  compute_dtype: torch.dtype = torch.float32):
@@ -112,10 +113,14 @@ class PPNet(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Seeded random weights in the reference's initial distributions:
-        PyTorch's default Linear/Conv2d init (U(+-1/sqrt(fan_in))),
-        LayerNorm ones/zeros, CLS token and position embedding N(0, 0.02^2),
-        prototypes U(0, 1), heads at the class-identity pattern."""
+        """Seeded random weights: PyTorch's default Linear/Conv2d init
+        (U(+-1/sqrt(fan_in))), LayerNorm ones/zeros, CLS token and position
+        embedding N(0, 0.02^2), prototypes U(0, 1), heads at the
+        class-identity pattern. A CaiT backbone's linears take the JAX
+        package's flax init instead (N(0, 1/fan_in), zero bias): talking
+        heads mix probabilities of about 1/N, which a default bias of up to
+        1/sqrt(num_heads) would swamp. Its LayerScale gammas start at
+        ``init_scale``."""
         def uniform_(p, bound):
             p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
 
@@ -130,6 +135,17 @@ class PPNet(nn.Module):
                 m.bias.fill_(0.0)
         for p in (self.features.cls_token, self.features.pos_embed):
             p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
+        if self.backbone_config.arch == "cait":
+            for m in self.features.modules():
+                if isinstance(m, nn.Linear):
+                    m.weight.copy_(torch.randn(m.weight.shape,
+                                               generator=generator)
+                                   * m.weight.shape[1] ** -0.5)
+                    if m.bias is not None:
+                        m.bias.zero_()
+            for name, p in self.features.named_parameters():
+                if name.endswith(("gamma_1", "gamma_2")):
+                    p.fill_(self.backbone_config.init_scale)
         protos = [self.prototype_vectors]
         if self.config.use_global:
             protos.append(self.prototype_vectors_global)
@@ -141,10 +157,12 @@ class PPNet(nn.Module):
 
     def _gather_at_prune(self) -> bool:
         """``prune_gather``: gather the kept set at the last prune point
-        when it is the final reserve set ('auto': bf16 only)."""
+        when it is the final reserve set ('auto': bf16 only). Only the DeiT
+        masked forward gathers."""
         cfg = self.config
         rmap = dict(cfg.reserve_layer_nums)
-        if not rmap or rmap[max(rmap)] != cfg.final_reserve_num:
+        if (self.backbone_config.arch != "deit" or not rmap
+                or rmap[max(rmap)] != cfg.final_reserve_num):
             return False
         mode = self.backbone_config.prune_gather
         if mode != "auto":
@@ -158,7 +176,8 @@ class PPNet(nn.Module):
         cls_embed, x_embed = self.features.embed_all(x)
         gather_final = self._gather_at_prune()
         tokens, cls_token_attn = self.features.masked_forward(
-            cls_embed, x_embed, cfg.reserve_layer_nums, gather_final
+            cls_embed, x_embed, cfg.reserve_layer_nums,
+            **({"gather_final": True} if gather_final else {}),
         )
         if gather_final:
             img_tokens = tokens[:, 1:]

@@ -1,6 +1,6 @@
 """Backbone registry (port of ``protopformer_tpu/models/registry.py``):
-backbones are built from typed presets. Only DeiT is ported; CaiT and the
-distilled DeiT raise ``NotImplementedError`` naming their ROADMAP.md item.
+backbones are built from typed presets, DeiT or CaiT by ``arch``. The
+distilled DeiT raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from protopformer_tpu_torch.core.config import (
     BackboneConfig,
     backbone_preset,
 )
+from protopformer_tpu_torch.models.cait import CaiTBackbone
 from protopformer_tpu_torch.models.deit import DeiTBackbone
 
 BACKBONE_REGISTRY = tuple(BACKBONE_PRESETS)
@@ -29,4 +30,6 @@ def create_backbone(
         cfg = backbone_preset(name_or_config, **overrides)
     else:
         cfg = name_or_config
+    if cfg.arch == "cait":
+        return CaiTBackbone(cfg, compute_dtype=compute_dtype)
     return DeiTBackbone(cfg, compute_dtype=compute_dtype)

@@ -3,7 +3,9 @@
 Port of ``protopformer_tpu/ops/masking.py``. Semantics kept exactly:
 
   * the row max is taken over the FULL row (not the masked row);
-  * a dropped token still attends to itself (``policy + (1-policy)*I``);
+  * a dropped token still attends to itself (``policy + (1-policy)*I``)
+    in the DeiT variant; the CaiT class-attention variant has no identity
+    escape (its query rows are the CLS token only);
   * the normalization is ``(p + eps/N) / (sum(p) + eps)`` with eps=1e-6,
     and every block of the pruning forward uses it, the pre-prune blocks
     with an all-ones policy.
@@ -52,3 +54,24 @@ def eps_softmax(logits: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     s = e.float().sum(dim=-1, keepdim=True) + eps
     inv = (1.0 / s).to(logits.dtype)
     return (e + torch.tensor(eps / N, dtype=logits.dtype)) * inv
+
+
+def class_attn_softmax_with_policy(
+    logits: torch.Tensor, policy: torch.Tensor, eps: float = 1e-6
+) -> torch.Tensor:
+    """CaiT class-attention masked softmax: no identity escape, the eps
+    terms added after the policy product, the sums in fp32.
+
+    Args:
+      logits: (B, H, M, N) with M query rows (1, the CLS token).
+      policy: (B, N) or (B, N, 1) keep-mask in {0, 1}.
+
+    Returns:
+      (B, H, M, N) probabilities in ``logits.dtype``.
+    """
+    B, H, M, N = logits.shape
+    pol = policy.reshape(B, 1, 1, N).float()
+    max_att = logits.amax(dim=-1, keepdim=True)
+    attn = torch.exp((logits - max_att).float()) * pol
+    attn = (attn + eps / N) / (attn.sum(dim=-1, keepdim=True) + eps)
+    return attn.to(logits.dtype)

@@ -1,5 +1,4 @@
-"""Attention rollout (port of ``protopformer_tpu/ops/rollout.py``, the
-DeiT part).
+"""Attention rollout (port of ``protopformer_tpu/ops/rollout.py``).
 
 Lazy: the pruning forward keeps, per pre-prune block, the RAW head-fused
 map F, its discard threshold t (the keep-th largest value of the flattened
@@ -17,7 +16,10 @@ PyTorch's default.
 The k-th largest of a non-negative float map is found by bisection on its
 bit pattern (value order equals integer order for non-negative floats);
 the bit casts are ``Tensor.view(torch.int32)`` / ``view(torch.int16)``.
-Every threshold here equals the JAX package's bit for bit.
+CaiT's talking-heads maps are not probabilities (whole maps can be
+negative), so their search runs in a signed key space that orders every
+finite float (``_monotone_keys_i32``). Every threshold here equals the JAX
+package's bit for bit.
 """
 
 from __future__ import annotations
@@ -65,10 +67,11 @@ def _bf16_bits(v: float) -> int:
 def bisect_threshold(keys: torch.Tensor, keep: int, lo: torch.Tensor,
             hi: torch.Tensor, iters: int) -> torch.Tensor:
     """Largest key value v with count(keys >= v) >= keep, per batch row.
-    ``keys`` is (B, E); lo/hi are (B,) in the keys' dtype."""
+    ``keys`` is (B, E); lo/hi are (B,) in the keys' dtype or a wider
+    integer dtype (every mid lies in [lo, hi], so it fits the keys')."""
     for _ in range(iters):
         mid = lo + torch.div(hi - lo + 1, 2, rounding_mode="floor")
-        ok = (keys >= mid[:, None]).sum(dim=1) >= keep
+        ok = (keys >= mid.to(keys.dtype)[:, None]).sum(dim=1) >= keep
         lo = torch.where(ok, mid, lo)
         hi = torch.where(ok, hi, mid - 1)
     return lo
@@ -127,6 +130,53 @@ def kth_largest_bf16(flat: torch.Tensor, keep: int, bound: float = None
     return bisect_threshold(bits, keep, lo, hi, iters).view(torch.bfloat16)
 
 
+def _monotone_keys_i32(flat: torch.Tensor) -> torch.Tensor:
+    """fp32 -> int32 keys whose signed order equals float order for every
+    finite value: non-negative floats keep their bits, negative ones flip
+    all but the sign bit. Each key is the JAX package's
+    ``_monotone_keys_u32`` key minus 2^31 (PyTorch has no uint32
+    arithmetic)."""
+    bits = flat.float().contiguous().view(torch.int32)
+    return torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+
+
+def _key_to_f32(key: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``_monotone_keys_i32`` (the flip is an involution)."""
+    key = key.to(torch.int32)
+    return torch.where(key >= 0, key, key ^ 0x7FFFFFFF).view(torch.float32)
+
+
+def _signed_bracket(keys: torch.Tensor):
+    """Per-row (min, max) of (B, E) keys, in int64: over the whole fp32 key
+    range hi - lo + 1 overflows int32."""
+    return keys.amin(dim=1).long(), keys.amax(dim=1).long()
+
+
+def kth_largest_signed(flat: torch.Tensor, keep: int, bound=None
+                       ) -> torch.Tensor:
+    """Exact keep-th largest per row of a MIXED-SIGN fp32 (B, ...): the
+    bisection of the signed key space over its min/max bracket, 32
+    passes. Static bounds assume non-negative maps and are rejected."""
+    if bound is not None:
+        raise ValueError("static bounds assume non-negative maps")
+    keys = _monotone_keys_i32(flat).reshape(flat.shape[0], -1)
+    lo, hi = _signed_bracket(keys)
+    return _key_to_f32(bisect_threshold(keys, keep, lo, hi, 32))
+
+
+def kth_largest_bf16_signed(flat: torch.Tensor, keep: int, bound=None
+                            ) -> torch.Tensor:
+    """Exact keep-th largest of a MIXED-SIGN bf16 (B, ...) in the 16-bit
+    signed key space, 16 passes; returns bf16."""
+    if bound is not None:
+        raise ValueError("static bounds assume non-negative maps")
+    bits = flat.contiguous().view(torch.int16).reshape(flat.shape[0], -1)
+    keys = torch.where(bits >= 0, bits, bits ^ 0x7FFF)
+    lo, hi = _signed_bracket(keys)
+    key = bisect_threshold(keys, keep, lo, hi, 16).to(torch.int16)
+    return torch.where(key >= 0, key, key ^ 0x7FFF).view(torch.bfloat16)
+
+
 def masked_map_stats(
     attn_fused: torch.Tensor,
     discard_ratio: float = 0.9,
@@ -135,20 +185,32 @@ def masked_map_stats(
     value_bound: float = None,
     sample: int = 1,
     stochastic_eps: float = None,
+    signed: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Discard threshold + masked row sums of one (B, M, N) fused map.
 
-    Same contract as the JAX function (non-negative maps only; the signed
-    CaiT variant is not ported): t (B,) in the map dtype (bf16 maps in
-    speed mode, else fp32; -inf when discard is off), s (B, M) fp32.
+    Same contract as the JAX function: t (B,) in the map dtype (bf16 maps
+    in speed mode, else fp32; -inf when discard is off), s (B, M) fp32.
+    ``signed``: the map may hold negative values (CaiT's talking-heads
+    maps), so the search runs in the signed key space (fp32: exact in
+    both discard modes); ``value_bound`` and ``stochastic_eps`` assume
+    probability maps and are rejected, ``sample`` composes.
     """
     B, M, N = attn_fused.shape
+    if signed and (value_bound is not None or stochastic_eps is not None):
+        raise ValueError(
+            "signed maps are not probabilities: value_bound/stochastic_eps"
+            " do not apply"
+        )
     if attn_fused.dtype == torch.bfloat16 and not exact_discard:
         a = attn_fused
-        kth_fn = kth_largest_bf16
+        kth_fn = kth_largest_bf16_signed if signed else kth_largest_bf16
     else:
         a = attn_fused.float()
-        kth_fn = kth_largest if exact_discard else kth_largest_prefix16
+        if signed:
+            kth_fn = kth_largest_signed
+        else:
+            kth_fn = kth_largest if exact_discard else kth_largest_prefix16
     real = keep_elements if keep_elements is not None else M * N
     keep = real - int(real * discard_ratio)
 
@@ -232,18 +294,18 @@ def normalize_attention_map(
     (every value below the keep-th largest, exact or, with
     ``exact_discard=False``, its 16-bit prefix floor), the identity is
     blended in at ``identity_weight`` (row-truncated when M < N) and each
-    row divided by its sum. Returns (B, M, N) fp32.
+    row divided by its sum. ``signed`` (mixed-sign maps) takes the exact
+    threshold in the signed key space in either discard mode.
+    Returns (B, M, N) fp32.
     """
-    if signed:
-        raise NotImplementedError(
-            "normalize_attention_map(signed=True) (CaiT's mixed-sign maps) is"
-            " not ported yet: ROADMAP.md Queue 1 item 8"
-        )
     B, M, N = attn_fused.shape
     a = attn_fused.float()
     keep = M * N - int(M * N * discard_ratio)
     if keep < M * N:
-        kth_fn = kth_largest if exact_discard else kth_largest_prefix16
+        if signed:
+            kth_fn = kth_largest_signed
+        else:
+            kth_fn = kth_largest if exact_discard else kth_largest_prefix16
         kth = kth_fn(a.reshape(B, M * N), keep)
         a = torch.where(a >= kth[:, None, None], a, 0.0)
     eye = torch.eye(N, dtype=torch.float32, device=a.device)[:M]
@@ -299,3 +361,35 @@ def attn_rollout(
         result = rollout_step(result, attn, discard_ratio, head_fusion,
                               identity_weight)
     return result
+
+
+def attn_rollout_cait(
+    sa_attn: torch.Tensor,
+    ca_attn: torch.Tensor,
+    discard_ratio: float = 0.9,
+    head_fusion: str = "mean",
+    identity_weight: float = 0.2,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CaiT rollout, eagerly: the product of the normalized self-attention
+    maps over the P patches, and the mean of the normalized class-attention
+    rows (CLS column dropped) times that product.
+
+    Args:
+      sa_attn: (L_sa, B, H, P, P) self-attention maps.
+      ca_attn: (L_ca, B, H, 1, 1+P) class-attention maps.
+
+    Returns:
+      (rollout (B, P, P), cls_scores (B, 1, P)), both fp32.
+    """
+    L_sa, B, H, P, _ = sa_attn.shape
+    result = identity_rollout(B, P, sa_attn.device)
+    for attn in sa_attn:
+        result = rollout_step(result, attn, discard_ratio, head_fusion,
+                              identity_weight)
+    ca_norm = torch.stack([
+        normalize_attention_map(_fuse_heads(attn, head_fusion), discard_ratio,
+                                identity_weight)
+        for attn in ca_attn
+    ])
+    cls_mean = ca_norm.mean(dim=0)[:, :, 1:]
+    return result, torch.matmul(cls_mean, result)

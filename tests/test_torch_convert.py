@@ -9,11 +9,15 @@ port's normalization fold must agree with the JAX one within 1e-6.
 import dataclasses
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
-from protopformer_tpu.checkpoint.torch_convert import export_ppnet_state_dict
+from protopformer_tpu.checkpoint.torch_convert import (
+    convert_ppnet_state_dict,
+    export_ppnet_state_dict,
+)
 from protopformer_tpu.core.config import BackboneConfig, PPNetConfig
 from protopformer_tpu.data import preprocess as j_pre
 from protopformer_tpu_torch.checkpoint import state_dict_from_jax
@@ -53,9 +57,36 @@ def test_state_dict_from_jax_equals_export_and_loads_strict(use_global):
     assert model.features.blocks[0].attn.qkv.weight.shape == (72, 24)
 
 
-def test_state_dict_from_jax_rejects_cait():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        state_dict_from_jax({}, "cait", 3)
+def test_cait_state_dict_equals_export_loads_strict_and_round_trips():
+    """CaiT: talking heads' proj_l/proj_w as Linear(H, H), separate q/k/v
+    in the class-attention blocks; the port's model takes the dict with
+    strict=True, gives it back unchanged, and the JAX package's converter
+    turns it back into the same params tree."""
+    bk = dataclasses.replace(BK, name="tiny-cait", arch="cait",
+                             depth_token_only=2)
+    pp = dataclasses.replace(PP, reserve_layers=(1,))
+    params = jax_params(bk, pp, seed=4)
+    want = export_ppnet_state_dict(params, "cait", bk.depth, 2,
+                                   global_proto_per_class=3)
+    got = state_dict_from_jax(params, "cait", bk.depth, 3,
+                              depth_token_only=2)
+    assert list(got) == list(want)
+    for key, value in want.items():
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(value),
+                                      err_msg=key)
+    assert got["features.blocks.0.attn.proj_l.weight"].shape == (2, 2)
+    assert got["features.blocks_token_only.1.attn.v.weight"].shape == (24, 24)
+
+    model = t_construct(*port_configs(bk, pp))
+    model.load_state_dict(got, strict=True)
+    back = model.state_dict()
+    assert set(back) == set(got)
+    for key, value in got.items():
+        assert torch.equal(back[key], value), key
+    tree = convert_ppnet_state_dict(
+        {k: v.numpy() for k, v in back.items()}, "cait", bk.depth, 2)
+    jax.tree.map(np.testing.assert_array_equal,
+                 jax.tree.map(np.asarray, tree), params)
 
 
 @pytest.mark.parametrize("input_scale", [1.0, 1.0 / 255.0])

@@ -315,3 +315,52 @@ def test_division_by_reciprocal_matches_div_rn(cuda, tmp_path):
                          check=True, capture_output=True, text=True,
                          timeout=300)
     assert out.stdout.strip() == "0"
+
+
+# --- CaiT: no kernel of kernels/ on its path -----------------------------------------
+
+def _cait_ppnet(cfg_overrides=None, dtype=torch.float32):
+    """A seeded CaiT-XXS-24 PPNet (2000 + 2000 prototypes of width 192,
+    reserve at class-attention block 1 keeping 81) in eval mode."""
+    from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
+    from protopformer_tpu_torch.models import construct_ppnet
+
+    bk = backbone_preset("cait_xxs24_224", **(cfg_overrides or {}))
+    pp = PPNetConfig(reserve_layers=(1,), reserve_token_nums=(81,))
+    return construct_ppnet(bk, pp, dtype,
+                           generator=torch.Generator().manual_seed(3)).eval()
+
+
+def test_cait_forward_on_the_card_matches_the_cpu(rng, cuda):
+    """fp32 with TF32 off, B=3: the same top-81 tokens, cls_token_attn
+    within 1e-5, logits within 1e-4."""
+    from protopformer_tpu_torch.serving import no_tf32
+
+    model = _cait_ppnet()
+    x = torch.from_numpy(rng.normal(size=(3, 224, 224, 3)).astype(np.float32))
+    with torch.inference_mode():
+        want = model(x)
+        with no_tf32():
+            got = model.to(cuda)(x.to(cuda))
+    torch.cuda.synchronize()
+    attn, want_attn = got.cls_token_attn.cpu(), want.cls_token_attn
+    assert torch.equal(attn.topk(81).indices.sort().values,
+                       want_attn.topk(81).indices.sort().values)
+    assert _max_err(attn, want_attn) <= 1e-5
+    assert _max_err(got.logits.cpu(), want.logits) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,exact", [(torch.float32, True),
+                                         (torch.bfloat16, True),
+                                         (torch.bfloat16, False)])
+def test_cait_forward_launches_no_kernel(cuda, dtype, exact):
+    """A CaiT forward in each mode launches none of K1-K5: its blocks are
+    not the DeiT ``Attention`` and its signed statistics are plain."""
+    model = _cait_ppnet({"rollout_exact_discard": exact}, dtype).to(cuda)
+    x = torch.zeros((2, 224, 224, 3), device=cuda)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        out = model(x)
+    torch.cuda.synchronize()
+    assert set(kernels.launch_counts().values()) == {0}
+    assert bool(torch.isfinite(out.logits).all())

@@ -157,7 +157,6 @@ def test_port_config_copies_the_jax_fields_and_presets():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("arch", "cait"),
     ("distilled", True),
     ("attn_impl", "batched"),
     ("patch_embed", "matmul"),
@@ -174,12 +173,29 @@ def test_values_not_ported_raise(field, value):
         t_construct(dataclasses.replace(bk, **{field: value}), pp)
 
 
-def test_bottleneck_add_on_and_cait_backbone_raise():
+def test_bottleneck_add_on_raises():
     bk, pp = port_configs(BK, PP)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         t_construct(bk, dataclasses.replace(pp, add_on_layers_type="bottleneck"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_backbone("cait_xxs24_224")
+
+
+def test_cait_batched_stats_raise_and_its_ppnet_never_gathers():
+    """``rollout_stats_batched="on"`` stays unported for CaiT too; a bf16
+    CaiT PPNet keeps the policy mask, since only DeiT's masked forward
+    gathers at the prune point."""
+    bk = t_config.backbone_preset("cait_micro_test")
+    pp = t_config.PPNetConfig(
+        prototype_shape=(40, 16, 1, 1), num_classes=4,
+        reserve_layers=(1,), reserve_token_nums=(9,),
+    )
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        create_backbone(dataclasses.replace(bk, rollout_stats_batched="on"))
+    for gather in ("auto", "on"):
+        model = t_construct(dataclasses.replace(bk, prune_gather=gather), pp,
+                            torch.bfloat16)
+        assert not model._gather_at_prune()
+    deit = t_construct(*port_configs(BK, PP), torch.bfloat16)
+    assert deit._gather_at_prune()
 
 
 # --- masked_forward_thresh (eager rollout) -----------------------------------

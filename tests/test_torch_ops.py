@@ -52,6 +52,21 @@ def test_eps_softmax_matches_jax(rng, dtype, atol):
     np.testing.assert_allclose(to_np(got), to_np(want), atol=atol)
 
 
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-6), ("bfloat16", 1e-2)])
+def test_class_attn_softmax_with_policy_matches_jax(rng, dtype, atol):
+    B, H, N = 2, 3, 17
+    logits = rng.normal(size=(B, H, 1, N)).astype(np.float32)
+    keep = (rng.uniform(size=(B, N)) > 0.4).astype(np.float32)
+    keep[:, 0] = 1.0
+    want = j_mask.class_attn_softmax_with_policy(
+        jnp.asarray(logits).astype(dtype), jnp.asarray(keep))
+    got = t_mask.class_attn_softmax_with_policy(
+        torch.from_numpy(logits).to(getattr(torch, dtype)),
+        torch.from_numpy(keep))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(to_np(got), to_np(want), atol=atol)
+
+
 # --- activations -------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["erf_as", "gelu_exact", "gelu_speed"])
@@ -147,6 +162,98 @@ def test_kth_largest_bit_equal(rng, fn, bound):
     np.testing.assert_array_equal(to_np(got), to_np(want))
 
 
+def _signed_maps(rng, sign, shape):
+    """Mixed-sign, all-negative or all-positive maps (CaiT's talking-heads
+    maps can be any of these), with a -0.0 and a +0.0 entry."""
+    x = rng.normal(size=shape).astype(np.float32)
+    x = {"mixed": x, "negative": -np.abs(x), "positive": np.abs(x)}[sign]
+    x.reshape(shape[0], -1)[:, :2] = (-0.0, 0.0)
+    return x
+
+
+@pytest.mark.parametrize("sign", ["mixed", "negative", "positive"])
+@pytest.mark.parametrize("fn", ["kth_largest_signed",
+                                "kth_largest_bf16_signed"])
+def test_kth_largest_signed_bit_equal(rng, fn, sign):
+    flat = _signed_maps(rng, sign, (4, 999))
+    j_in, t_in = jnp.asarray(flat), torch.from_numpy(flat)
+    if fn == "kth_largest_bf16_signed":
+        j_in, t_in = j_in.astype(jnp.bfloat16), t_in.bfloat16()
+    for keep in (1, 10, 100, 999):
+        want = getattr(j_roll, fn)(j_in, keep)
+        got = getattr(t_roll, fn)(t_in, keep)
+        assert got.dtype == t_in.dtype
+        np.testing.assert_array_equal(to_np(got).view(np.int32),
+                                      to_np(want).view(np.int32))
+    with pytest.raises(ValueError, match="non-negative"):
+        getattr(t_roll, fn)(t_in, 10, bound=1.0)
+
+
+def test_monotone_keys_are_the_jax_keys_shifted(rng):
+    """The port's int32 keys are JAX's uint32 keys minus 2^31, so the two
+    bisections visit the same thresholds; the inverse returns the bits."""
+    x = _signed_maps(rng, "mixed", (3, 64))
+    x[0, :2] = (np.finfo(np.float32).max, -np.finfo(np.float32).max)
+    want = np.asarray(j_roll._monotone_keys_u32(jnp.asarray(x))).astype(np.int64)
+    got = t_roll._monotone_keys_i32(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), want - 2**31)
+    np.testing.assert_array_equal(
+        t_roll._key_to_f32(got).numpy().view(np.int32), x.view(np.int32))
+
+
+@pytest.mark.parametrize("case", [
+    dict(exact=True),
+    dict(exact=False),
+    dict(exact=False, sample=8),
+    dict(exact=False, bf16=True),
+    dict(exact=False, bf16=True, sample=8),
+    dict(exact=True, sign="negative"),
+    dict(exact=False, bf16=True, sign="negative"),
+], ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
+def test_masked_map_stats_signed_matches_jax(rng, case):
+    case = dict(case)
+    exact, bf16 = case.pop("exact"), case.pop("bf16", False)
+    maps = _signed_maps(rng, case.pop("sign", "mixed"), (3, 40, 40))
+    j_in, t_in = jnp.asarray(maps), torch.from_numpy(maps)
+    if bf16:
+        j_in, t_in = j_in.astype(jnp.bfloat16), t_in.bfloat16()
+    want_t, want_s = j_roll.masked_map_stats(j_in, 0.9, exact, signed=True,
+                                             **case)
+    got_t, got_s = t_roll.masked_map_stats(t_in, 0.9, exact, signed=True,
+                                           **case)
+    assert got_t.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    np.testing.assert_array_equal(to_np(got_t).view(np.int32),
+                                  to_np(want_t).view(np.int32))
+    np.testing.assert_allclose(to_np(got_s), to_np(want_s), atol=1e-6)
+
+
+def test_masked_map_stats_signed_all_negative_keeps_the_top_tenth(rng):
+    """tests/test_ops.py's all-negative case: the least-negative tenth is
+    kept, as the reference's topk-scatter keeps it."""
+    x = -np.abs(rng.normal(size=(2, 196, 196))).astype(np.float32)
+    t, s = t_roll.masked_map_stats(torch.from_numpy(x), 0.9, True,
+                                   signed=True)
+    want_t, want_s = j_roll.masked_map_stats(jnp.asarray(x), 0.9, True,
+                                             signed=True)
+    np.testing.assert_array_equal(t.numpy(), np.asarray(want_t))
+    np.testing.assert_allclose(s.numpy(), np.asarray(want_s), atol=1e-6)
+    ref = torch.from_numpy(x.copy())
+    flat = ref.view(2, -1)
+    _, idx = flat.topk(int(flat.shape[-1] * 0.9), -1, False)
+    flat.scatter_(1, idx, 0)
+    np.testing.assert_allclose(s.numpy(), ref.sum(-1).numpy(), atol=1e-5)
+    assert (t.numpy() < 0).all()
+
+
+@pytest.mark.parametrize("bound", [dict(value_bound=1.0),
+                                   dict(stochastic_eps=1e-6)],
+                         ids=["value_bound", "stochastic_eps"])
+def test_masked_map_stats_signed_rejects_probability_bounds(bound):
+    with pytest.raises(ValueError, match="not probabilities"):
+        t_roll.masked_map_stats(torch.zeros((1, 4, 4)), 0.9, signed=True,
+                                **bound)
+
+
 @pytest.mark.parametrize("case", [
     dict(exact=True),
     dict(exact=False),
@@ -222,9 +329,15 @@ def test_normalize_attention_map_matches_jax(rng, exact, M):
     np.testing.assert_allclose(to_np(got), to_np(want), atol=1e-6)
 
 
-def test_normalize_attention_map_signed_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        t_roll.normalize_attention_map(torch.zeros((1, 4, 4)), signed=True)
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "prefix16"])
+def test_normalize_attention_map_signed_matches_jax(rng, exact):
+    maps = _signed_maps(rng, "mixed", (3, 24, 24))
+    want = j_roll.normalize_attention_map(jnp.asarray(maps), 0.9, 0.2, exact,
+                                          signed=True)
+    got = t_roll.normalize_attention_map(torch.from_numpy(maps), 0.9, 0.2,
+                                         exact, signed=True)
+    np.testing.assert_array_equal(to_np(got) != 0, to_np(want) != 0)
+    np.testing.assert_allclose(to_np(got), to_np(want), atol=1e-6)
 
 
 def _attn_stack(rng, L, B, H, N):
@@ -259,3 +372,20 @@ def test_rollout_row_scores_matches_jax_and_the_full_product(rng):
     np.testing.assert_allclose(to_np(got), to_np(want), atol=1e-6)
     full = norm[2] @ norm[1] @ norm[0]
     np.testing.assert_allclose(to_np(got)[:, 0], full[:, 0], atol=1e-6)
+
+
+def test_attn_rollout_cait_matches_jax(rng):
+    """tests/test_ops.py's CaiT rollout case on the same inputs in both
+    frameworks: within 1e-5, rollout rows summing to 1, scores >= 0."""
+    L_sa, L_ca, B, H, P = 4, 2, 2, 3, 16
+    sa = _prob_maps(rng, L_sa * B * H, P, P).reshape(L_sa, B, H, P, P)
+    ca = _prob_maps(rng, L_ca * B * H, 1, P + 1).reshape(L_ca, B, H, 1, P + 1)
+    want_roll, want_cls = j_roll.attn_rollout_cait(jnp.asarray(sa),
+                                                   jnp.asarray(ca))
+    roll, cls = t_roll.attn_rollout_cait(torch.from_numpy(sa),
+                                         torch.from_numpy(ca))
+    assert roll.shape == (B, P, P) and cls.shape == (B, 1, P)
+    np.testing.assert_allclose(to_np(roll), to_np(want_roll), atol=1e-5)
+    np.testing.assert_allclose(to_np(cls), to_np(want_cls), atol=1e-5)
+    np.testing.assert_allclose(to_np(roll).sum(-1), 1.0, atol=1e-4)
+    assert (to_np(cls) >= 0).all()

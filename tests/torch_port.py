@@ -50,8 +50,9 @@ def port_model(backbone, ppnet, params, compute_dtype=torch.float32):
     """The port's PPNet on the CPU with the JAX weights, in eval mode."""
     model = t_construct(*port_configs(backbone, ppnet), compute_dtype)
     model.load_state_dict(
-        state_dict_from_jax(params, "deit", backbone.depth,
-                            ppnet.global_proto_per_class),
+        state_dict_from_jax(params, backbone.arch, backbone.depth,
+                            ppnet.global_proto_per_class,
+                            backbone.depth_token_only),
         strict=True,
     )
     return model.eval()
