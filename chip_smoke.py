@@ -54,6 +54,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
      bf16 speed and exact keep at least 76 of the CPU fp32 top-81, drop
      none of fp32 rank below 60, and keep the logits within phase 5's
      bound;
+  4e. training: the DeiT-Tiny/16@224 PPNet at the CUB preset
+     (scripts/train_cub.sh: 2000 x 192 local and 2000 global prototypes,
+     200 classes, reserve 81 at block 11, PPC on, AdamW in three groups,
+     EMA 0.99996), B=128, seeded weights and seeded [0, 1] images and
+     labels on the card, through the port's train entry points
+     (make_optimizer, create_train_state, make_train_step): in bf16 and in
+     fp32 (TF32 off) 3 warm-up steps, one step whose launch counters must
+     read K2 x 11 and no attention kernel, 10 timed steps (ms/step, img/s)
+     and a profile of 2 steps; 20 steps on one fixed batch from the
+     preset's first full-LR epoch must lower the loss; one fp32 step at
+     B=4, drop path 0, on the card and on the CPU from the same weights:
+     loss within 1e-5, every gradient within 2e-4 * max|g| + 1e-7, the
+     card's parameters after the AdamW step within 1e-6 of the CPU's AdamW
+     step on the card's gradients (``step_contract``), and the parameters'
+     difference from the CPU's own step recorded; make_eval_step +
+     evaluate over two batches, the last ragged, launching K1 x 11 and
+     K3 x 1 per bf16 batch; CaiT-XXS-24: 2 bf16 train steps at B=16, loss
+     finite, no kernel launched;
   5. the card against the CPU: fp32 parity on 2 images (logits within
      1e-4, the same top-81 tokens), and bf16 speed and bf16 exact against
      the CPU's fp32 forward (at least 74 of the top-81 tokens kept, none
@@ -93,6 +111,9 @@ DISCARD = 0.9
 REQUESTS = (1, 160, 333)
 PROBE_IMAGES = 160 * 8
 CAIT_PROBE_IMAGES = 160 * 10
+TRAIN_B = 128  # scripts/train_cub.sh's default batch
+# CUB-200-2011's 5,994 training images in full batches of 128
+TRAIN_STEPS_PER_EPOCH = 5994 // TRAIN_B
 
 
 def log(msg: str) -> None:
@@ -316,27 +337,33 @@ def check_kernels(dev: torch.device, gen: torch.Generator) -> dict:
         require(cluster["ctas_per_sample"] > 1
                 and cluster["resident_clusters"] > 0,
                 "K2: not a multi-CTA cluster launch")
-    t, s = stats.fused_map_stats(fmap32, DISCARD, exact_discard=True)
-    p_t, p_s = stats.map_stats_plain(fmap32, keep, prefix16=False)
-    torch.cuda.synchronize()
-    require(torch.equal(t, p_t), "K2: t differs from the plain version")
-    err = max_err(s, p_s)
-    log(f"K2 fp32: t bit-equal; max abs err {json.dumps({'s': err})} "
-        "(tolerance s 1e-6)")
-    require(err <= 1e-6, "K2: outside tolerance")
-    nbytes = B * E * 4 + B * 4 + B * N * 4
-    records["fused_map_stats[fp32]"] = dict(
-        kernel="fused_map_stats",
-        source="protopformer_tpu_torch/csrc/map_stats.cu",
-        replaces="protopformer_tpu/kernels/stats.py:33",
-        max_abs_err=err,
-        ms=time_ms(lambda: stats.fused_map_stats(fmap32, DISCARD, True)),
-        plain_ms=time_ms(lambda: stats.map_stats_plain(fmap32, keep, False)),
-        # the work, not the algorithm: one comparison per entry for the
-        # select and one for the masked row sums; the bytes term (the map
-        # read once, t and s written once) is as before
-        bound=bound(nbytes, (2.0 * B * E, FP32_FLOPS)),
-    )
+    # at the serving batch (fp32 parity) and the train batch (B=128)
+    for name, m in (("fused_map_stats[fp32]", fmap32),
+                    ("fused_map_stats[fp32,B=128]",
+                     fmap32[:TRAIN_B].contiguous())):
+        bm = m.shape[0]
+        t, s = stats.fused_map_stats(m, DISCARD, exact_discard=True)
+        p_t, p_s = stats.map_stats_plain(m, keep, prefix16=False)
+        torch.cuda.synchronize()
+        require(torch.equal(t, p_t),
+                f"{name}: t differs from the plain version")
+        err = max_err(s, p_s)
+        log(f"{name}: t bit-equal; max abs err {json.dumps({'s': err})} "
+            "(tolerance s 1e-6)")
+        require(err <= 1e-6, f"{name}: outside tolerance")
+        nbytes = bm * E * 4 + bm * 4 + bm * N * 4
+        records[name] = dict(
+            kernel="fused_map_stats",
+            source="protopformer_tpu_torch/csrc/map_stats.cu",
+            replaces="protopformer_tpu/kernels/stats.py:33",
+            max_abs_err=err,
+            ms=time_ms(lambda: stats.fused_map_stats(m, DISCARD, True)),
+            plain_ms=time_ms(lambda: stats.map_stats_plain(m, keep, False)),
+            # the work, not the algorithm: one comparison per entry for the
+            # select and one for the masked row sums; the bytes term (the
+            # map read once, t and s written once) is as before
+            bound=bound(nbytes, (2.0 * bm * E, FP32_FLOPS)),
+        )
     return records
 
 
@@ -534,11 +561,13 @@ def profile_chunk(forward, reps: int = 3, top: int = 8) -> dict:
         for _ in range(reps):
             forward()
         torch.cuda.synchronize()
-    # device activity only; "Command Buffer Full" marks a host stall
+    # device activity only; "Command Buffer Full" marks a host stall, and a
+    # user annotation (the optimizer's step range) spans kernels, not work
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
                    if e.device_type == DeviceType.CUDA
-                   and e.name != "Command Buffer Full")
+                   and e.name != "Command Buffer Full"
+                   and not getattr(e, "is_user_annotation", False))
     require(bool(spans), "the profile recorded no device activity")
     by_name, busy_us, run_start, run_end = {}, 0.0, None, None
     for start, end, name in spans:
@@ -884,6 +913,217 @@ def cait(dev: torch.device, rng: np.random.Generator) -> dict:
     return results
 
 
+# --- phase 4e: training -------------------------------------------------------
+
+# launches of one DeiT train step (any compute dtype): K2 on the detached
+# fp32 map of each pre-prune block, no attention kernel
+TRAIN_LAUNCHES = {"fused_attention_block_stats": 0, "fused_map_stats": 11,
+                  "fused_attention_mean_padded": 0, "fused_attention_core": 0,
+                  "fused_attention_core_padded": 0}
+# launches of evaluate over two bf16 batches: the serving forward's
+EVAL_LAUNCHES = expected_launches("bf16_exact", 2)
+CAIT_TRAIN_B = 16
+RAGGED_VALID = 77  # valid images of the second eval batch
+
+
+def train_setup(backbone, ppnet, dtype, device, seed: int):
+    """A seeded PPNet's train state and train step at the CUB preset's
+    optimizer (``OptimConfig``'s defaults are scripts/train_cub.sh's)."""
+    from protopformer_tpu_torch import train
+    from protopformer_tpu_torch.core.config import OptimConfig
+    from protopformer_tpu_torch.models import construct_ppnet
+
+    optim = OptimConfig()
+    model = construct_ppnet(backbone, ppnet, dtype,
+                            generator=torch.Generator().manual_seed(seed))
+    state = train.create_train_state(
+        model, train.make_optimizer(optim, model, TRAIN_STEPS_PER_EPOCH),
+        device=device)
+    return state, train.make_train_step(model, ppnet, optim, device=device)
+
+
+def train_batch(dev: torch.device, gen: torch.Generator, n: int,
+                classes: int = 200) -> dict:
+    """Seeded [0, 1] NHWC images and integer labels on ``dev``."""
+    return {"image": torch.rand((n, 224, 224, 3), generator=gen).to(dev),
+            "label": torch.randint(0, classes, (n,), generator=gen).to(dev)}
+
+
+def train_phase(dev: torch.device) -> dict:
+    """Phase 4e (see the module docstring). Returns {path: {"launches",
+    "ms_per_step", "img_per_sec"}} for the two train modes and the eval."""
+    from protopformer_tpu_torch import kernels, train
+    from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
+
+    ppnet = PPNetConfig()  # the CUB preset's head, PPC on
+    backbone = backbone_preset("deit_tiny_patch16_224")  # drop path 0.1
+    gen = torch.Generator().manual_seed(4)
+    batch = train_batch(dev, gen, TRAIN_B)
+    results = {}
+    for path, dtype in (("train_bf16", torch.bfloat16),
+                        ("train_fp32", torch.float32)):
+        state, step = train_setup(backbone, ppnet, dtype, dev, seed=5)
+        step_gen = torch.Generator(dev).manual_seed(0)
+
+        def run():
+            return step(state, batch, step_gen, 1.0)[1]
+
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        metrics = run()
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        log(f"{path}: launches of one step {json.dumps(launches)}")
+        require(launches == TRAIN_LAUNCHES,
+                f"{path}: expected launches {TRAIN_LAUNCHES}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        losses = [run()["loss"] for _ in range(10)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 10 * 1e3
+        losses = torch.stack(losses).tolist()
+        require(all(math.isfinite(v) for v in losses),
+                f"{path}: non-finite loss {losses}")
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        log(f"{path}: B={TRAIN_B} {ms:.2f} ms/step, "
+            f"{TRAIN_B / ms * 1e3:.1f} img/s over 10 steps; peak device "
+            f"memory {peak:.2f} GiB; metrics of the counted step "
+            f"{json.dumps({k: float(v) for k, v in metrics.items()})}")
+        t0 = time.perf_counter()
+        log(f"{path}: profile {json.dumps(profile_chunk(run, reps=2))} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        results[path] = {"launches": launches, "ms_per_step": ms,
+                         "img_per_sec": TRAIN_B / ms * 1e3}
+        if dtype == torch.bfloat16:
+            trained = state.model
+        del state, step
+
+    # 20 steps on one fixed batch from the first epoch at the preset's full
+    # LRs (after its 5 warm-up epochs)
+    state, step = train_setup(backbone, ppnet, torch.bfloat16, dev, seed=6)
+    state.step = 5 * TRAIN_STEPS_PER_EPOCH
+    step_gen = torch.Generator(dev).manual_seed(1)
+    losses = torch.stack([step(state, batch, step_gen, 1.0)[1]["loss"]
+                          for _ in range(20)]).tolist()
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    log(f"train_bf16 fixed batch: loss over 20 steps {json.dumps(losses)}; "
+        f"mean of the first 5 {first!r}, of the last 5 {last!r}")
+    require(all(math.isfinite(v) for v in losses) and last < first,
+            "train_bf16: 20 steps on one batch did not lower the loss")
+    del state, step
+
+    train_card_vs_cpu(dev, ppnet)
+
+    # evaluate over two batches, the second ragged
+    eval_step = train.make_eval_step(device=dev)
+    ragged = train_batch(dev, gen, TRAIN_B)
+    ragged["valid"] = (torch.arange(TRAIN_B) < RAGGED_VALID).float().to(dev)
+    kernels.reset_launch_counts()
+    res = train.evaluate(eval_step, trained, [batch, ragged])
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    log(f"train_eval: evaluate over {TRAIN_B} + {RAGGED_VALID} images "
+        f"{json.dumps(res)}; launches {json.dumps(launches)}")
+    require(launches == EVAL_LAUNCHES,
+            f"train_eval: expected launches {EVAL_LAUNCHES}")
+    require(all(math.isfinite(v) for v in res.values())
+            and 0.0 <= res["acc1"] <= res["acc5"] <= 100.0,
+            "train_eval: out of range")
+    results["train_eval"] = {"launches": launches}
+
+    # CaiT-XXS-24 at its preset (reserve at class-attention block 1)
+    cait_pp = PPNetConfig(reserve_layers=(1,), reserve_token_nums=(81,))
+    state, step = train_setup(backbone_preset("cait_xxs24_224"), cait_pp,
+                              torch.bfloat16, dev, seed=7)
+    cait_batch = train_batch(dev, gen, CAIT_TRAIN_B)
+    step_gen = torch.Generator(dev).manual_seed(2)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = torch.stack([step(state, cait_batch, step_gen, 1.0)[1]["loss"]
+                          for _ in range(2)]).tolist()
+    ms = (time.perf_counter() - t0) / 2 * 1e3
+    launches = kernels.launch_counts()
+    log(f"train_cait_bf16: B={CAIT_TRAIN_B} losses {losses}, {ms:.1f} ms/step "
+        f"(2 steps, the first included); launches {json.dumps(launches)}")
+    require(all(math.isfinite(v) for v in losses),
+            "train_cait_bf16: non-finite loss")
+    require(set(launches.values()) == {0},
+            "train_cait_bf16: a CaiT train step launched a kernel")
+    return results
+
+
+def train_card_vs_cpu(dev: torch.device, ppnet) -> None:
+    """One fp32 train step at B=4 with drop path 0 from the same seeded
+    weights on the card (TF32 off) and on the CPU."""
+    from protopformer_tpu_torch.core.config import backbone_preset
+
+    backbone = backbone_preset("deit_tiny_patch16_224", drop_path_rate=0.0)
+    batch = train_batch(torch.device("cpu"), torch.Generator().manual_seed(8),
+                        4)
+    runs = []
+    for device in ("cpu", dev):
+        state, step = train_setup(backbone, ppnet, torch.float32, device,
+                                  seed=9)
+        metrics = step(state, batch, torch.Generator(device), 1.0)[1]
+        runs.append((float(metrics["loss"]), {
+            n: (p.detach().cpu(), None if p.grad is None else p.grad.cpu())
+            for n, p in state.model.named_parameters()}))
+    (cpu_loss, cpu), (card_loss, card) = runs
+    # the CPU's AdamW step from the same weights on the card's gradients
+    state, _ = train_setup(backbone, ppnet, torch.float32, "cpu", seed=9)
+    for name, p in state.model.named_parameters():
+        p.grad = None if card[name][1] is None else card[name][1].clone()
+    state.apply_gradients()
+    replay = {n: p.detach() for n, p in state.model.named_parameters()}
+    res = step_contract(cpu, card, replay)
+    res["loss"] = abs(card_loss - cpu_loss)
+    log(f"train fp32 card vs cpu (B=4): {json.dumps(res)} (tolerance loss "
+        "1e-5, gradients 2e-4 * max|g| + 1e-7 each, the card's step 1e-6 "
+        "of the CPU's step on the card's gradients)")
+    require(res["loss"] <= 1e-5 and res["holds"],
+            "train fp32 card vs CPU: outside contract")
+
+
+def step_contract(cpu: dict, card: dict, replay: dict) -> dict:
+    """One train step's {name: (parameter after, gradient)} on the CPU and
+    the card, and ``replay`` {name: parameter}, the CPU's optimizer step
+    from the same weights on the card's gradients: every gradient within
+    2e-4 * max|g| + 1e-7 of the CPU's, and the card's parameters within
+    1e-6 of ``replay``. The parameters' difference from the CPU's own
+    step is recorded, not bounded: AdamW's first step is lr * g / (|g| +
+    eps), so an entry whose gradient is within a few eps of 0 (a key
+    bias's is 0 in exact arithmetic: a constant added to a row of logits
+    leaves its softmax unchanged) turns a gradient difference inside the
+    contract into a step difference of up to lr. Returns the readings and
+    "holds"."""
+    grad_excess, step_err, param_err = -math.inf, 0.0, 0.0
+    missing, over, over_grad = [], 0, 0.0
+    for name, (p, g) in cpu.items():
+        q, h = card[name]
+        if (g is None) != (h is None):
+            missing.append(name)
+            continue
+        step_err = max(step_err, max_err(q, replay[name]))
+        diff = (q - p).abs()
+        param_err = max(param_err, float(diff.max()))
+        if g is not None:
+            tol = 2e-4 * max(float(g.abs().max()), 1e-8) + 1e-7
+            grad_excess = max(grad_excess, max_err(h, g) - tol)
+            far = diff > 1e-6
+            over += int(far.sum())
+            if bool(far.any()):
+                over_grad = max(over_grad, float(g.abs()[far].max()))
+    return {"grad_excess_over_tolerance": grad_excess,
+            "step_vs_cpu_step_on_card_grads": step_err,
+            "params_vs_cpu": param_err,
+            "params_vs_cpu_entries_over_1e-6": over,
+            "max_abs_cpu_grad_of_those_entries": over_grad,
+            "missing_grads": missing,
+            "holds": not missing and grad_excess <= 0.0 and step_err <= 1e-6}
+
+
 # --- main ----------------------------------------------------------------------
 
 def main() -> int:
@@ -940,15 +1180,21 @@ def main() -> int:
     t0 = time.perf_counter()
     cait_served = cait(dev, rng)
     log(f"cait: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    trained = train_phase(dev)
+    paths.update(trained)
+    log(f"train: {time.perf_counter() - t0:.1f} s")
 
     # launches of each record's kernel on the paths that run it
     per_record_mode = {
         "fused_attention_block_stats[speed]": ["bf16_speed"],
-        "fused_attention_block_stats[exact]": ["bf16_exact"],
+        "fused_attention_block_stats[exact]": ["bf16_exact", "train_eval"],
         "fused_attention_mean_padded[fp32,N=197]": ["fp32_parity"],
         "fused_attention_mean_padded[bf16,N=82]": ["bf16_speed",
-                                                   "bf16_exact"],
+                                                   "bf16_exact",
+                                                   "train_eval"],
         "fused_map_stats[fp32]": ["fp32_parity"],
+        "fused_map_stats[fp32,B=128]": ["train_bf16", "train_fp32"],
         "fused_attention_core[bf16,ones]": ["thresh_bf16_exact"],
         "fused_attention_core[fp32,policy]": ["thresh_fp32"],
         "fused_attention_core[bf16,bench]": ["bench"],
@@ -971,6 +1217,9 @@ def main() -> int:
             "a kernel of the path has no record")
     log("serving img/s: " + json.dumps(
         {m: r["img_per_sec"] for m, r in {**served, **cait_served}.items()}))
+    log("train img/s (B=128): " + json.dumps(
+        {m: r["img_per_sec"] for m, r in trained.items()
+         if "img_per_sec" in r}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

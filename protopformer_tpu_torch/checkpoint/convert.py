@@ -102,8 +102,12 @@ def state_dict_from_jax(
     class-identity pattern of ``global_proto_per_class`` prototypes per
     class, as the reference model always registers it.
     """
-    feats = (_deit(params["features"], depth) if arch == "deit"
-             else _cait(params["features"], depth, depth_token_only))
+    if arch == "deit":
+        feats = _deit(params["features"], depth)
+    elif arch == "cait":
+        feats = _cait(params["features"], depth, depth_token_only)
+    else:
+        raise ValueError(f"unknown backbone arch: {arch}")
     sd = {f"features.{k}": v for k, v in feats.items()}
     add_on = params["add_on_layers"]
     for j in range(len(add_on)):

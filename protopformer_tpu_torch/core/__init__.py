@@ -1,7 +1,11 @@
 from protopformer_tpu_torch.core.config import (
     BACKBONE_PRESETS,
     BackboneConfig,
+    DataConfig,
+    ExperimentConfig,
+    OptimConfig,
     PPNetConfig,
+    TrainConfig,
     backbone_preset,
     check_ported,
 )
@@ -9,7 +13,11 @@ from protopformer_tpu_torch.core.config import (
 __all__ = [
     "BACKBONE_PRESETS",
     "BackboneConfig",
+    "DataConfig",
+    "ExperimentConfig",
+    "OptimConfig",
     "PPNetConfig",
+    "TrainConfig",
     "backbone_preset",
     "check_ported",
 ]

@@ -1,21 +1,25 @@
 """Typed configuration for the PyTorch/CUDA port.
 
-A copy of the JAX package's ``BackboneConfig`` / ``PPNetConfig`` with the
-same fields, defaults and validation, except that the kernel gates
+A copy of the JAX package's ``BackboneConfig``, ``PPNetConfig``,
+``OptimConfig``, ``DataConfig``, ``TrainConfig`` and ``ExperimentConfig``
+with the same fields, defaults and validation, except that the kernel gates
 (``use_pallas``, ``stats_kernel``) default to ``"auto"``: in the port
 ``"on"`` and ``"auto"`` both select the kernel-on block structure, whose
 kernels run on CUDA tensors and whose plain PyTorch versions run on CPU
 tensors.
 
 Values this slice of the port does not implement are rejected by
-``check_ported`` with the ``ROADMAP.md`` item that will port them.
+``check_ported`` with the ``ROADMAP.md`` item that will port them. The
+kernel gates select the structure of an eval forward only: a module in
+training mode always runs the differentiable plain attention, as the JAX
+package's kernel gate requires ``deterministic``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -249,3 +253,92 @@ def check_ported(backbone: BackboneConfig, ppnet: PPNetConfig = None) -> None:
             f"PPNetConfig.add_on_layers_type={ppnet.add_on_layers_type!r} is"
             " not ported yet: ROADMAP.md Queue 1 item 4"
         )
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    """Optimizer and schedule knobs (field-for-field the JAX package's).
+
+    Three trainable parameter groups, each with its own LR; the frozen
+    class-identity heads are in no group."""
+
+    opt: str = "adamw"
+    opt_eps: float = 1e-8
+    opt_betas: Tuple[float, float] = (0.9, 0.999)
+    momentum: float = 0.9
+    weight_decay: float = 0.05  # the prototype group
+    group_weight_decay: float = 1e-3  # the features and add-on groups
+    clip_grad: Optional[float] = None
+    features_lr: float = 1e-4
+    add_on_layers_lr: float = 3e-3
+    prototype_vectors_lr: float = 3e-3
+    sched: str = "cosine"
+    epochs: int = 200
+    warmup_epochs: int = 5
+    warmup_lr: float = 1e-4
+    min_lr: float = 1e-5
+    decay_epochs: float = 10
+    decay_rate: float = 0.1
+    cooldown_epochs: int = 10
+    model_ema: bool = True
+    model_ema_decay: float = 0.99996
+    # timm LR noise: epoch fractions; one value = noise from that epoch on,
+    # two = a [start, end) window
+    lr_noise: Optional[Tuple[float, ...]] = None
+    lr_noise_pct: float = 0.67
+    lr_noise_std: float = 1.0
+    noise_seed: int = 42
+    lr_cycle_limit: int = 1
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Dataset and augmentation knobs (field-for-field the JAX package's)."""
+
+    data_set: str = "CUB2011U"
+    data_path: str = "./datasets/cub200_cropped/"
+    input_size: int = 224
+    batch_size: int = 256
+    color_jitter: float = 0.4
+    aa: str = "rand-m9-mstd0.5-inc1"
+    train_interpolation: str = "bicubic"
+    reprob: float = 0.25
+    remode: str = "pixel"
+    recount: int = 1
+    smoothing: float = 0.0
+    enable_smoothing: bool = False
+    mixup: float = 0.0
+    cutmix: float = 1.0
+    mixup_prob: float = 1.0
+    mixup_switch_prob: float = 0.5
+    mixup_mode: str = "batch"
+    enable_mixup: bool = False
+    num_workers: int = 10
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Run-level knobs (field-for-field the JAX package's). Parameters are
+    fp32; ``compute_dtype`` is the dtype of the backbone's products
+    ("bfloat16" or "float32")."""
+
+    seed: int = 1028
+    output_dir: str = "output/"
+    resume: str = ""
+    start_epoch: int = 0
+    eval_only: bool = False
+    save_ep_freq: int = 400
+    dist_eval: bool = False
+    compute_dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    backbone: BackboneConfig = field(default_factory=BackboneConfig)
+    ppnet: PPNetConfig = field(default_factory=PPNetConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+    def replace(self, **kw: Any) -> "ExperimentConfig":
+        return dataclasses.replace(self, **kw)

@@ -3,6 +3,7 @@ from protopformer_tpu_torch.models.deit import DeiTBackbone
 from protopformer_tpu_torch.models.ppnet import (
     EvalOutput,
     PPNet,
+    TrainOutput,
     construct_ppnet,
 )
 from protopformer_tpu_torch.models.registry import (
@@ -16,6 +17,7 @@ __all__ = [
     "DeiTBackbone",
     "EvalOutput",
     "PPNet",
+    "TrainOutput",
     "construct_ppnet",
     "create_backbone",
 ]

@@ -12,6 +12,9 @@ normalized class-attention rows so far (CLS column dropped) is rolled back
 through the self-attention maps, and its top-k policy masks the
 class-attention softmax from block ``i`` on. No block here runs a kernel
 of ``kernels/``: the JAX package runs this path outside any Pallas kernel.
+In training mode the maps are detached, position dropout and dropout take
+``drop_rate``, and every self-attention block's stochastic depth is the
+uniform ``drop_path_rate`` (the class-attention blocks have none).
 """
 
 from __future__ import annotations
@@ -23,9 +26,11 @@ import torch.nn as nn
 
 from protopformer_tpu_torch.core.config import BackboneConfig, check_ported
 from protopformer_tpu_torch.models.layers import (
+    Generator,
     LayerScaleBlock,
     LayerScaleBlockClassAttn,
     PatchEmbed,
+    dropout,
     layer_norm,
 )
 from protopformer_tpu_torch.ops.rollout import (
@@ -56,7 +61,8 @@ class CaiTBackbone(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches, D))
         self.blocks = nn.ModuleList([
             LayerScaleBlock(D, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
-                            cfg.init_scale, cfg.layer_norm_eps, compute_dtype)
+                            cfg.init_scale, cfg.layer_norm_eps, compute_dtype,
+                            cfg.drop_rate, cfg.drop_path_rate)
             for _ in range(cfg.depth)
         ])
         self.blocks_token_only = nn.ModuleList([
@@ -67,11 +73,14 @@ class CaiTBackbone(nn.Module):
         ])
         self.norm = nn.LayerNorm(D, eps=cfg.layer_norm_eps)
 
-    def embed_all(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def embed_all(self, x: torch.Tensor, generator: Generator = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """NHWC image -> (cls_embed (B, 1, D), patch_embed (B, N, D)) in the
         compute dtype; the CLS token carries no position embedding."""
         cd = self.compute_dtype
         tokens = self.patch_embed(x) + self.pos_embed.to(cd)
+        if self.training:
+            tokens = dropout(tokens, self.config.drop_rate, generator)
         cls = self.cls_token.to(cd).expand(x.shape[0], -1, -1)
         return cls, tokens
 
@@ -80,10 +89,12 @@ class CaiTBackbone(nn.Module):
         cls_embed: torch.Tensor,
         x_embed: torch.Tensor,
         reserve_layer_nums: Sequence[Tuple[int, int]],
+        generator: Generator = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Pruning forward. Reserve layer indices name class-attention
         blocks and must be >= 1 (block 0 has no class-attention map to
-        average yet).
+        average yet). ``generator``: the dropout and stochastic-depth draws
+        in training mode.
 
         Returns:
           (x (B, 1+N, D) = [CLS; patches] after the final LayerNorm, in the
@@ -100,7 +111,7 @@ class CaiTBackbone(nn.Module):
         x = x_embed
         sa_maps, sa_ts, sa_ss = [], [], []
         for blk in self.blocks:
-            x, fmap = blk(x)
+            x, fmap = blk(x, generator)
             if not cfg.rollout_exact_discard:
                 fmap = fmap.to(torch.bfloat16)
             t, s = masked_map_stats(
@@ -129,7 +140,7 @@ class CaiTBackbone(nn.Module):
                 )
             cls_tokens, attn = blk(x, cls_tokens, policy)
             ca_norm_sum = ca_norm_sum + normalize_attention_map(
-                _fuse_heads(attn.float(), cfg.rollout_head_fusion),
+                _fuse_heads(attn.detach().float(), cfg.rollout_head_fusion),
                 discard_ratio=cfg.rollout_discard_ratio,
                 identity_weight=cfg.rollout_identity_weight,
             )

@@ -8,6 +8,13 @@ the lazy rollout's raw head-fused map, its discard threshold and its
 masked row sums; at a prune point the CLS row of the rollout ranks the
 patches. ``masked_forward_thresh`` prunes on an external score instead and
 rolls out eagerly: its pre-prune blocks emit normalized maps (K4).
+
+In training mode (the JAX package's ``deterministic=False``) every block
+runs the differentiable attention; the detached fp32 map of each
+pre-prune block still goes through K2 (``fused_map_stats``), the JAX
+package's ``stats_kernel`` path. Position dropout and dropout take
+``drop_rate``; block i's stochastic depth is ``drop_path_rate * i /
+(depth - 1)``.
 """
 
 from __future__ import annotations
@@ -19,7 +26,13 @@ import torch.nn as nn
 
 from protopformer_tpu_torch.core.config import BackboneConfig, check_ported
 from protopformer_tpu_torch.kernels.stats import fused_map_stats
-from protopformer_tpu_torch.models.layers import Block, PatchEmbed, layer_norm
+from protopformer_tpu_torch.models.layers import (
+    Block,
+    Generator,
+    PatchEmbed,
+    dropout,
+    layer_norm,
+)
 from protopformer_tpu_torch.ops.rollout import (
     _fuse_heads,
     normalize_attention_map,
@@ -68,20 +81,27 @@ class DeiTBackbone(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches + 1, D))
         rollout = (cfg.rollout_discard_ratio, cfg.rollout_identity_weight,
                    cfg.rollout_exact_discard)
+        # stochastic depth rises linearly from 0 to drop_path_rate
+        dpr = [cfg.drop_path_rate * i / max(cfg.depth - 1, 1)
+               for i in range(cfg.depth)]
         self.blocks = nn.ModuleList([
             Block(D, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
-                  cfg.layer_norm_eps, compute_dtype, rollout)
-            for _ in range(cfg.depth)
+                  cfg.layer_norm_eps, compute_dtype, rollout, cfg.drop_rate,
+                  dpr[i])
+            for i in range(cfg.depth)
         ])
         self.norm = nn.LayerNorm(D, eps=cfg.layer_norm_eps)
 
-    def embed_all(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def embed_all(self, x: torch.Tensor, generator: Generator = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """NHWC image -> (cls_embed (B, 1, D), patch_embed (B, N, D)) with
         the CLS token and position embedding, in the compute dtype."""
         cd = self.compute_dtype
         tokens = self.patch_embed(x)
         cls = self.cls_token.to(cd).expand(x.shape[0], -1, -1)
         full = torch.cat([cls, tokens], dim=1) + self.pos_embed.to(cd)
+        if self.training:
+            full = dropout(full, self.config.drop_rate, generator)
         return full[:, :1], full[:, 1:]
 
     def masked_forward(
@@ -90,11 +110,14 @@ class DeiTBackbone(nn.Module):
         x_embed: torch.Tensor,
         reserve_layer_nums: Sequence[Tuple[int, int]],
         gather_final: bool = False,
+        generator: Generator = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Token-pruning forward.
 
         ``gather_final``: at the last prune point gather the kept tokens and
         run the remaining blocks on the (B, 1+k, D) sequence.
+        ``generator``: the dropout and stochastic-depth draws in training
+        mode.
 
         Returns:
           (x after the final LayerNorm, in the compute dtype — (B, 1+N, D),
@@ -130,7 +153,7 @@ class DeiTBackbone(nn.Module):
                     policy, _ = reserve_policy(
                         cls_token_attn, reserve_map[i], seq_len
                     )
-            x, aux = blk(x, policy, tap=i < last_prune)
+            x, aux = blk(x, policy, tap=i < last_prune, generator=generator)
             if i >= last_prune:
                 continue
             if isinstance(aux, tuple):

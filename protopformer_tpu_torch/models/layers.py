@@ -7,7 +7,7 @@ Module and parameter names follow the reference PyTorch layout
 ``strict=True``. Parameters stay fp32; each product runs in the compute
 dtype (bf16 speed or fp32 parity), LayerNorm statistics are fp32.
 
-``Attention`` is the kernel-on structure of the JAX package
+In eval mode ``Attention`` is the kernel-on structure of the JAX package
 (``layers.py:418-465``):
   * a pre-prune block (``tap=True``) with the all-ones policy in bf16 runs
     K1 (``fused_attention_block_stats``) and returns the lazy-rollout
@@ -20,6 +20,16 @@ dtype (bf16 speed or fp32 parity), LayerNorm statistics are fp32.
   * every other block runs K3 (``fused_attention_mean_padded``) on the
     unpadded sequence and returns the raw fp32 head-mean map. The pad to a
     multiple of 128 tokens was the TPU's lane width and is not carried over.
+The kernels have no backward (nor do the JAX package's), so an eval-mode
+forward that would record gradients raises. In training mode (the JAX
+package's ``deterministic=False``, which its kernel gate excludes)
+``Attention`` runs the differentiable ``fuse_probs`` headloop
+(``layers.py:469-490``): per-head products, ``eps_softmax`` under the
+all-ones policy and ``softmax_with_policy`` after a prune, the map
+accumulated as sum_h probs_h * (1/H) in fp32 in head order and detached.
+Dropout (``drop_rate``) follows the attention projection and each MLP
+product, and ``DropPath`` each residual branch; both draw from the
+``torch.Generator`` the caller passes down.
 
 CaiT's blocks (``layers.py:635-829`` of the JAX package) run plain PyTorch
 products, as the JAX package runs them outside any Pallas kernel:
@@ -43,10 +53,15 @@ from protopformer_tpu_torch.kernels.attention_core import (
     fused_attention_mean_padded,
 )
 from protopformer_tpu_torch.ops.activations import gelu_exact, gelu_speed
-from protopformer_tpu_torch.ops.masking import class_attn_softmax_with_policy
+from protopformer_tpu_torch.ops.masking import (
+    class_attn_softmax_with_policy,
+    eps_softmax,
+    softmax_with_policy,
+)
 from protopformer_tpu_torch.ops.rollout import normalize_attention_map
 
 Policy = Union[str, torch.Tensor]
+Generator = Optional[torch.Generator]
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -61,6 +76,33 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype: torch.dtype
     return F.layer_norm(
         x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps
     ).to(dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Generator,
+            per_sample: bool = False) -> torch.Tensor:
+    """Zero each entry with probability ``rate`` and scale the rest by
+    1/(1 - rate) (flax ``nn.Dropout``); ``per_sample``: one draw per
+    leading index, stochastic depth (timm ``DropPath``)."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = ((x.shape[0],) + (1,) * (x.dim() - 1)) if per_sample else x.shape
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth on a residual branch, in training mode only."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, generator: Generator = None
+                ) -> torch.Tensor:
+        if not self.training:
+            return x
+        return dropout(x, self.rate, generator, per_sample=True)
 
 
 class PatchEmbed(nn.Module):
@@ -82,40 +124,50 @@ class PatchEmbed(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU (A&S exact-erf in fp32, tanh form in bf16) -> fc2."""
+    """fc1 -> GELU (A&S exact-erf in fp32, tanh form in bf16) -> fc2, each
+    product followed by dropout in training mode."""
 
-    def __init__(self, dim: int, hidden: int, dtype: torch.dtype):
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype,
+                 drop_rate: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.drop_rate = drop_rate
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Generator = None
+                ) -> torch.Tensor:
+        rate = self.drop_rate if self.training else 0.0
         h = dense(x, self.fc1, self.dtype)
         h = gelu_exact(h) if self.dtype == torch.float32 else gelu_speed(h)
-        return dense(h, self.fc2, self.dtype)
+        h = dropout(h, rate, generator)
+        return dropout(dense(h, self.fc2, self.dtype), rate, generator)
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention on the kernel-on structure.
+    """Multi-head self-attention: the kernel-on structure in eval mode, the
+    differentiable headloop in training mode.
 
     Args:
       rollout: (discard_ratio, identity_weight, exact_discard) of the
         rollout; the exact flag selects K1's map storage dtype (fp32 exact,
         bf16 speed) and the discard of a normalized map.
+      drop_rate: dropout after the output projection (training mode).
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool,
-                 dtype: torch.dtype, rollout: Tuple[float, float, bool]):
+                 dtype: torch.dtype, rollout: Tuple[float, float, bool],
+                 drop_rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
         self.rollout = rollout
+        self.drop_rate = drop_rate
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, policy: Policy, tap: bool = True,
-                normalized: bool = False):
+                normalized: bool = False, generator: Generator = None):
         """``policy`` is ``"ones"`` (static all-ones) or a (B, N) keep-mask.
         ``tap=False`` marks a block whose lazy-rollout triple is not
         consumed: K1 is skipped there, as in the JAX package.
@@ -123,8 +175,16 @@ class Attention(nn.Module):
 
         Returns (out (B, N, C), aux): aux is (map, t, s) after K1, the
         normalized fp32 (B, N, N) map under ``normalized``, else the raw
-        fp32 (B, N, N) head-mean map.
+        fp32 (B, N, N) head-mean map. Maps carry no gradient.
         """
+        if self.training:
+            return self._train_forward(x, policy, normalized, generator)
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise RuntimeError(
+                "the attention kernels have no backward: run the forward "
+                "under torch.no_grad()/inference_mode(), or differentiate "
+                "the training-mode forward (module.train())"
+            )
         B, N, _ = x.shape
         qkv = dense(x, self.qkv, self.dtype)
         ratio, identity_weight, exact = self.rollout
@@ -150,28 +210,61 @@ class Attention(nn.Module):
                                            exact_discard=False)
         return dense(out, self.proj, self.dtype), fmap
 
+    def _train_forward(self, x: torch.Tensor, policy: Policy,
+                       normalized: bool, generator: Generator):
+        """The JAX package's ``fuse_probs`` headloop in plain PyTorch."""
+        B, N, C = x.shape
+        H, dt = self.num_heads, self.dtype
+        hd = C // H
+        qkv = dense(x, self.qkv, dt)
+        scale = _scale(hd, dt)
+        fmap = torch.zeros((B, N, N), dtype=torch.float32, device=x.device)
+        outs = []
+        for h in range(H):
+            q = qkv[:, :, h * hd:(h + 1) * hd]
+            k = qkv[:, :, C + h * hd:C + (h + 1) * hd]
+            v = qkv[:, :, 2 * C + h * hd:2 * C + (h + 1) * hd]
+            logits = torch.matmul(q, k.transpose(1, 2)) * scale
+            if isinstance(policy, str):
+                probs = eps_softmax(logits)
+            else:
+                probs = softmax_with_policy(logits[:, None], policy)[:, 0]
+            fmap = fmap + probs.detach().float() * (1.0 / H)
+            outs.append(torch.matmul(probs, v))
+        out = dense(torch.cat(outs, dim=-1), self.proj, dt)
+        if normalized:
+            ratio, identity_weight, exact = self.rollout
+            fmap = normalize_attention_map(fmap, ratio, identity_weight,
+                                           exact_discard=exact)
+        return dropout(out, self.drop_rate, generator), fmap
+
 
 class Block(nn.Module):
-    """Pre-LN transformer block returning (x, attention aux)."""
+    """Pre-LN transformer block returning (x, attention aux); in training
+    mode each residual branch goes through ``DropPath(drop_path)``."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  qkv_bias: bool, layer_norm_eps: float, dtype: torch.dtype,
-                 rollout: Tuple[float, float, bool]):
+                 rollout: Tuple[float, float, bool], drop_rate: float = 0.0,
+                 drop_path: float = 0.0):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=layer_norm_eps)
-        self.attn = Attention(dim, num_heads, qkv_bias, dtype, rollout)
+        self.attn = Attention(dim, num_heads, qkv_bias, dtype, rollout,
+                              drop_rate)
         self.norm2 = nn.LayerNorm(dim, eps=layer_norm_eps)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, drop_rate)
+        self.drop_path1 = DropPath(drop_path)
+        self.drop_path2 = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor, policy: Policy, tap: bool = True,
-                normalized: bool = False
+                normalized: bool = False, generator: Generator = None
                 ) -> Tuple[torch.Tensor, Optional[object]]:
         h, aux = self.attn(layer_norm(x, self.norm1, self.dtype), policy, tap,
-                           normalized)
-        x = x + h
-        x = x + self.mlp(layer_norm(x, self.norm2, self.dtype))
-        return x, aux
+                           normalized, generator)
+        x = x + self.drop_path1(h, generator)
+        h = self.mlp(layer_norm(x, self.norm2, self.dtype), generator)
+        return x + self.drop_path2(h, generator), aux
 
 
 def _scale(head_dim: int, dtype: torch.dtype) -> float:
@@ -196,16 +289,18 @@ class TalkingHeadAttention(nn.Module):
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, drop_rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.drop_rate = drop_rate
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
         self.proj_l = nn.Linear(num_heads, num_heads)
         self.proj_w = nn.Linear(num_heads, num_heads)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, generator: Generator = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         B, N, C = x.shape
         H, dt = self.num_heads, self.dtype
         qkv = dense(x, self.qkv, dt).reshape(B, N, 3, H, C // H)
@@ -216,7 +311,10 @@ class TalkingHeadAttention(nn.Module):
         probs = torch.softmax(logits.float(), dim=-1).to(dt)
         probs = _mix_heads(probs, self.proj_w, dt)
         out = torch.matmul(probs, v).transpose(1, 2).reshape(B, N, C)
-        return dense(out, self.proj, dt), probs.float().mean(dim=1)
+        out = dense(out, self.proj, dt)
+        if self.training:
+            out = dropout(out, self.drop_rate, generator)
+        return out, probs.detach().float().mean(dim=1)
 
 
 class ClassAttention(nn.Module):
@@ -259,26 +357,33 @@ class ClassAttention(nn.Module):
 
 class LayerScaleBlock(nn.Module):
     """CaiT self-attention block: pre-LN talking-heads attention and MLP,
-    each branch scaled by its LayerScale gamma. Returns (x, fp32 head-mean
-    map)."""
+    each branch scaled by its LayerScale gamma and, in training mode, put
+    through ``DropPath(drop_path)``. Returns (x, the detached fp32
+    head-mean map)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  qkv_bias: bool, init_values: float, layer_norm_eps: float,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, drop_rate: float = 0.0,
+                 drop_path: float = 0.0):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=layer_norm_eps)
-        self.attn = TalkingHeadAttention(dim, num_heads, qkv_bias, dtype)
+        self.attn = TalkingHeadAttention(dim, num_heads, qkv_bias, dtype,
+                                         drop_rate)
         self.norm2 = nn.LayerNorm(dim, eps=layer_norm_eps)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, drop_rate)
         self.gamma_1 = nn.Parameter(torch.full((dim,), init_values))
         self.gamma_2 = nn.Parameter(torch.full((dim,), init_values))
+        self.drop_path1 = DropPath(drop_path)
+        self.drop_path2 = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        h, fmap = self.attn(layer_norm(x, self.norm1, self.dtype))
-        x = x + self.gamma_1.to(h.dtype) * h
-        h = self.mlp(layer_norm(x, self.norm2, self.dtype))
-        return x + self.gamma_2.to(h.dtype) * h, fmap
+    def forward(self, x: torch.Tensor, generator: Generator = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        h, fmap = self.attn(layer_norm(x, self.norm1, self.dtype), generator)
+        x = x + self.drop_path1(self.gamma_1.to(h.dtype) * h, generator)
+        h = self.mlp(layer_norm(x, self.norm2, self.dtype), generator)
+        h = self.drop_path2(self.gamma_2.to(h.dtype) * h, generator)
+        return x + h, fmap
 
 
 class LayerScaleBlockClassAttn(nn.Module):

@@ -1,4 +1,11 @@
-"""PPNet eval forward (port of part of ``protopformer_tpu/models/ppnet.py``).
+"""PPNet eval and train forwards (port of part of
+``protopformer_tpu/models/ppnet.py``).
+
+Eval mode (the JAX package's ``train=False``) returns ``EvalOutput``;
+training mode returns ``TrainOutput``, with the activation maps the PPC
+loss (``get_ppc_loss``) reads and the detached rollout scores.
+``construct_ppnet`` returns a model in eval mode, as the JAX model's call
+defaults to ``train=False``; ``model.train()`` selects the train forward.
 
 Parameter names follow the reference PyTorch layout, so the state dict
 that ``checkpoint/convert.py::state_dict_from_jax`` (or the JAX package's
@@ -6,7 +13,8 @@ that ``checkpoint/convert.py::state_dict_from_jax`` (or the JAX package's
 ``features.*``, ``add_on_layers.0.{weight,bias}`` (a 1x1 conv, applied
 here as a dense over the token channels), ``prototype_vectors`` and
 ``prototype_vectors_global`` (P, C, 1, 1), the frozen ``ones`` and the
-frozen class-identity heads ``last_layer`` / ``last_layer_global``.
+frozen class-identity heads ``last_layer`` / ``last_layer_global``. The
+frozen tensors (``ones`` and the heads) do not require gradients.
 Distances, similarities and the heads are fp32 in both compute dtypes.
 """
 
@@ -23,11 +31,13 @@ from protopformer_tpu_torch.core.config import (
     PPNetConfig,
     check_ported,
 )
+from protopformer_tpu_torch.models.layers import Generator
 from protopformer_tpu_torch.models.registry import create_backbone
 from protopformer_tpu_torch.ops.distances import (
     distance_to_similarity,
     l2_distances,
 )
+from protopformer_tpu_torch.ops.ppc import ppc_loss
 from protopformer_tpu_torch.ops.tokens import gather_tokens, topk_sorted_indices
 
 
@@ -39,6 +49,16 @@ class EvalOutput(NamedTuple):
     distances: torch.Tensor  # (B, P, k, k) local prototype distances
     logits_global: torch.Tensor  # (B, num_classes)
     logits_local: torch.Tensor  # (B, num_classes)
+
+
+class TrainOutput(NamedTuple):
+    """Train forward contract (the JAX package's field order)."""
+
+    logits: torch.Tensor  # (B, num_classes)
+    attn_loss: torch.Tensor  # 0-d fp32 zero, kept for the contract
+    total_proto_act: torch.Tensor  # (B, P, k, k) activation maps
+    cls_attn_rollout: torch.Tensor  # (B, N) detached rollout scores
+    original_fea_len: int  # N
 
 
 def class_identity(num_prototypes: int, num_classes: int,
@@ -169,15 +189,16 @@ class PPNet(nn.Module):
             return mode == "on"
         return self.compute_dtype != torch.float32
 
-    def conv_features(self, x: torch.Tensor):
+    def conv_features(self, x: torch.Tensor, generator: Generator = None):
         """(cls_tokens (B, 1, proto_dim), img_tokens (B, k, proto_dim),
         cls_token_attn (B, N) fp32)."""
         cfg = self.config
-        cls_embed, x_embed = self.features.embed_all(x)
+        cls_embed, x_embed = self.features.embed_all(x, generator)
         gather_final = self._gather_at_prune()
         tokens, cls_token_attn = self.features.masked_forward(
             cls_embed, x_embed, cfg.reserve_layer_nums,
             **({"gather_final": True} if gather_final else {}),
+            generator=generator,
         )
         if gather_final:
             img_tokens = tokens[:, 1:]
@@ -223,19 +244,51 @@ class PPNet(nn.Module):
         g = int(round(K ** 0.5))
         return maps.transpose(1, 2).reshape(B, P, g, g)
 
-    def forward(self, x: torch.Tensor) -> EvalOutput:
-        """Eval forward on (B, H, W, 3) NHWC images (normalized, or raw when
-        the normalization is folded into the patch embedding)."""
-        cls_tokens, img_tokens, cls_token_attn = self.conv_features(x)
+    def forward(self, x: torch.Tensor, generator: Generator = None):
+        """Forward on (B, H, W, 3) NHWC images (normalized, or raw when the
+        normalization is folded into the patch embedding): ``EvalOutput``
+        in eval mode, ``TrainOutput`` in training mode, whose dropout and
+        stochastic depth draw from ``generator``."""
+        cls_tokens, img_tokens, cls_token_attn = self.conv_features(
+            x, generator
+        )
         logits, logits_global, logits_local, distances = self._branch_logits(
             cls_tokens, img_tokens
         )
+        if self.training:
+            cfg = self.config
+            act_maps = distance_to_similarity(
+                distances, cfg.prototype_activation_function, cfg.epsilon
+            )
+            return TrainOutput(
+                logits=logits,
+                attn_loss=torch.zeros((), dtype=torch.float32,
+                                      device=logits.device),
+                total_proto_act=self._to_grid(act_maps),
+                cls_attn_rollout=cls_token_attn.detach(),
+                original_fea_len=cls_token_attn.shape[-1],
+            )
         return EvalOutput(
             logits=logits,
             cls_token_attn=cls_token_attn,
             distances=self._to_grid(distances),
             logits_global=logits_global,
             logits_local=logits_local,
+        )
+
+    def get_ppc_loss(self, total_proto_act: torch.Tensor,
+                     cls_attn_rollout: torch.Tensor, label: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(ppc_cov_loss, ppc_mean_loss) of a train forward's outputs;
+        ``total_proto_act`` in grid (B, P, k, k) or token (B, P, K)
+        layout."""
+        cfg = self.config
+        B, P = total_proto_act.shape[:2]
+        return ppc_loss(
+            total_proto_act.reshape(B, P, -1), cls_attn_rollout, label,
+            cfg.num_classes, cfg.num_prototypes_per_class,
+            int(round(cls_attn_rollout.shape[-1] ** 0.5)),
+            cfg.ppc_cov_thresh, cfg.ppc_mean_thresh,
         )
 
 
@@ -245,10 +298,10 @@ def construct_ppnet(
     compute_dtype: torch.dtype = torch.float32,
     generator: Optional[torch.Generator] = None,
 ) -> PPNet:
-    """Build a PPNet; with ``generator``, seeded random weights
+    """Build a PPNet in eval mode; with ``generator``, seeded random weights
     (``PPNet.reset_parameters``). Trained weights load separately with
     ``load_state_dict(strict=True)``."""
     model = PPNet(backbone, ppnet, compute_dtype)
     if generator is not None:
         model.reset_parameters(generator)
-    return model
+    return model.eval()

@@ -1,6 +1,7 @@
 """Backbone registry (port of ``protopformer_tpu/models/registry.py``):
-backbones are built from typed presets, DeiT or CaiT by ``arch``. The
-distilled DeiT raises ``NotImplementedError`` naming its ROADMAP.md item.
+backbones are built from typed presets, DeiT or CaiT by ``arch``; any
+other ``arch`` raises ``ValueError``, as in the JAX package. The distilled
+DeiT raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ def create_backbone(
         cfg = backbone_preset(name_or_config, **overrides)
     else:
         cfg = name_or_config
+    if cfg.arch == "deit":
+        return DeiTBackbone(cfg, compute_dtype=compute_dtype)
     if cfg.arch == "cait":
         return CaiTBackbone(cfg, compute_dtype=compute_dtype)
-    return DeiTBackbone(cfg, compute_dtype=compute_dtype)
+    raise ValueError(f"unknown backbone arch: {cfg.arch}")

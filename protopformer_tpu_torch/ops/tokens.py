@@ -1,7 +1,9 @@
-"""Top-k token selection and gather (port of ``protopformer_tpu/ops/tokens.py``).
+"""Top-k token selection, gather and scatter (port of
+``protopformer_tpu/ops/tokens.py``).
 
-The JAX package gathers by a one-hot matmul, which is an exact selection;
-here ``torch.gather`` is the same exact selection. Tie caveat as in the
+The JAX package gathers and scatters by one-hot matmuls, which copy values
+exactly; here ``torch.gather`` and ``Tensor.scatter`` are the same exact
+copies, and their backward passes are each other. Tie caveat as in the
 JAX package: torch and jax ``top_k`` break exact-value ties differently.
 """
 
@@ -23,6 +25,17 @@ def gather_tokens(tokens: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """(B, N, C) tokens at per-batch (B, K) indices -> (B, K, C)."""
     idx = indices.long()[:, :, None].expand(-1, -1, tokens.shape[-1])
     return torch.gather(tokens, 1, idx)
+
+
+def scatter_tokens_to_grid(values: torch.Tensor, indices: torch.Tensor,
+                           grid_len: int) -> torch.Tensor:
+    """(B, P, K) per-token values at per-batch (B, K) grid positions ->
+    (B, P, grid_len), zero at the positions not listed."""
+    B, P, K = values.shape
+    out = torch.zeros((B, P, grid_len), dtype=values.dtype,
+                      device=values.device)
+    idx = indices.long()[:, None, :].expand(B, P, K)
+    return out.scatter(2, idx, values)
 
 
 def reserve_policy(

@@ -43,7 +43,7 @@ def resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "ServingEngine runs on CUDA by default and no CUDA device is "
+            "the port runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' to run the plain versions on the CPU"
         )
     return dev

@@ -8,7 +8,10 @@ machine run it without the suite's conftest (which imports JAX):
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
 Tolerances: thresholds t bit-equal, row sums 1e-6, fp32 outputs 1e-5 and
-maps 1e-6 (those of the JAX package's kernel tests); K3's bf16 output 1e-2.
+maps 1e-6 (those of the JAX package's kernel tests); K3's bf16 output 1e-2;
+a micro train step on the card against the CPU in fp32: the loss within
+1e-5, gradients within 2e-4 * max|g| + 1e-7, the AdamW step within 1e-6
+of the CPU's step on the card's gradients.
 K1 sums the dots of QK^T on tensor cores, in another order than the plain
 version's fp32 matmul, and rounds each logit to bf16 at once: a logit can
 then land one bf16 ulp away and move its row of the map, so the map is not
@@ -364,3 +367,96 @@ def test_cait_forward_launches_no_kernel(cuda, dtype, exact):
     torch.cuda.synchronize()
     assert set(kernels.launch_counts().values()) == {0}
     assert bool(torch.isfinite(out.logits).all())
+
+
+# --- training: the train forward runs K2 and no attention kernel ------------
+
+def _micro_train(dtype, device):
+    """A seeded micro PPNet (img 32, dim 24, depth 3, prune at block 2
+    keeping 9 of 16, drop path 0), its train state and train step."""
+    from protopformer_tpu_torch import train
+    from protopformer_tpu_torch.core.config import (
+        OptimConfig,
+        PPNetConfig,
+        backbone_preset,
+    )
+    from protopformer_tpu_torch.models import construct_ppnet
+
+    bk = backbone_preset("deit_micro_test", rollout_discard_ratio=0.7,
+                         drop_path_rate=0.0)
+    pp = PPNetConfig(prototype_shape=(40, 16, 1, 1), num_classes=4,
+                     reserve_layers=(2,), reserve_token_nums=(9,),
+                     global_proto_per_class=3)
+    opt = OptimConfig(epochs=10, warmup_epochs=0, features_lr=1e-3)
+    model = construct_ppnet(bk, pp, dtype,
+                            generator=torch.Generator().manual_seed(0))
+    state = train.create_train_state(
+        model, train.make_optimizer(opt, model, 4), device=device)
+    return state, train.make_train_step(model, pp, opt, device=device)
+
+
+def _micro_batch(rng, n=4):
+    return {"image": rng.uniform(size=(n, 32, 32, 3)).astype(np.float32),
+            "label": np.arange(n) % 4}
+
+
+def test_train_step_on_the_card_matches_the_cpu(rng, cuda):
+    """fp32 (TF32 off), PPC on: the loss within 1e-5, every gradient within
+    2e-4 * max|g| + 1e-7, and the card's parameters after the AdamW step
+    within 1e-6 of the CPU's AdamW step from the same weights on the
+    card's gradients. (Against the CPU's own step an entry whose gradient
+    is within a few eps of 0, such as a key bias's, may move by up to lr:
+    AdamW's first step is lr * g / (|g| + eps).)"""
+    batch = _micro_batch(rng)
+    results = []
+    for device in ("cpu", cuda):
+        state, step = _micro_train(torch.float32, device)
+        state, metrics = step(state, batch,
+                              torch.Generator(device).manual_seed(0), 1.0)
+        torch.cuda.synchronize()
+        results.append((float(metrics["loss"]),
+                        {n: (p.detach().cpu(), None if p.grad is None
+                             else p.grad.cpu())
+                         for n, p in state.model.named_parameters()}))
+    (cpu_loss, cpu), (card_loss, card) = results
+    replay, _ = _micro_train(torch.float32, "cpu")
+    for name, p in replay.model.named_parameters():
+        p.grad = None if card[name][1] is None else card[name][1].clone()
+    replay.apply_gradients()
+    replayed = dict(replay.model.named_parameters())
+    assert abs(card_loss - cpu_loss) <= 1e-5
+    for name, (p, g) in cpu.items():
+        q, h = card[name]
+        assert (g is None) == (h is None), name
+        if g is not None:
+            tol = 2e-4 * max(float(g.abs().max()), 1e-8) + 1e-7
+            assert _max_err(h, g) <= tol, name
+        assert _max_err(q, replayed[name].detach()) <= 1e-6, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_train_step_launches_k2_per_pre_prune_block(rng, cuda, dtype):
+    """One train step launches K2 once per pre-prune block (2 here) and
+    none of the attention kernels; the fp32 eval step keeps the serving
+    launches (K3 on every block, K2 on the pre-prune ones)."""
+    from protopformer_tpu_torch import train
+
+    state, step = _micro_train(dtype, cuda)
+    batch = _micro_batch(rng)
+    gen = torch.Generator(cuda).manual_seed(0)
+    step(state, batch, gen, 1.0)
+    kernels.reset_launch_counts()
+    _, metrics = step(state, batch, gen, 1.0)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts.pop("fused_map_stats") == 2
+    assert set(counts.values()) == {0}
+    assert math.isfinite(float(metrics["loss"]))
+    if dtype == torch.float32:
+        kernels.reset_launch_counts()
+        train.make_eval_step(device=cuda)(state.model, batch)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts["fused_attention_mean_padded"] == 3
+        assert counts["fused_map_stats"] == 2

@@ -73,6 +73,34 @@ def test_serving_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
         ServingEngine(backbone_preset("deit_micro_test"), PPNetConfig(), {})
 
 
+@pytest.mark.parametrize("entry", ["make_train_step", "create_train_state",
+                                   "make_eval_step"])
+def test_train_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, entry):
+    from protopformer_tpu_torch import train
+    from protopformer_tpu_torch.core.config import (
+        OptimConfig,
+        PPNetConfig,
+        backbone_preset,
+    )
+    from protopformer_tpu_torch.models import construct_ppnet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pp = PPNetConfig(prototype_shape=(40, 16, 1, 1), num_classes=4,
+                     reserve_layers=(2,), reserve_token_nums=(9,),
+                     global_proto_per_class=3)
+    model = construct_ppnet(backbone_preset("deit_micro_test"), pp)
+    calls = {
+        "make_train_step": lambda: train.make_train_step(
+            model, pp, OptimConfig()),
+        "create_train_state": lambda: train.create_train_state(
+            model, train.make_optimizer(OptimConfig(), model, 1)),
+        "make_eval_step": lambda: train.make_eval_step(),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
 def test_bench_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
     from protopformer_tpu_torch.cli import bench_kernels
 
