@@ -1,3 +1,11 @@
-from protopformer_tpu_torch.checkpoint.convert import state_dict_from_jax
+from protopformer_tpu_torch.checkpoint.convert import (
+    basenet_state_dict_from_jax,
+    deit_state_dict_from_jax,
+    state_dict_from_jax,
+)
 
-__all__ = ["state_dict_from_jax"]
+__all__ = [
+    "basenet_state_dict_from_jax",
+    "deit_state_dict_from_jax",
+    "state_dict_from_jax",
+]

@@ -13,6 +13,9 @@ exporter (``protopformer_tpu/checkpoint/torch_convert.py:282-425``):
 
 ``params`` is the JAX package's nested dict of numpy arrays (any array
 type ``np.asarray`` accepts); the result is a dict of fp32 CPU tensors.
+``state_dict_from_jax`` converts a PPNet, ``basenet_state_dict_from_jax``
+a ``BaseNet`` and ``deit_state_dict_from_jax`` a bare DeiT backbone or
+``DistilledDeiT``.
 """
 
 from __future__ import annotations
@@ -66,10 +69,50 @@ def _block(blk: Tree, p: str, attn_linears, out: Dict[str, np.ndarray]
 
 
 def _deit(params: Tree, depth: int) -> Dict[str, np.ndarray]:
+    """A DeiT backbone; a distilled one adds its token and two heads."""
     sd = _embed(params)
+    if "dist_token" in params:
+        sd["dist_token"] = _a(params["dist_token"])
+    for head in ("head", "head_dist"):
+        if head in params:
+            _linear(params[head], head, sd)
     for i in range(depth):
         _block(params[f"blocks_{i}"], f"blocks.{i}", ("qkv", "proj"), sd)
     return sd
+
+
+def _features(params: Tree, arch: str, depth: int, depth_token_only: int
+              ) -> Dict[str, np.ndarray]:
+    if arch == "deit":
+        return _deit(params, depth)
+    if arch == "cait":
+        return _cait(params, depth, depth_token_only)
+    raise ValueError(f"unknown backbone arch: {arch}")
+
+
+def _tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    # copies: the source arrays may be read-only views of device buffers
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def deit_state_dict_from_jax(params: Tree, depth: int
+                             ) -> Dict[str, torch.Tensor]:
+    """JAX ``DeiTBackbone`` or ``DistilledDeiT`` params -> timm-layout
+    state dict, key for key and value for value what the JAX package's
+    ``export_deit_state_dict`` emits (``dist_token``, ``head`` and
+    ``head_dist`` when the tree has them)."""
+    return _tensors(_deit(params, depth))
+
+
+def basenet_state_dict_from_jax(
+    params: Tree, arch: str, depth: int, depth_token_only: int = 2
+) -> Dict[str, torch.Tensor]:
+    """JAX ``BaseNet`` params -> the reference layout: ``features.*`` and
+    the linear head ``last_layer.weight``/``.bias``."""
+    sd = {f"features.{k}": v for k, v in
+          _features(params["features"], arch, depth, depth_token_only).items()}
+    _linear(params["last_layer"], "last_layer", sd)
+    return _tensors(sd)
 
 
 def _cait(params: Tree, depth: int, depth_token_only: int
@@ -97,17 +140,14 @@ def state_dict_from_jax(
 
     Key for key and value for value what the JAX package's
     ``export_ppnet_state_dict`` emits for a DeiT or CaiT PPNet (``arch``;
-    CaiT with ``depth_token_only`` class-attention blocks); with no global
+    CaiT with ``depth_token_only`` class-attention blocks), with either
+    add-on stack ("regular" or "bottleneck": Dense ``layers_j`` becomes the
+    1x1 conv at Sequential index 2j); with no global
     branch, ``last_layer_global.weight`` is synthesized at the frozen
     class-identity pattern of ``global_proto_per_class`` prototypes per
     class, as the reference model always registers it.
     """
-    if arch == "deit":
-        feats = _deit(params["features"], depth)
-    elif arch == "cait":
-        feats = _cait(params["features"], depth, depth_token_only)
-    else:
-        raise ValueError(f"unknown backbone arch: {arch}")
+    feats = _features(params["features"], arch, depth, depth_token_only)
     sd = {f"features.{k}": v for k, v in feats.items()}
     add_on = params["add_on_layers"]
     for j in range(len(add_on)):
@@ -130,5 +170,4 @@ def state_dict_from_jax(
         for j in range(n_global):
             w[j // global_proto_per_class, j] = 1.0
         sd["last_layer_global.weight"] = w
-    # copies: the source arrays may be read-only views of device buffers
-    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+    return _tensors(sd)

@@ -4,15 +4,16 @@ A copy of the JAX package's ``BackboneConfig``, ``PPNetConfig``,
 ``OptimConfig``, ``DataConfig``, ``TrainConfig`` and ``ExperimentConfig``
 with the same fields, defaults and validation, except that the kernel gates
 (``use_pallas``, ``stats_kernel``) default to ``"auto"``: in the port
-``"on"`` and ``"auto"`` both select the kernel-on block structure, whose
-kernels run on CUDA tensors and whose plain PyTorch versions run on CPU
-tensors.
+``"on"`` and ``"auto"`` both select the kernels, which run on CUDA tensors
+and whose plain PyTorch versions run on CPU tensors. ``"off"`` selects the
+JAX package's kernel-off structure (``models/deit.py``): a configuration
+the caller asks for, never a fallback.
 
-Values this slice of the port does not implement are rejected by
-``check_ported`` with the ``ROADMAP.md`` item that will port them. The
-kernel gates select the structure of an eval forward only: a module in
-training mode always runs the differentiable plain attention, as the JAX
-package's kernel gate requires ``deterministic``.
+Values the port does not implement (the XLA lowering choices and int8
+serving) are rejected by ``check_ported`` with the ``ROADMAP.md`` item
+that names them. ``use_pallas`` selects the structure of an eval forward
+only: a module in training mode always runs the differentiable plain
+attention, as the JAX package's kernel gate requires ``deterministic``.
 """
 
 from __future__ import annotations
@@ -47,8 +48,8 @@ class BackboneConfig:
     rollout_identity_weight: float = 0.2
     rollout_head_fusion: str = "mean"
     rollout_exact_discard: bool = True
-    # DeiT's kernel-on structure ignores it, as the JAX kernels do; CaiT's
-    # signed statistics honour it
+    # K1 and K2 ignore it, as the JAX kernels do; the plain statistics
+    # (the kernel-off structure, CaiT's signed ones) honour it
     rollout_discard_sample: int = 1
     rollout_stats_batched: str = "off"
     use_pallas: str = "auto"
@@ -217,7 +218,6 @@ class PPNetConfig:
 
 # (field, value that is ported) -> the ROADMAP.md item that ports the rest
 _NOT_PORTED = (
-    ("distilled", False, "Queue 1 item 7 (DistilledDeiT)"),
     ("attn_impl", "headloop",
      "Queue 1 item 14 (non-headloop attn_impl is an XLA lowering choice)"),
     ("patch_embed", "conv",
@@ -225,16 +225,13 @@ _NOT_PORTED = (
     ("ln_stats", "fp32",
      "Queue 1 item 14 (ln_stats compute/mxu are XLA lowering choices)"),
     ("quantize", "off", "Queue 1 item 14 (int8 serving)"),
-    ("rollout_stats_batched", "off",
-     "Queue 1 item 3 (masked_map_stats_multi)"),
-    ("rollout_head_fusion", "mean",
-     "Queue 1 item 4 (the per-head-probs attention of max/min fusion)"),
 )
 
 
-def check_ported(backbone: BackboneConfig, ppnet: PPNetConfig = None) -> None:
-    """Raise ``NotImplementedError`` for a configuration value this slice
-    of the port does not implement, naming the ROADMAP.md item."""
+def check_ported(backbone: BackboneConfig) -> None:
+    """Raise ``NotImplementedError`` for a configuration value the port
+    does not implement, naming the ROADMAP.md item (every PPNet value is
+    ported)."""
     for name, ported, item in _NOT_PORTED:
         value = getattr(backbone, name)
         if value != ported:
@@ -242,17 +239,6 @@ def check_ported(backbone: BackboneConfig, ppnet: PPNetConfig = None) -> None:
                 f"BackboneConfig.{name}={value!r} is not ported yet: "
                 f"ROADMAP.md {item}"
             )
-    for name in ("use_pallas", "stats_kernel"):
-        if getattr(backbone, name) == "off":
-            raise NotImplementedError(
-                f"BackboneConfig.{name}='off' (the kernel-off XLA structure)"
-                " is not ported: ROADMAP.md Queue 1 item 5"
-            )
-    if ppnet is not None and ppnet.add_on_layers_type != "regular":
-        raise NotImplementedError(
-            f"PPNetConfig.add_on_layers_type={ppnet.add_on_layers_type!r} is"
-            " not ported yet: ROADMAP.md Queue 1 item 4"
-        )
 
 
 @dataclass(frozen=True)

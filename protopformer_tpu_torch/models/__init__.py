@@ -1,9 +1,16 @@
 from protopformer_tpu_torch.models.cait import CaiTBackbone
-from protopformer_tpu_torch.models.deit import DeiTBackbone
+from protopformer_tpu_torch.models.deit import (
+    DeiTBackbone,
+    DistilledDeiT,
+    construct_distilled_deit,
+)
 from protopformer_tpu_torch.models.ppnet import (
+    BaseNet,
     EvalOutput,
     PPNet,
+    PushOutput,
     TrainOutput,
+    construct_basenet,
     construct_ppnet,
 )
 from protopformer_tpu_torch.models.registry import (
@@ -13,11 +20,16 @@ from protopformer_tpu_torch.models.registry import (
 
 __all__ = [
     "BACKBONE_REGISTRY",
+    "BaseNet",
     "CaiTBackbone",
     "DeiTBackbone",
+    "DistilledDeiT",
     "EvalOutput",
     "PPNet",
+    "PushOutput",
     "TrainOutput",
+    "construct_basenet",
+    "construct_distilled_deit",
     "construct_ppnet",
     "create_backbone",
 ]

@@ -6,7 +6,10 @@ CLS), then ``depth_token_only`` class-attention blocks update a separate
 CLS token against those patch tokens. The self-attention stage keeps, per
 block, the lazy rollout's raw head-mean map with its discard threshold and
 masked row sums, in the signed key space: talking-heads maps are not
-probabilities and can be negative throughout (ROADMAP F4). At a
+probabilities and can be negative throughout (ROADMAP F4). Under
+``rollout_stats_batched="on"`` one search covers all of them
+(``masked_map_stats_multi``, bit-identical); under "max"/"min" head fusion
+the blocks return per-head maps, fused here. At a
 class-attention block ``i`` in the reserve list, the mean of the
 normalized class-attention rows so far (CLS column dropped) is rolled back
 through the self-attention maps, and its top-k policy masks the
@@ -36,6 +39,7 @@ from protopformer_tpu_torch.models.layers import (
 from protopformer_tpu_torch.ops.rollout import (
     _fuse_heads,
     masked_map_stats,
+    masked_map_stats_multi,
     normalize_attention_map,
     rollout_row_scores_lazy,
 )
@@ -62,7 +66,8 @@ class CaiTBackbone(nn.Module):
         self.blocks = nn.ModuleList([
             LayerScaleBlock(D, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
                             cfg.init_scale, cfg.layer_norm_eps, compute_dtype,
-                            cfg.drop_rate, cfg.drop_path_rate)
+                            cfg.drop_rate, cfg.drop_path_rate,
+                            cfg.rollout_head_fusion)
             for _ in range(cfg.depth)
         ])
         self.blocks_token_only = nn.ModuleList([
@@ -109,18 +114,23 @@ class CaiTBackbone(nn.Module):
         sample = 1 if cfg.rollout_exact_discard else cfg.rollout_discard_sample
 
         x = x_embed
-        sa_maps, sa_ts, sa_ss = [], [], []
+        sa_maps = []
         for blk in self.blocks:
             x, fmap = blk(x, generator)
+            if fmap.dim() == 4:  # "max"/"min" fusion: per-head maps
+                fmap = _fuse_heads(fmap.float(), cfg.rollout_head_fusion)
             if not cfg.rollout_exact_discard:
                 fmap = fmap.to(torch.bfloat16)
-            t, s = masked_map_stats(
-                fmap, cfg.rollout_discard_ratio, cfg.rollout_exact_discard,
-                signed=True, sample=sample,
-            )
             sa_maps.append(fmap)
-            sa_ts.append(t)
-            sa_ss.append(s)
+        stats_args = (cfg.rollout_discard_ratio, cfg.rollout_exact_discard)
+        if cfg.rollout_stats_batched == "on":
+            sa_stats = masked_map_stats_multi(sa_maps, *stats_args,
+                                              signed=True, sample=sample)
+        else:
+            sa_stats = [masked_map_stats(m, *stats_args, signed=True,
+                                         sample=sample) for m in sa_maps]
+        sa_ts = [t for t, _ in sa_stats]
+        sa_ss = [s for _, s in sa_stats]
 
         cls_tokens = cls_embed
         policy = torch.ones((B, seq_len), dtype=torch.float32,

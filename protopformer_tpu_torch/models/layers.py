@@ -7,8 +7,8 @@ Module and parameter names follow the reference PyTorch layout
 ``strict=True``. Parameters stay fp32; each product runs in the compute
 dtype (bf16 speed or fp32 parity), LayerNorm statistics are fp32.
 
-In eval mode ``Attention`` is the kernel-on structure of the JAX package
-(``layers.py:418-465``):
+In eval mode, with a policy and the kernels on, ``Attention`` is the
+kernel-on structure of the JAX package (``layers.py:418-465``):
   * a pre-prune block (``tap=True``) with the all-ones policy in bf16 runs
     K1 (``fused_attention_block_stats``) and returns the lazy-rollout
     triple (map, threshold, row sums);
@@ -21,15 +21,21 @@ In eval mode ``Attention`` is the kernel-on structure of the JAX package
     unpadded sequence and returns the raw fp32 head-mean map. The pad to a
     multiple of 128 tokens was the TPU's lane width and is not carried over.
 The kernels have no backward (nor do the JAX package's), so an eval-mode
-forward that would record gradients raises. In training mode (the JAX
-package's ``deterministic=False``, which its kernel gate excludes)
-``Attention`` runs the differentiable ``fuse_probs`` headloop
-(``layers.py:469-490``): per-head products, ``eps_softmax`` under the
-all-ones policy and ``softmax_with_policy`` after a prune, the map
-accumulated as sum_h probs_h * (1/H) in fp32 in head order and detached.
-Dropout (``drop_rate``) follows the attention projection and each MLP
-product, and ``DropPath`` each residual branch; both draw from the
-``torch.Generator`` the caller passes down.
+forward that would record gradients raises. Every other forward runs the
+JAX package's per-head loop (``layers.py:469-490``, its ``fuse_probs``
+headloop): per-head products, ``eps_softmax`` under the all-ones policy,
+``softmax_with_policy`` after a prune and, with no policy (the unpruned
+forwards, ``layers.py:549-551``), a plain softmax over fp32 logits cast
+back to the compute dtype. Under "mean" head fusion the map is accumulated
+as sum_h probs_h * (1/H) in fp32 in head order; under "max"/"min" the
+per-head probabilities are returned; either is detached. The headloop
+runs in training mode (the JAX package's ``deterministic=False``, which
+its kernel gate excludes), in the kernel-off eval structure
+(``use_pallas="off"``, or "max"/"min" fusion, which the kernels' head mean
+cannot serve) and without a policy. Dropout (``drop_rate``) follows the
+attention projection and each MLP product, and ``DropPath`` each residual
+branch, in training mode; both draw from the ``torch.Generator`` the
+caller passes down.
 
 CaiT's blocks (``layers.py:635-829`` of the JAX package) run plain PyTorch
 products, as the JAX package runs them outside any Pallas kernel:
@@ -58,7 +64,7 @@ from protopformer_tpu_torch.ops.masking import (
     eps_softmax,
     softmax_with_policy,
 )
-from protopformer_tpu_torch.ops.rollout import normalize_attention_map
+from protopformer_tpu_torch.ops.rollout import _fuse_heads, normalize_attention_map
 
 Policy = Union[str, torch.Tensor]
 Generator = Optional[torch.Generator]
@@ -89,6 +95,45 @@ def dropout(x: torch.Tensor, rate: float, generator: Generator,
     shape = ((x.shape[0],) + (1,) * (x.dim() - 1)) if per_sample else x.shape
     mask = torch.rand(shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, 0.0)
+
+
+@torch.no_grad()
+def seeded_init_(model: nn.Module, features: nn.Module, arch: str,
+                 init_scale: float, generator: torch.Generator) -> None:
+    """Seeded random weights for ``model`` over the backbone ``features``:
+    PyTorch's default Linear/Conv2d init (U(+-1/sqrt(fan_in))), LayerNorm
+    ones/zeros, the CLS token, the distillation token (if any) and the
+    position embedding N(0, 0.02^2). A CaiT backbone's linears take the
+    JAX package's flax init instead (N(0, 1/fan_in), zero bias): talking
+    heads mix probabilities of about 1/N, which a default bias of up to
+    1/sqrt(num_heads) would swamp. Its LayerScale gammas start at
+    ``init_scale``."""
+    def uniform_(p, bound):
+        p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
+
+    for m in model.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            bound = m.weight[0].numel() ** -0.5
+            uniform_(m.weight, bound)
+            if m.bias is not None:
+                uniform_(m.bias, bound)
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.fill_(0.0)
+    for name in ("cls_token", "dist_token", "pos_embed"):
+        p = getattr(features, name, None)
+        if p is not None:
+            p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
+    if arch == "cait":
+        for m in features.modules():
+            if isinstance(m, nn.Linear):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                               * m.weight.shape[1] ** -0.5)
+                if m.bias is not None:
+                    m.bias.zero_()
+        for name, p in features.named_parameters():
+            if name.endswith(("gamma_1", "gamma_2")):
+                p.fill_(init_scale)
 
 
 class DropPath(nn.Module):
@@ -145,40 +190,50 @@ class Mlp(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention: the kernel-on structure in eval mode, the
-    differentiable headloop in training mode.
+    """Multi-head self-attention: the kernel structure or the headloop.
 
     Args:
       rollout: (discard_ratio, identity_weight, exact_discard) of the
         rollout; the exact flag selects K1's map storage dtype (fp32 exact,
         bf16 speed) and the discard of a normalized map.
       drop_rate: dropout after the output projection (training mode).
+      head_fusion: the rollout's head fusion; under "mean" the map is the
+        fp32 head mean, under "max"/"min" the headloop returns the
+        per-head probabilities, which the consumer fuses.
+      kernels: the eval forward takes the kernel structure (``use_pallas``
+        "on"/"auto" under "mean" fusion); else the headloop.
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool,
                  dtype: torch.dtype, rollout: Tuple[float, float, bool],
-                 drop_rate: float = 0.0):
+                 drop_rate: float = 0.0, head_fusion: str = "mean",
+                 kernels: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
         self.rollout = rollout
         self.drop_rate = drop_rate
+        self.head_fusion = head_fusion
+        self.kernels = kernels and head_fusion == "mean"
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, policy: Policy, tap: bool = True,
                 normalized: bool = False, generator: Generator = None):
-        """``policy`` is ``"ones"`` (static all-ones) or a (B, N) keep-mask.
+        """``policy`` is ``"ones"`` (static all-ones), a (B, N) keep-mask,
+        or None (no pruning: a plain fp32 softmax, no map, no kernel).
         ``tap=False`` marks a block whose lazy-rollout triple is not
         consumed: K1 is skipped there, as in the JAX package.
         ``normalized=True`` asks for the normalized rollout map.
 
         Returns (out (B, N, C), aux): aux is (map, t, s) after K1, the
         normalized fp32 (B, N, N) map under ``normalized``, else the raw
-        fp32 (B, N, N) head-mean map. Maps carry no gradient.
+        map: fp32 (B, N, N) head mean, or the (B, H, N, N) per-head
+        probabilities in the compute dtype under "max"/"min" fusion; None
+        without a policy. Maps carry no gradient.
         """
-        if self.training:
-            return self._train_forward(x, policy, normalized, generator)
+        if self.training or policy is None or not self.kernels:
+            return self._headloop(x, policy, normalized, generator)
         if torch.is_grad_enabled() and x.requires_grad:
             raise RuntimeError(
                 "the attention kernels have no backward: run the forward "
@@ -210,33 +265,51 @@ class Attention(nn.Module):
                                            exact_discard=False)
         return dense(out, self.proj, self.dtype), fmap
 
-    def _train_forward(self, x: torch.Tensor, policy: Policy,
-                       normalized: bool, generator: Generator):
-        """The JAX package's ``fuse_probs`` headloop in plain PyTorch."""
+    def _headloop(self, x: torch.Tensor, policy: Optional[Policy],
+                  normalized: bool, generator: Generator):
+        """The JAX package's per-head loop in plain PyTorch (its
+        ``fuse_probs`` headloop under "mean" fusion, the per-head
+        probabilities of its plain path otherwise). Differentiable; the
+        map is detached."""
         B, N, C = x.shape
         H, dt = self.num_heads, self.dtype
         hd = C // H
         qkv = dense(x, self.qkv, dt)
         scale = _scale(hd, dt)
-        fmap = torch.zeros((B, N, N), dtype=torch.float32, device=x.device)
-        outs = []
+        fuse = self.head_fusion == "mean"
+        fmap = (torch.zeros((B, N, N), dtype=torch.float32, device=x.device)
+                if fuse else None)
+        outs, per_head = [], []
         for h in range(H):
             q = qkv[:, :, h * hd:(h + 1) * hd]
             k = qkv[:, :, C + h * hd:C + (h + 1) * hd]
             v = qkv[:, :, 2 * C + h * hd:2 * C + (h + 1) * hd]
             logits = torch.matmul(q, k.transpose(1, 2)) * scale
-            if isinstance(policy, str):
+            if policy is None:
+                probs = torch.softmax(logits.float(), dim=-1).to(dt)
+            elif isinstance(policy, str):
                 probs = eps_softmax(logits)
             else:
                 probs = softmax_with_policy(logits[:, None], policy)[:, 0]
-            fmap = fmap + probs.detach().float() * (1.0 / H)
+            if policy is not None and fuse:
+                fmap = fmap + probs.detach().float() * (1.0 / H)
+            elif policy is not None:
+                per_head.append(probs.detach())
             outs.append(torch.matmul(probs, v))
         out = dense(torch.cat(outs, dim=-1), self.proj, dt)
+        if policy is None:
+            fmap = None
+        elif not fuse:
+            fmap = torch.stack(per_head, dim=1)
         if normalized:
             ratio, identity_weight, exact = self.rollout
+            if fmap.dim() == 4:
+                fmap = _fuse_heads(fmap.float(), self.head_fusion)
             fmap = normalize_attention_map(fmap, ratio, identity_weight,
                                            exact_discard=exact)
-        return dropout(out, self.drop_rate, generator), fmap
+        if self.training:
+            out = dropout(out, self.drop_rate, generator)
+        return out, fmap
 
 
 class Block(nn.Module):
@@ -246,19 +319,21 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  qkv_bias: bool, layer_norm_eps: float, dtype: torch.dtype,
                  rollout: Tuple[float, float, bool], drop_rate: float = 0.0,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, head_fusion: str = "mean",
+                 kernels: bool = True):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=layer_norm_eps)
         self.attn = Attention(dim, num_heads, qkv_bias, dtype, rollout,
-                              drop_rate)
+                              drop_rate, head_fusion, kernels)
         self.norm2 = nn.LayerNorm(dim, eps=layer_norm_eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, drop_rate)
         self.drop_path1 = DropPath(drop_path)
         self.drop_path2 = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor, policy: Policy, tap: bool = True,
-                normalized: bool = False, generator: Generator = None
+    def forward(self, x: torch.Tensor, policy: Optional[Policy],
+                tap: bool = True, normalized: bool = False,
+                generator: Generator = None
                 ) -> Tuple[torch.Tensor, Optional[object]]:
         h, aux = self.attn(layer_norm(x, self.norm1, self.dtype), policy, tap,
                            normalized, generator)
@@ -285,15 +360,19 @@ class TalkingHeadAttention(nn.Module):
     fp32 softmax cast back, both in the compute dtype.
 
     Returns (out (B, N, C), the fp32 head mean (B, N, N) of the mixed
-    probabilities): rows need not sum to 1, and entries may be negative.
+    probabilities, or under "max"/"min" ``head_fusion`` the mixed
+    per-head probabilities (B, H, N, N) in the compute dtype): rows need
+    not sum to 1, and entries may be negative.
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool,
-                 dtype: torch.dtype, drop_rate: float = 0.0):
+                 dtype: torch.dtype, drop_rate: float = 0.0,
+                 head_fusion: str = "mean"):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
         self.drop_rate = drop_rate
+        self.head_fusion = head_fusion
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
         self.proj_l = nn.Linear(num_heads, num_heads)
@@ -314,6 +393,8 @@ class TalkingHeadAttention(nn.Module):
         out = dense(out, self.proj, dt)
         if self.training:
             out = dropout(out, self.drop_rate, generator)
+        if self.head_fusion != "mean":
+            return out, probs.detach()
         return out, probs.detach().float().mean(dim=1)
 
 
@@ -358,18 +439,18 @@ class ClassAttention(nn.Module):
 class LayerScaleBlock(nn.Module):
     """CaiT self-attention block: pre-LN talking-heads attention and MLP,
     each branch scaled by its LayerScale gamma and, in training mode, put
-    through ``DropPath(drop_path)``. Returns (x, the detached fp32
-    head-mean map)."""
+    through ``DropPath(drop_path)``. Returns (x, the detached map of
+    ``TalkingHeadAttention``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  qkv_bias: bool, init_values: float, layer_norm_eps: float,
                  dtype: torch.dtype, drop_rate: float = 0.0,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, head_fusion: str = "mean"):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=layer_norm_eps)
         self.attn = TalkingHeadAttention(dim, num_heads, qkv_bias, dtype,
-                                         drop_rate)
+                                         drop_rate, head_fusion)
         self.norm2 = nn.LayerNorm(dim, eps=layer_norm_eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, drop_rate)
         self.gamma_1 = nn.Parameter(torch.full((dim,), init_values))

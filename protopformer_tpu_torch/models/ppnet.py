@@ -3,15 +3,17 @@
 
 Eval mode (the JAX package's ``train=False``) returns ``EvalOutput``;
 training mode returns ``TrainOutput``, with the activation maps the PPC
-loss (``get_ppc_loss``) reads and the detached rollout scores.
+loss (``get_ppc_loss``) reads and the detached rollout scores;
+``push_forward`` returns ``PushOutput``. ``BaseNet`` is the ablation
+baseline (the unpruned backbone and a linear head).
 ``construct_ppnet`` returns a model in eval mode, as the JAX model's call
 defaults to ``train=False``; ``model.train()`` selects the train forward.
 
 Parameter names follow the reference PyTorch layout, so the state dict
 that ``checkpoint/convert.py::state_dict_from_jax`` (or the JAX package's
 ``export_ppnet_state_dict``) emits loads with ``strict=True``:
-``features.*``, ``add_on_layers.0.{weight,bias}`` (a 1x1 conv, applied
-here as a dense over the token channels), ``prototype_vectors`` and
+``features.*``, ``add_on_layers.{2j}.{weight,bias}`` (1x1 convs, applied
+here as dense layers over the token channels), ``prototype_vectors`` and
 ``prototype_vectors_global`` (P, C, 1, 1), the frozen ``ones`` and the
 frozen class-identity heads ``last_layer`` / ``last_layer_global``. The
 frozen tensors (``ones`` and the heads) do not require gradients.
@@ -26,12 +28,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from protopformer_tpu_torch.core.config import (
-    BackboneConfig,
-    PPNetConfig,
-    check_ported,
-)
-from protopformer_tpu_torch.models.layers import Generator
+from protopformer_tpu_torch.core.config import BackboneConfig, PPNetConfig
+from protopformer_tpu_torch.core.device import resolve_device
+from protopformer_tpu_torch.models.layers import Generator, seeded_init_
 from protopformer_tpu_torch.models.registry import create_backbone
 from protopformer_tpu_torch.ops.distances import (
     distance_to_similarity,
@@ -49,6 +48,13 @@ class EvalOutput(NamedTuple):
     distances: torch.Tensor  # (B, P, k, k) local prototype distances
     logits_global: torch.Tensor  # (B, num_classes)
     logits_local: torch.Tensor  # (B, num_classes)
+
+
+class PushOutput(NamedTuple):
+    """push_forward contract (the JAX package's field order)."""
+
+    cls_token_attn: torch.Tensor  # (B, N) rollout CLS->patch scores
+    proto_acts: torch.Tensor  # (B, P, k, k) local activation maps
 
 
 class TrainOutput(NamedTuple):
@@ -73,37 +79,67 @@ def class_identity(num_prototypes: int, num_classes: int,
 
 
 class AddOnLayers(nn.Sequential):
-    """'regular' add-on: 1x1 conv + sigmoid, applied to (B, K, C) tokens as
-    a dense over channels in the compute dtype; the sigmoid is fp32."""
+    """The add-on projection into prototype space, the reference's stack of
+    1x1 convs applied to (B, K, C) tokens as dense layers over channels in
+    the compute dtype, conv j at Sequential index 2j:
+      * "regular": conv + sigmoid;
+      * "bottleneck": a halving chain, while the width exceeds
+        ``proto_dim`` (at least once): conv, ReLU, conv, then ReLU, or on
+        the last pair a sigmoid.
+    The sigmoid is fp32; the ReLUs run in the compute dtype."""
 
-    def __init__(self, in_dim: int, proto_dim: int, dtype: torch.dtype):
-        super().__init__(nn.Conv2d(in_dim, proto_dim, 1), nn.Sigmoid())
+    def __init__(self, in_dim: int, proto_dim: int, dtype: torch.dtype,
+                 kind: str = "regular"):
+        if kind == "regular":
+            layers = [nn.Conv2d(in_dim, proto_dim, 1), nn.Sigmoid()]
+        elif kind == "bottleneck":
+            layers, current = [], in_dim
+            while current > proto_dim or not layers:
+                out = max(proto_dim, current // 2)
+                layers += [nn.Conv2d(current, out, 1), nn.ReLU(),
+                           nn.Conv2d(out, out, 1),
+                           nn.ReLU() if out > proto_dim else nn.Sigmoid()]
+                current //= 2
+        else:
+            raise ValueError(f"unknown add_on_layers_type: {kind}")
+        super().__init__(*layers)
         self.dtype = dtype
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        conv = self[0]
-        h = F.linear(
-            tokens.to(self.dtype), conv.weight[:, :, 0, 0].to(self.dtype),
-            conv.bias.to(self.dtype),
-        )
-        return torch.sigmoid(h.float())
+        h = tokens
+        for layer in self:
+            if isinstance(layer, nn.Conv2d):
+                h = F.linear(h.to(self.dtype),
+                             layer.weight[:, :, 0, 0].to(self.dtype),
+                             layer.bias.to(self.dtype))
+            elif isinstance(layer, nn.Sigmoid):
+                h = torch.sigmoid(h.float())
+            else:
+                h = torch.relu(h)
+        return h
 
 
 class PPNet(nn.Module):
     """Dual-branch prototype classifier over a pruning backbone (DeiT or
-    CaiT)."""
+    CaiT). A distilled config raises ``ValueError``: the distilled DeiT is
+    a standalone classifier, not a feature extractor."""
 
     def __init__(self, backbone_config: BackboneConfig, config: PPNetConfig,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        check_ported(backbone_config, config)
+        if backbone_config.distilled:
+            raise ValueError(
+                "PPNet requires an attention-tap backbone; distilled "
+                "variants are standalone classifiers (DistilledDeiT)"
+            )
         self.backbone_config = backbone_config
         self.config = config
         self.compute_dtype = compute_dtype
         P, C = config.num_prototypes, config.proto_dim
         self.features = create_backbone(backbone_config, compute_dtype)
         self.add_on_layers = AddOnLayers(
-            backbone_config.embed_dim, C, compute_dtype
+            backbone_config.embed_dim, C, compute_dtype,
+            config.add_on_layers_type,
         )
         self.prototype_vectors = nn.Parameter(torch.rand(P, C, 1, 1))
         self.ones = nn.Parameter(torch.ones(P, C, 1, 1), requires_grad=False)
@@ -133,39 +169,11 @@ class PPNet(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Seeded random weights: PyTorch's default Linear/Conv2d init
-        (U(+-1/sqrt(fan_in))), LayerNorm ones/zeros, CLS token and position
-        embedding N(0, 0.02^2), prototypes U(0, 1), heads at the
-        class-identity pattern. A CaiT backbone's linears take the JAX
-        package's flax init instead (N(0, 1/fan_in), zero bias): talking
-        heads mix probabilities of about 1/N, which a default bias of up to
-        1/sqrt(num_heads) would swamp. Its LayerScale gammas start at
-        ``init_scale``."""
-        def uniform_(p, bound):
-            p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
-
-        for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Conv2d)):
-                bound = m.weight[0].numel() ** -0.5
-                uniform_(m.weight, bound)
-                if m.bias is not None:
-                    uniform_(m.bias, bound)
-            elif isinstance(m, nn.LayerNorm):
-                m.weight.fill_(1.0)
-                m.bias.fill_(0.0)
-        for p in (self.features.cls_token, self.features.pos_embed):
-            p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
-        if self.backbone_config.arch == "cait":
-            for m in self.features.modules():
-                if isinstance(m, nn.Linear):
-                    m.weight.copy_(torch.randn(m.weight.shape,
-                                               generator=generator)
-                                   * m.weight.shape[1] ** -0.5)
-                    if m.bias is not None:
-                        m.bias.zero_()
-            for name, p in self.features.named_parameters():
-                if name.endswith(("gamma_1", "gamma_2")):
-                    p.fill_(self.backbone_config.init_scale)
+        """Seeded random weights: ``layers.seeded_init_`` over the whole
+        model, then prototypes U(0, 1) and the heads at the class-identity
+        pattern."""
+        bk = self.backbone_config
+        seeded_init_(self, self.features, bk.arch, bk.init_scale, generator)
         protos = [self.prototype_vectors]
         if self.config.use_global:
             protos.append(self.prototype_vectors_global)
@@ -276,6 +284,28 @@ class PPNet(nn.Module):
             logits_local=logits_local,
         )
 
+    def push_forward(self, x: torch.Tensor) -> PushOutput:
+        """The offline-analysis forward (the interpretability tools'): the
+        eval forward's ``conv_features`` and prototype activations, run in
+        eval mode under ``inference_mode``, so it reaches the serving
+        kernels. ``proto_acts`` is the local branch's (B, P, k, k)
+        activation grid over the k*k reserved tokens in ascending token
+        order."""
+        training = self.training
+        self.eval()
+        try:
+            with torch.inference_mode():
+                cls_tokens, img_tokens, cls_token_attn = self.conv_features(x)
+                *_, distances = self._branch_logits(cls_tokens, img_tokens)
+                cfg = self.config
+                acts = distance_to_similarity(
+                    distances, cfg.prototype_activation_function, cfg.epsilon
+                )
+        finally:
+            self.train(training)
+        return PushOutput(cls_token_attn=cls_token_attn,
+                          proto_acts=self._to_grid(acts))
+
     def get_ppc_loss(self, total_proto_act: torch.Tensor,
                      cls_attn_rollout: torch.Tensor, label: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -290,6 +320,50 @@ class PPNet(nn.Module):
             int(round(cls_attn_rollout.shape[-1] ** 0.5)),
             cfg.ppc_cov_thresh, cfg.ppc_mean_thresh,
         )
+
+
+class BaseNet(nn.Module):
+    """The ablation baseline: the unpruned backbone's CLS feature and one
+    fp32 linear head (the reference's ``BaseNet``). ``forward`` returns
+    (logits, None); ``push_forward`` the (B, C, g, g) grid of the patch
+    features."""
+
+    def __init__(self, backbone_config: BackboneConfig, num_classes: int = 200,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.backbone_config = backbone_config
+        self.compute_dtype = compute_dtype
+        self.features = create_backbone(backbone_config, compute_dtype)
+        self.last_layer = nn.Linear(backbone_config.embed_dim, num_classes)
+
+    def forward(self, x: torch.Tensor, generator: Generator = None
+                ) -> Tuple[torch.Tensor, None]:
+        feat = self.features.forward_features(x, generator)
+        return self.last_layer(feat.float()), None
+
+    def push_forward(self, x: torch.Tensor) -> torch.Tensor:
+        maps = self.features.feature_maps(x)
+        B, K, C = maps.shape
+        g = int(round(K ** 0.5))
+        return maps.transpose(1, 2).reshape(B, C, g, g)
+
+
+def construct_basenet(
+    backbone: BackboneConfig,
+    num_classes: int = 200,
+    compute_dtype: torch.dtype = torch.float32,
+    generator: Optional[torch.Generator] = None,
+    device="cuda",
+) -> BaseNet:
+    """A ``BaseNet`` in eval mode on ``device`` ("cuda" unless the caller
+    asks for the CPU; without CUDA the default raises); with
+    ``generator``, seeded random weights (``layers.seeded_init_``)."""
+    dev = resolve_device(device)
+    model = BaseNet(backbone, num_classes, compute_dtype)
+    if generator is not None:
+        seeded_init_(model, model.features, backbone.arch, backbone.init_scale,
+                     generator)
+    return model.to(dev).eval()
 
 
 def construct_ppnet(

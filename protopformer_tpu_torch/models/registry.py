@@ -1,7 +1,7 @@
 """Backbone registry (port of ``protopformer_tpu/models/registry.py``):
-backbones are built from typed presets, DeiT or CaiT by ``arch``; any
-other ``arch`` raises ``ValueError``, as in the JAX package. The distilled
-DeiT raises ``NotImplementedError`` naming its ROADMAP.md item.
+backbones are built from typed presets, DeiT (``DistilledDeiT`` when the
+config is distilled) or CaiT by ``arch``; any other ``arch`` raises
+``ValueError``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from protopformer_tpu_torch.core.config import (
     backbone_preset,
 )
 from protopformer_tpu_torch.models.cait import CaiTBackbone
-from protopformer_tpu_torch.models.deit import DeiTBackbone
+from protopformer_tpu_torch.models.deit import DeiTBackbone, DistilledDeiT
 
 BACKBONE_REGISTRY = tuple(BACKBONE_PRESETS)
 
@@ -32,6 +32,9 @@ def create_backbone(
     else:
         cfg = name_or_config
     if cfg.arch == "deit":
+        if cfg.distilled:
+            # a standalone two-head classifier, not a PPNet backbone
+            return DistilledDeiT(cfg, compute_dtype=compute_dtype)
         return DeiTBackbone(cfg, compute_dtype=compute_dtype)
     if cfg.arch == "cait":
         return CaiTBackbone(cfg, compute_dtype=compute_dtype)

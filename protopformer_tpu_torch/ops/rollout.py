@@ -24,7 +24,7 @@ package's bit for bit.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -248,6 +248,29 @@ def masked_map_stats(
     af = a.float()
     s = torch.where(af >= t.float()[:, None, None], af, 0.0).sum(dim=-1)
     return t, s
+
+
+def masked_map_stats_multi(
+    fmaps: Sequence[torch.Tensor],
+    discard_ratio: float = 0.9,
+    exact_discard: bool = True,
+    value_bound: float = None,
+    sample: int = 1,
+    stochastic_eps: float = None,
+    signed: bool = False,
+) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """``masked_map_stats`` of a list of same-shape (B, M, N) maps by ONE
+    search over the stacked (L*B) rows (``rollout_stats_batched="on"``).
+    The search and the row sums are row-independent, so each layer's
+    (t, s) equals its sequential ``masked_map_stats`` call bit for bit.
+    Same arguments, minus ``keep_elements``."""
+    t, s = masked_map_stats(
+        torch.cat(list(fmaps)), discard_ratio, exact_discard,
+        value_bound=value_bound, sample=sample,
+        stochastic_eps=stochastic_eps, signed=signed,
+    )
+    B = fmaps[0].shape[0]
+    return list(zip(t.split(B), s.split(B)))
 
 
 def rollout_row_scores_lazy(

@@ -8,7 +8,9 @@ of ``protopformer_tpu/serving.py``).
     chunk zero-padded, and the padding rows dropped once at the end;
   * at most ``stage_window`` input chunks are staged at once. On CUDA each
     chunk goes through a pinned host buffer and a ``non_blocking`` copy on
-    a copy stream, so host-to-device copies overlap the forwards.
+    a copy stream, so host-to-device copies overlap the forwards;
+  * ``push_forward`` runs ``PPNet.push_forward`` (the interpretability
+    tools' forward) over the same chunks.
 
 Runs on ``device="cuda"`` unless the caller passes ``device="cpu"``; with
 no CUDA device the default raises instead of falling back. An fp32 engine
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from protopformer_tpu_torch.core.config import BackboneConfig, PPNetConfig
+from protopformer_tpu_torch.core.device import resolve_device
 from protopformer_tpu_torch.data.preprocess import (
     fold_normalization_into_patch_embed,
 )
@@ -38,15 +41,9 @@ class ServingResult(NamedTuple):
     cls_token_attn: Optional[np.ndarray]  # (N, P) rollout foreground scores
 
 
-def resolve_device(device) -> torch.device:
-    """``torch.device(device)``; a CUDA device without CUDA raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "the port runs on CUDA by default and no CUDA device is "
-            "available; pass device='cpu' to run the plain versions on the CPU"
-        )
-    return dev
+class PushResult(NamedTuple):
+    cls_token_attn: np.ndarray  # (N, P) rollout foreground scores
+    proto_acts: np.ndarray  # (N, num_prototypes, k, k) fp32 activations
 
 
 @contextlib.contextmanager
@@ -144,13 +141,19 @@ class ServingEngine:
         self._host_free[slot] = ready
         return dev, ready
 
-    def _consume(self, staged) -> Dict[str, torch.Tensor]:
+    def _push(self, chunk: torch.Tensor) -> Dict[str, torch.Tensor]:
+        with no_tf32() if self._true_fp32 else contextlib.nullcontext():
+            out = self.model.push_forward(chunk)
+        return {"cls_token_attn": out.cls_token_attn,
+                "proto_acts": out.proto_acts}
+
+    def _consume(self, staged, forward) -> Dict[str, torch.Tensor]:
         dev, ready = staged
         if ready is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(ready)
             dev.record_stream(stream)
-        return self._forward(dev)
+        return forward(dev)
 
     def warmup(self) -> None:
         """Run one forward on a dummy chunk and wait for it."""
@@ -197,8 +200,10 @@ class ServingEngine:
             "chunks": len(chunks),
         }
 
-    def __call__(self, images: np.ndarray) -> ServingResult:
-        """Inference on (N, H, W, 3) uint8 RGB, any N >= 1."""
+    def _run(self, images: np.ndarray, forward) -> Dict[str, np.ndarray]:
+        """``forward`` over (N, H, W, 3) uint8 RGB, chunk by chunk with
+        ``stage_window`` chunks staged ahead; each output concatenated over
+        the chunks, cut to N rows and fetched as fp32 numpy."""
         images = np.asarray(images)
         if images.dtype != np.uint8:
             raise ValueError(
@@ -209,13 +214,12 @@ class ServingEngine:
         staged = [self._stage_chunk(images, s)
                   for s in starts[: self.stage_window]]
         self.last_peak_staged = min(len(starts), self.stage_window)
-        logits, attns = [], []
+        outs: Dict[str, List[torch.Tensor]] = {}
         for i in range(len(starts)):
-            out = self._consume(staged[i])
+            out = self._consume(staged[i], forward)
             staged[i] = None  # the chunk's input is consumed
-            logits.append(out["logits"])
-            if self.with_attn:
-                attns.append(out["cls_token_attn"])
+            for key, value in out.items():
+                outs.setdefault(key, []).append(value)
             nxt = i + self.stage_window
             if nxt < len(starts):
                 staged.append(self._stage_chunk(images, starts[nxt]))
@@ -223,11 +227,22 @@ class ServingEngine:
                 self.last_peak_staged,
                 sum(1 for s in staged if s is not None),
             )
-        logits_np = torch.cat(logits)[:n].cpu().numpy()
-        attn_np = (torch.cat(attns)[:n].float().cpu().numpy()
-                   if attns else None)
+        return {key: torch.cat(chunks)[:n].float().cpu().numpy()
+                for key, chunks in outs.items()}
+
+    def __call__(self, images: np.ndarray) -> ServingResult:
+        """Inference on (N, H, W, 3) uint8 RGB, any N >= 1."""
+        out = self._run(images, self._forward)
+        logits = out["logits"]
         return ServingResult(
-            logits=logits_np,
-            top_class=np.argmax(logits_np, axis=-1).astype(np.int32),
-            cls_token_attn=attn_np,
+            logits=logits,
+            top_class=np.argmax(logits, axis=-1).astype(np.int32),
+            cls_token_attn=out.get("cls_token_attn"),
         )
+
+    def push_forward(self, images: np.ndarray) -> PushResult:
+        """``PPNet.push_forward`` (the interpretability tools' forward) on
+        (N, H, W, 3) uint8 RGB, any N >= 1, chunked as ``__call__``."""
+        out = self._run(images, self._push)
+        return PushResult(cls_token_attn=out["cls_token_attn"],
+                          proto_acts=out["proto_acts"])

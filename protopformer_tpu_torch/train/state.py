@@ -9,7 +9,7 @@ from typing import Optional
 
 import torch
 
-from protopformer_tpu_torch.serving import resolve_device
+from protopformer_tpu_torch.core.device import resolve_device
 from protopformer_tpu_torch.train.optimizer import GroupOptimizer
 
 

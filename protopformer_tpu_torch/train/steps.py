@@ -22,9 +22,10 @@ import torch
 import torch.nn.functional as F
 
 from protopformer_tpu_torch.core.config import OptimConfig, PPNetConfig
+from protopformer_tpu_torch.core.device import resolve_device
 from protopformer_tpu_torch.data.preprocess import normalize_images
 from protopformer_tpu_torch.ops.ppc import ppc_loss
-from protopformer_tpu_torch.serving import no_tf32, resolve_device
+from protopformer_tpu_torch.serving import no_tf32
 from protopformer_tpu_torch.train.state import TrainState
 
 

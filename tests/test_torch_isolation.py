@@ -101,6 +101,31 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it(
         calls[entry]()
 
 
+@pytest.mark.parametrize("entry", ["construct_basenet",
+                                   "construct_distilled_deit",
+                                   "push_forward"])
+def test_model_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, entry):
+    """``BaseNet`` and ``DistilledDeiT`` are built by their constructors
+    on CUDA; ``push_forward`` is served by ``ServingEngine``, which
+    defaults to CUDA."""
+    from protopformer_tpu_torch import models
+    from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
+    from protopformer_tpu_torch.serving import ServingEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bk = backbone_preset("deit_micro_test")
+    calls = {
+        "construct_basenet": lambda: models.construct_basenet(bk),
+        "construct_distilled_deit": lambda: models.construct_distilled_deit(
+            backbone_preset("deit_micro_test", distilled=True)),
+        "push_forward": lambda: ServingEngine(bk, PPNetConfig(), {}
+                                              ).push_forward,
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
 def test_bench_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
     from protopformer_tpu_torch.cli import bench_kernels
 
@@ -135,6 +160,40 @@ def test_kernels_have_no_path_for_other_devices():
         fused_attention_core_padded(
             torch.empty((2, 8, 12), device=meta), torch.empty((2, 8)), 2, 6
         )
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_default_gates_never_take_the_plain_structure(monkeypatch, dtype):
+    """The kernel-off structure is a configuration, never a fallback: with
+    the default gates ("auto") an eval forward on a CUDA request goes to
+    the kernel wrappers and never runs the headloop, and a wrapper that
+    raises (a kernel that fails to build or launch) is not caught. The
+    wrappers are stubs here: their CUDA launch needs a card."""
+    from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
+    from protopformer_tpu_torch.models import construct_ppnet, deit, layers
+
+    model = construct_ppnet(
+        backbone_preset("deit_micro_test"),
+        PPNetConfig(prototype_shape=(40, 16, 1, 1), num_classes=4,
+                    reserve_layers=(2,), reserve_token_nums=(9,),
+                    global_proto_per_class=3), dtype)
+    headloop = []
+    monkeypatch.setattr(layers.Attention, "_headloop",
+                        lambda *a, **k: headloop.append(1))
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("kernel build failed: no nvcc")
+
+    for module, name in ((layers, "fused_attention_block_stats"),
+                         (layers, "fused_attention_mean_padded"),
+                         (layers, "fused_attention_core"),
+                         (deit, "fused_map_stats")):
+        monkeypatch.setattr(module, name, broken)
+    with pytest.raises(RuntimeError, match="kernel build failed"), \
+            torch.inference_mode():
+        model(torch.zeros((2, 32, 32, 3)))
+    assert not headloop
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])

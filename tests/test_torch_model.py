@@ -27,7 +27,6 @@ from protopformer_tpu.core.config import (
 from protopformer_tpu.models import construct_ppnet as j_construct
 from protopformer_tpu_torch.core import config as t_config
 from protopformer_tpu_torch.models import construct_ppnet as t_construct
-from protopformer_tpu_torch.models import create_backbone
 from tests.torch_port import (
     assert_tie_free,
     jax_params,
@@ -157,39 +156,26 @@ def test_port_config_copies_the_jax_fields_and_presets():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("distilled", True),
     ("attn_impl", "batched"),
     ("patch_embed", "matmul"),
     ("ln_stats", "mxu"),
     ("quantize", "int8"),
-    ("rollout_stats_batched", "on"),
-    ("rollout_head_fusion", "max"),
-    ("use_pallas", "off"),
-    ("stats_kernel", "off"),
 ])
 def test_values_not_ported_raise(field, value):
+    """Only the XLA lowering choices and int8 serving (ROADMAP item 14)."""
     bk, pp = port_configs(BK, PP)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         t_construct(dataclasses.replace(bk, **{field: value}), pp)
 
 
-def test_bottleneck_add_on_raises():
-    bk, pp = port_configs(BK, PP)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_construct(bk, dataclasses.replace(pp, add_on_layers_type="bottleneck"))
-
-
-def test_cait_batched_stats_raise_and_its_ppnet_never_gathers():
-    """``rollout_stats_batched="on"`` stays unported for CaiT too; a bf16
-    CaiT PPNet keeps the policy mask, since only DeiT's masked forward
-    gathers at the prune point."""
+def test_cait_ppnet_never_gathers():
+    """A bf16 CaiT PPNet keeps the policy mask, since only DeiT's masked
+    forward gathers at the prune point."""
     bk = t_config.backbone_preset("cait_micro_test")
     pp = t_config.PPNetConfig(
         prototype_shape=(40, 16, 1, 1), num_classes=4,
         reserve_layers=(1,), reserve_token_nums=(9,),
     )
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        create_backbone(dataclasses.replace(bk, rollout_stats_batched="on"))
     for gather in ("auto", "on"):
         model = t_construct(dataclasses.replace(bk, prune_gather=gather), pp,
                             torch.bfloat16)

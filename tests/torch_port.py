@@ -8,6 +8,7 @@ barriers stall whenever another worker holds a core (a 0.8 s test was
 measured at 24 s that way). One thread costs these small shapes little."""
 
 import dataclasses
+import math
 
 import numpy as np
 import jax
@@ -18,6 +19,8 @@ from protopformer_tpu.models import construct_ppnet as j_construct
 from protopformer_tpu_torch.checkpoint import state_dict_from_jax
 from protopformer_tpu_torch.core import config as t_config
 from protopformer_tpu_torch.models import construct_ppnet as t_construct
+from protopformer_tpu_torch.models import deit as t_deit
+from protopformer_tpu_torch.models import layers as t_layers
 
 torch.set_num_threads(1)
 
@@ -76,3 +79,42 @@ def assert_tie_free(scores, k):
     s = -np.sort(-scores, axis=-1)
     gap = s[:, k - 1] - s[:, k]
     assert (gap > 0).all(), f"tied top-{k} boundary: gaps {gap}"
+
+
+def bf16_ulp(x) -> float:
+    """The bf16 ulp (2^-7 of the power of two below) at max|x|."""
+    return math.ldexp(1.0, math.frexp(float(np.abs(x).max()))[1] - 8)
+
+
+def assert_bf16_bound(got, want):
+    """Serving's bf16 value bound: rtol 2e-2 plus 2e-2 * max|want|."""
+    want = to_np(want)
+    np.testing.assert_allclose(to_np(got), want, rtol=2e-2,
+                               atol=2e-2 * float(np.abs(want).max()))
+
+
+def images(seed, n=4, size=32):
+    """Seeded normal (n, size, size, 3) fp32 NHWC images."""
+    return np.random.default_rng(seed).normal(
+        size=(n, size, size, 3)).astype(np.float32)
+
+
+def spy_kernels(monkeypatch):
+    """Count the calls of each kernel entry point that the port's layers
+    and DeiT backbone make (their plain versions run on the CPU)."""
+    calls = {}
+
+    def spy(module, name):
+        fn = getattr(module, name)
+        calls[name] = 0
+
+        def wrapped(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        monkeypatch.setattr(module, name, wrapped)
+
+    for name in ("fused_attention_block_stats", "fused_attention_core",
+                 "fused_attention_mean_padded"):
+        spy(t_layers, name)
+    spy(t_deit, "fused_map_stats")
+    return calls
