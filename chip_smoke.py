@@ -10,8 +10,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. the card's name and power limit, as nvidia-smi reports them;
   2. build the CUDA kernels from protopformer_tpu_torch/csrc (one nvcc per
      source, all started together), print each kernel's ptxas report, and
-     from cuobjdump's SASS check that K1's and K3's bf16 kernels use the
-     tensor cores (HMMA) and K3's fp32 kernel does not;
+     from cuobjdump's SASS check that K1's and K3's bf16 kernels (the long
+     ones from 257 tokens on too) use the tensor cores (HMMA) and K3's fp32
+     kernels do not;
   3. each kernel against its plain PyTorch version on the card at the main
      path's shapes (B=160; N=197, and N=82 after the prune-point gather),
      then timed with CUDA events beside its plain version and its bound;
@@ -27,7 +28,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      normalize of K3's raw map and against their plain versions, K4 also
      and K5 only at the kernel bench's shapes and inputs (B=256); the
      device time of each of their two launches (attention, normalize)
-     comes from a torch.profiler trace;
+     comes from CUDA events (the attention as K3's call on the same
+     operands);
   4. serving: one ServingEngine per mode (bf16 speed, bf16 exact, fp32
      parity) over seeded random DeiT-Tiny/16@224 weights with 2000 local
      and 2000 global prototypes answers requests of 1, 160 and 333 images;
@@ -97,6 +99,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
      top-81), each with img/s; BaseNet and DistilledDeiT over DeiT-Tiny,
      B=32, fp32: no kernel launched, logits of 8 images within 1e-4 of the
      CPU's;
+  4g. token counts above 256: the DeiT-B/16@384 PPNet (577 tokens, 12
+     heads) at the CUB preset, seeded weights, B=160, served in the three
+     modes as in 4f (bf16: K1 x 11 at N=577 and K3 x 1 at N=82 a chunk;
+     fp32: K3 x 12 and K2 x 11 at N=577); K1 (speed and exact, by
+     k1_contract), K3 fp32 and K2 fp32 at N=577 against their plain
+     versions on the model's own operands; fp32 card vs CPU on 2 images
+     (logits within 1e-4, the same top-81), the bf16 modes' readings
+     recorded; masked_forward_thresh at 384 in bf16 exact and fp32 (K4 x 11
+     at N=577 and K3 x 1 a forward), held as 4b holds it but for bf16
+     exact's selection against the CPU's bf16 forward, recorded beside
+     bf16_witness's 160-image readings, with each K4 on its forward's own
+     qkv held as check_core_kernels holds K4; the kernel
+     bench at 577 tokens (K5 on real 577 in NP 640, held the same way);
+     then deit_tiny_patch2_32 (257 tokens, 3 heads) in the three modes as
+     DeiT-B/16@384;
   5. the card against the CPU: fp32 parity on 2 images (logits within
      1e-4, the same top-81 tokens), and bf16 speed and bf16 exact against
      the CPU's fp32 forward (at least 74 of the top-81 tokens kept, none
@@ -227,6 +244,13 @@ SASS_FAMILIES = {
                               True),
     "K3 mean_kernel (fp32)": (lambda n: "f32k" in n and "mean_kernel" in n,
                               False),
+    # the long kernels (from 257 tokens on)
+    "K1 block_stats_long_kernel (bf16)": (
+        lambda n: "block_stats_long_kernel" in n, True),
+    "K3 mean_long_kernel (bf16)": (
+        lambda n: "bf16k" in n and "mean_long_kernel" in n, True),
+    "K3 mean_long_kernel (fp32)": (
+        lambda n: "f32k" in n and "mean_long_kernel" in n, False),
 }
 
 
@@ -406,19 +430,44 @@ def _kept(norm_map: torch.Tensor) -> torch.Tensor:
     return (norm_map > 0) & ~eye
 
 
-def phase_ms(fn, reps: int = 5) -> dict:
-    """Device ms per call of the two launches of a K4/K5 call, from a
-    torch.profiler trace of ``reps`` calls (``profile_chunk``): the
-    normalize (``normalize_kernel``) and the attention before it."""
-    prof = profile_chunk(fn, reps=reps, top=4)
-    phases = {"attention": 0.0, "normalize": 0.0}
-    for k in prof["top"]:
-        key = "normalize" if "normalize_kernel" in k["name"] else "attention"
-        phases[key] += k["ms"]
-    require(len(prof["top"]) == 2 and all(k["calls"] == 1 for k in prof["top"])
-            and phases["normalize"] > 0,
-            f"expected one attention and one normalize launch a call: {prof}")
-    return phases
+def phase_ms(kernel, attention, reps: int = 5) -> dict:
+    """Device ms per call of a K4/K5 call and of its two launches, after
+    holding that a call is those two launches.
+
+    A torch.profiler trace of ``reps`` calls holds the structure: its
+    host-side runtime records are, call after call, one plain launch
+    (``cudaLaunchKernel``: the attention) and one cluster launch
+    (``cudaLaunchKernelExC``: the normalize) and nothing else that puts
+    work on the card (no other launch, copy or fill), and every device
+    record it keeps is K3's attention (``mean_``) or ``normalize_kernel``.
+    It does not count the device records: the tracer drops those it
+    places outside its capture window, more the longer the process has
+    run (its "Out-of-range" count; late in this script 7-9 of 10, PERF.md
+    §7). The times are CUDA events (``time_ms``): the call, the attention
+    as ``attention()`` (K3's call on the same operands: the same device
+    code) and the normalize as the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    kernel()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            kernel()
+        torch.cuda.synchronize()
+    events = sorted(prof.events(), key=lambda e: e.time_range.start)
+    work = [e.name for e in events if e.device_type == DeviceType.CPU
+            and any(w in e.name for w in ("Launch", "Memcpy", "Memset"))]
+    device = {e.name for e in events if e.device_type == DeviceType.CUDA}
+    kept = sum(e.device_type == DeviceType.CUDA for e in events)
+    require(work == ["cudaLaunchKernel", "cudaLaunchKernelExC"] * reps
+            and all("mean_" in n or "normalize_kernel" in n for n in device),
+            f"expected one attention and one normalize launch a call: host "
+            f"records {work}, device records {sorted(device)}")
+    total, attn = time_ms(kernel), time_ms(attention)
+    return {"total": total, "attention": attn, "normalize": total - attn,
+            "device_records_kept": f"{kept} of {2 * reps}"}
 
 
 def check_core_kernels(dev: torch.device, gen: torch.Generator) -> dict:
@@ -427,25 +476,10 @@ def check_core_kernels(dev: torch.device, gen: torch.Generator) -> dict:
     K4 runs at the thresh forward's shapes (B=160, N=197) and at the
     kernel bench's (B=256, with its explicit all-ones policy); K5 at the
     bench's only (B=256, NP=256, real_n=197), on the operands the bench
-    builds (``bench_kernels.bench_inputs``).
-
-    The map is normalized after a k-th largest discard, where a one-ulp
-    difference in the raw map can move an entry across the threshold.
-    Each launch is held two ways: (a) against the plain
-    normalize_attention_map (exact) of K3's raw map on the same qkv and
-    policy (K4/K5 run K3's device code, so the raw map is the same): the
-    kept entries identical, the map within 1e-6, K5's pads exactly 0;
-    (b) against core_plain / core_padded_plain: out within 1e-5 (fp32) or
-    one bf16 ulp of max|out| (bf16), the entries whose kept state differs
-    counted (expected 0), the map within 1e-6 on every sample whose kept
-    entries agree."""
+    builds (``bench_kernels.bench_inputs``). Each case is held by
+    ``core_record``."""
     from protopformer_tpu_torch.cli.bench_kernels import bench_inputs
-    from protopformer_tpu_torch.kernels import _build
-    from protopformer_tpu_torch.kernels import attention_core as ac
-    from protopformer_tpu_torch.ops.rollout import normalize_attention_map
 
-    lib = _build.library()
-    records = {}
     qkv = torch.randn((B, N, 3 * C), generator=gen).to(dev, torch.bfloat16)
     qkv32 = torch.randn((B, N, 3 * C), generator=gen).to(dev)
     pol = torch.zeros((B, N))
@@ -453,7 +487,6 @@ def check_core_kernels(dev: torch.device, gen: torch.Generator) -> dict:
     for b in range(B):
         pol[b, 1 + torch.randperm(N - 1, generator=gen)[:81]] = 1.0
     pol = pol.to(dev)
-    ones = torch.ones((B, N), device=dev)
     bench = bench_inputs(dev)
     cases = (
         # name, kernel's qkv, kernel's policy (None: all ones), real_n
@@ -464,74 +497,101 @@ def check_core_kernels(dev: torch.device, gen: torch.Generator) -> dict:
         ("fused_attention_core_padded[bf16,bench]", bench["qkv_pad"],
          bench["policy_pad"], N),
     )
-    for name, q, p, n in cases:
-        bq, np_ = q.shape[:2]
-        if "padded" in name:
-            kernel = lambda: ac.fused_attention_core_padded(q, p, H, n)
-            plain = lambda: ac.core_padded_plain(q, p, H, n)
-        else:
-            kernel = lambda: ac.fused_attention_core(q, p, H)
-            plain = lambda: ac.core_plain(q, p, H)
-        out, fmap = kernel()
-        p_out, p_map = plain()
-        _, raw = ac.fused_attention_mean_padded(
-            q, ones[:bq] if p is None else p, H, n)
-        want = normalize_attention_map(raw[:, :n, :n], DISCARD, 0.2, True)
-        torch.cuda.synchronize()
-        same_kept = torch.equal(_kept(fmap[:, :n, :n]), _kept(want))
-        pads = float(fmap[:, n:].abs().sum() + fmap[:, :, n:].abs().sum())
-        kept_diff = _kept(fmap) != _kept(p_map)
-        agree = ~kept_diff.flatten(1).any(dim=1)
-        fp32 = q.dtype == torch.float32
-        out_tol = 1e-5 if fp32 else 2.0 ** -8 * float(p_out.float().abs().max())
-        errs = {"map_vs_k3_normalize": max_err(fmap[:, :n, :n], want),
-                "out": max_err(out[:, :n], p_out[:, :n]),
-                "map_vs_plain": (max_err(fmap[agree], p_map[agree])
-                                 if bool(agree.any()) else None)}
-        log(f"{name} B={bq} NP={np_}: kept entries identical to the plain "
-            f"normalize of K3's map: {same_kept}; pad sum {pads!r}; entries "
-            f"whose kept state differs from the plain version: "
-            f"{int(kept_diff.sum())} (in {int((~agree).sum())} of {bq} "
-            f"samples); max abs err {json.dumps(errs)} (tolerance map 1e-6, "
-            f"out {out_tol!r})")
-        require(same_kept and pads == 0.0
-                and errs["map_vs_k3_normalize"] <= 1e-6,
-                f"{name}: differs from the plain normalize of K3's map")
-        require(errs["out"] <= out_tol, f"{name}: out outside tolerance")
-        require(errs["map_vs_plain"] is not None
-                and errs["map_vs_plain"] <= 1e-6,
-                f"{name}: map outside tolerance of the plain version")
-        # the normalize: one sample's real block over a cluster of CTAs
-        cluster = {"ctas_per_sample": lib.ppf_attention_core_cluster_size(n),
-                   "resident_clusters":
-                       lib.ppf_attention_core_active_clusters(n, np_)}
-        phases = phase_ms(kernel)
-        log(f"{name}: normalize launch {bq} clusters, {json.dumps(cluster)}; "
-            f"device ms per call by phase {json.dumps(phases)}")
-        require(cluster["ctas_per_sample"] > 1
-                and cluster["resident_clusters"] > 0,
-                f"{name}: the normalize is not a multi-CTA cluster launch")
-        el = q.element_size()
-        nbytes = (bq * np_ * 3 * C * el + bq * np_ * C * el
-                  + bq * np_ * np_ * 4 + (0 if p is None else bq * np_ * 4))
-        peak = FP32_FLOPS if fp32 else BF16_FLOPS
-        records[name] = dict(
-            kernel=name.split("[")[0],
-            source="protopformer_tpu_torch/csrc/attention_core.cu",
-            replaces=("protopformer_tpu/kernels/attention_core.py:126"
-                      if "padded" in name else
-                      "protopformer_tpu/kernels/attention_core.py:43"),
-            max_abs_err=max(v for v in errs.values() if v is not None),
-            ms=time_ms(kernel),
-            plain_ms=time_ms(plain),
-            # the work, not the algorithm: the products over all NP rows
-            # and columns; over the real block one comparison per entry for
-            # the select and one operation for the blend. The bytes term
-            # (qkv, policy read once; out, the map written once) is as before
-            bound=bound(nbytes, (4.0 * bq * np_ * np_ * C, peak),
-                        (2.0 * bq * n * n, FP32_FLOPS)),
-        )
-    return records
+    return {name: core_record(name, q, p, n, H) for name, q, p, n in cases}
+
+
+def core_record(name: str, q: torch.Tensor, p, n: int, heads: int) -> dict:
+    """One K4 (``name`` starts "fused_attention_core[") or K5
+    ("fused_attention_core_padded[") launch on qkv ``q``, policy ``p``
+    (None: all ones) and ``n`` real tokens against its plain versions;
+    returns the partial record.
+
+    The map is normalized after a k-th largest discard, where a one-ulp
+    difference in the raw map can move an entry across the threshold.
+    Each launch is held two ways: (a) against the plain
+    normalize_attention_map (exact) of K3's raw map on the same qkv and
+    policy (K4/K5 run K3's device code, so the raw map is the same): the
+    kept entries identical, the map within 1e-6, K5's pads exactly 0;
+    (b) against core_plain / core_padded_plain: out within 1e-5 (fp32) or
+    one bf16 ulp of max|out| (``bf16_ulp``; bf16: probs @ v sums its fp32
+    products in another order, then rounds), the entries whose kept state
+    differs counted (expected 0), the map within 1e-6 on every sample whose
+    kept entries agree. The normalize's cluster and its two launches'
+    device times are printed."""
+    from protopformer_tpu_torch.kernels import _build
+    from protopformer_tpu_torch.kernels import attention_core as ac
+    from protopformer_tpu_torch.ops.rollout import normalize_attention_map
+
+    lib = _build.library()
+    bq, np_, c3 = q.shape
+    c = c3 // 3
+    if "padded" in name:
+        kernel = lambda: ac.fused_attention_core_padded(q, p, heads, n)
+        plain = lambda: ac.core_padded_plain(q, p, heads, n)
+    else:
+        kernel = lambda: ac.fused_attention_core(q, p, heads)
+        plain = lambda: ac.core_plain(q, p, heads)
+    out, fmap = kernel()
+    p_out, p_map = plain()
+    pol = torch.ones((bq, np_), device=q.device) if p is None else p
+    attention = lambda: ac.fused_attention_mean_padded(q, pol, heads, n)
+    _, raw = attention()
+    want = normalize_attention_map(raw[:, :n, :n], DISCARD, 0.2, True)
+    torch.cuda.synchronize()
+    same_kept = torch.equal(_kept(fmap[:, :n, :n]), _kept(want))
+    pads = float(fmap[:, n:].abs().sum() + fmap[:, :, n:].abs().sum())
+    kept_diff = _kept(fmap) != _kept(p_map)
+    agree = ~kept_diff.flatten(1).any(dim=1)
+    fp32 = q.dtype == torch.float32
+    out_tol = 1e-5 if fp32 else bf16_ulp(p_out)
+    errs = {"map_vs_k3_normalize": max_err(fmap[:, :n, :n], want),
+            "out": max_err(out[:, :n], p_out[:, :n]),
+            "map_vs_plain": (max_err(fmap[agree], p_map[agree])
+                             if bool(agree.any()) else None)}
+    log(f"{name} B={bq} NP={np_}: kept entries identical to the plain "
+        f"normalize of K3's map: {same_kept}; pad sum {pads!r}; entries "
+        f"whose kept state differs from the plain version: "
+        f"{int(kept_diff.sum())} (in {int((~agree).sum())} of {bq} "
+        f"samples); max abs err {json.dumps(errs)} (tolerance map 1e-6, "
+        f"out {out_tol!r})")
+    require(same_kept and pads == 0.0
+            and errs["map_vs_k3_normalize"] <= 1e-6,
+            f"{name}: differs from the plain normalize of K3's map")
+    require(errs["out"] <= out_tol, f"{name}: out outside tolerance")
+    require(errs["map_vs_plain"] is not None
+            and errs["map_vs_plain"] <= 1e-6,
+            f"{name}: map outside tolerance of the plain version")
+    # the normalize: one sample's real block over a cluster of CTAs
+    cluster = {"ctas_per_sample": lib.ppf_attention_core_cluster_size(n),
+               "resident_clusters":
+                   lib.ppf_attention_core_active_clusters(n, np_)}
+    phases = phase_ms(kernel, attention)
+    log(f"{name}: normalize launch {bq} clusters, {json.dumps(cluster)}; "
+        f"device ms per call by phase {json.dumps(phases)}")
+    require(cluster["ctas_per_sample"] > 1
+            and cluster["resident_clusters"] > 0,
+            f"{name}: the normalize is not a multi-CTA cluster launch")
+    require(phases["normalize"] > 0, f"{name}: no time left for the normalize")
+    el = q.element_size()
+    nbytes = (bq * np_ * c3 * el + bq * np_ * c * el
+              + bq * np_ * np_ * 4 + (0 if p is None else bq * np_ * 4))
+    peak = FP32_FLOPS if fp32 else BF16_FLOPS
+    return dict(
+        kernel=name.split("[")[0],
+        source="protopformer_tpu_torch/csrc/attention_core.cu",
+        replaces=("protopformer_tpu/kernels/attention_core.py:126"
+                  if "padded" in name else
+                  "protopformer_tpu/kernels/attention_core.py:43"),
+        max_abs_err=max(v for v in errs.values() if v is not None),
+        ms=phases["total"],
+        plain_ms=time_ms(plain),
+        # the work, not the algorithm: the products over all NP rows
+        # and columns; over the real block one comparison per entry for
+        # the select and one operation for the blend. The bytes term
+        # (qkv, policy read once; out, the map written once) is as before
+        bound=bound(nbytes, (4.0 * bq * np_ * np_ * c, peak),
+                    (2.0 * bq * n * n, FP32_FLOPS)),
+    )
 
 
 # --- phase 4: serving in three modes ---------------------------------------------
@@ -569,7 +629,8 @@ def expected_launches(mode: str, chunks: int, depth: int = 12) -> dict:
 
 def profile_forward(engine, reps: int = 3, top: int = 8) -> dict:
     """``profile_chunk`` of one serving chunk's forward."""
-    chunk = torch.zeros((engine.batch_size, 224, 224, 3), dtype=torch.uint8,
+    size = engine._img_size
+    chunk = torch.zeros((engine.batch_size, size, size, 3), dtype=torch.uint8,
                         device=engine.device)
     engine.warmup()
     return profile_chunk(lambda: engine._forward(chunk), reps, top)
@@ -737,51 +798,63 @@ def backbone_from(state_dict, backbone_cfg, dtype, device):
     return model.to(device).eval()
 
 
-def thresh(dev: torch.device, state_dict, rng: np.random.Generator) -> dict:
-    """masked_forward_thresh at full depth and B=160, bf16 exact and fp32,
-    each with the launch counters (K4 on blocks 0-10, K3 on block 11, per
-    forward), then on the first 2 images against the CPU: fp32 matches the
-    CPU's fp32 (cls_token_attn within 1e-5, x within 1e-4); against the
-    CPU's bf16 and fp32 forwards, bf16 exact keeps x within serving's bf16
-    bound (rtol 2e-2 plus 2e-2 * max|ref|) and cls_token_attn within
-    serving's selection contract.
-    Returns {path: {"launches": ...}}."""
+def thresh(dev: torch.device, state_dict, rng: np.random.Generator,
+           preset: str = "deit_tiny_patch16_224", tag: str = "thresh",
+           hold_bf16_selection: bool = True) -> tuple:
+    """masked_forward_thresh of ``preset`` at full depth and B=160, bf16
+    exact and fp32, each with the launch counters (K4 on blocks 0-10, K3 on
+    block 11, per forward), then on the first 2 images against the CPU:
+    fp32 matches the CPU's fp32 (cls_token_attn within 1e-5, x within
+    1e-4); against the CPU's bf16 and fp32 forwards, bf16 exact keeps x
+    within serving's bf16 bound (rtol 2e-2 plus 2e-2 * max|ref|) and
+    cls_token_attn within serving's selection contract against the fp32
+    forward, and against the bf16 one where ``hold_bf16_selection``. Else
+    the bf16-against-bf16 reading is recorded beside the CPU's own bf16
+    against its fp32 and ``bf16_witness``'s readings over all B images.
+    Returns ({path: {"launches": ...}}, {path: the arguments of its first
+    K4 call}), the paths named ``tag``_bf16_exact and ``tag``_fp32."""
     from protopformer_tpu_torch import kernels
+    from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
+    from protopformer_tpu_torch.models import layers
     from protopformer_tpu_torch.serving import no_tf32
 
-    ppnet, modes = model_configs()
-    reserve = ppnet.reserve_layer_nums
-    P = 196
-    results = {}
+    reserve = PPNetConfig().reserve_layer_nums
+    backbone = backbone_preset(preset)
+    P, size, width = backbone.num_patches, backbone.img_size, backbone.embed_dim
+    results, k4_args = {}, {}
 
     def forward(model, x, token_attn):
         with torch.inference_mode():
             return model.masked_forward_thresh(*model.embed_all(x), token_attn,
                                                reserve)
 
-    x = torch.from_numpy(rng.normal(size=(B, 224, 224, 3)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(B, size, size, 3)).astype(
+        np.float32))
     token_attn = torch.from_numpy(
         rng.uniform(0, 2.0 / P, size=(B, P)).astype(np.float32))
-    paths = (("thresh_bf16_exact", modes["bf16_exact"][0], torch.bfloat16),
-             ("thresh_fp32", modes["fp32_parity"][0], torch.float32))
+    paths = ((f"{tag}_bf16_exact", backbone, torch.bfloat16),
+             (f"{tag}_fp32", backbone, torch.float32))
     # the CPU runs the kernels' plain versions
     cpu = {path: forward(backbone_from(state_dict, bk, dtype, "cpu"), x[:2],
                          token_attn[:2])
            for path, bk, dtype in paths}
     x, token_attn = x.to(dev), token_attn.to(dev)
-    card = {}
+    card, card_attn = {}, {}
     for path, bk, dtype in paths:
         model = backbone_from(state_dict, bk, dtype, dev)
         kernels.reset_launch_counts()
         # fp32 as ServingEngine runs it (ROADMAP F1); bf16 as a caller would
-        with no_tf32() if dtype == torch.float32 else contextlib.nullcontext():
+        with no_tf32() if dtype == torch.float32 else \
+                contextlib.nullcontext(), \
+                first_call(layers, "fused_attention_core") as k4:
             out, attn = forward(model, x, token_attn)
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
         log(f"{path}: launches {json.dumps(launches)}")
         require(launches == THRESH_LAUNCHES,
                 f"{path}: expected launches {THRESH_LAUNCHES}")
-        require(out.shape == (B, 1 + P, C) and attn.shape == (B, P)
+        k4_args[path] = k4[0]
+        require(out.shape == (B, 1 + P, width) and attn.shape == (B, P)
                 and bool(torch.isfinite(out.float()).all())
                 and bool(torch.isfinite(attn).all())
                 and bool((attn >= 0).all()),
@@ -790,23 +863,24 @@ def thresh(dev: torch.device, state_dict, rng: np.random.Generator) -> dict:
             prof = profile_chunk(lambda: forward(model, x, token_attn))
             log(f"{path}: profile {json.dumps(prof)}")
         card[path] = (out[:2].float().cpu(), attn[:2].cpu())
+        card_attn[path] = attn.float().cpu()
         results[path] = {"launches": launches}
         del model
 
-    got_x, got_attn = card["thresh_fp32"]
-    ref_x, ref_attn = cpu["thresh_fp32"]
+    got_x, got_attn = card[f"{tag}_fp32"]
+    ref_x, ref_attn = cpu[f"{tag}_fp32"]
     errs = {"cls_token_attn": max_err(got_attn, ref_attn),
             "x": max_err(got_x, ref_x)}
-    log(f"thresh fp32 card vs cpu: max abs err {json.dumps(errs)} "
+    log(f"{tag} fp32 card vs cpu: max abs err {json.dumps(errs)} "
         "(tolerance cls_token_attn 1e-5, x 1e-4)")
     require(errs["cls_token_attn"] <= 1e-5 and errs["x"] <= 1e-4,
-            "thresh fp32 card vs CPU: outside tolerance")
+            f"{tag} fp32 card vs CPU: outside tolerance")
 
     def bf16_bound(what: str, got: torch.Tensor, ref: torch.Tensor) -> float:
         """Serving's bf16 value bound: rtol 2e-2 plus 2e-2 * max|ref|."""
         atol = 2e-2 * float(ref.abs().max())
         excess = float(((got - ref).abs() - (atol + 2e-2 * ref.abs())).max())
-        log(f"thresh bf16 exact {what}: max abs err {max_err(got, ref)!r}, "
+        log(f"{tag} bf16 exact {what}: max abs err {max_err(got, ref)!r}, "
             f"largest excess over the bound {excess!r} (bound rtol 2e-2, "
             f"atol {atol!r})")
         return excess
@@ -816,40 +890,87 @@ def thresh(dev: torch.device, state_dict, rng: np.random.Generator) -> dict:
     # ranking score, by serving's selection contract, its value error
     # recorded (the hard discard flips entries near the threshold wherever
     # the raw maps differ by an ulp, whichever the reference's dtype)
-    got_x, got_attn = card["thresh_bf16_exact"]
-    cpu_bf16 = tuple(t.float() for t in cpu["thresh_bf16_exact"])
+    got_x, got_attn = card[f"{tag}_bf16_exact"]
+    cpu_bf16 = tuple(t.float() for t in cpu[f"{tag}_bf16_exact"])
     for ref, (cpu_x, cpu_attn) in (("cpu bf16", cpu_bf16),
                                    ("cpu fp32", (ref_x, ref_attn))):
         require(bf16_bound(f"x, card vs {ref}", got_x, cpu_x) <= 0,
-                f"thresh bf16 exact x: outside bound of the {ref} forward")
+                f"{tag} bf16 exact x: outside bound of the {ref} forward")
         bf16_bound(f"cls_token_attn, card vs {ref} (recorded)", got_attn,
                    cpu_attn)
         overlap, worst_drop = selection(got_attn.numpy(), cpu_attn.numpy())
-        log(f"thresh bf16 exact vs {ref}: top-81 overlap {overlap}, lowest "
+        log(f"{tag} bf16 exact vs {ref}: top-81 overlap {overlap}, lowest "
             f"rank dropped {worst_drop}")
-        require(min(overlap) >= 74 and all(r is None or r >= 64
-                                           for r in worst_drop),
-                f"thresh bf16 exact selection against the {ref} forward: "
+        require((ref == "cpu bf16" and not hold_bf16_selection)
+                or (min(overlap) >= 74
+                    and all(r is None or r >= 64 for r in worst_drop)),
+                f"{tag} bf16 exact selection against the {ref} forward: "
                 "outside contract")
-    return results
+    if not hold_bf16_selection:
+        overlap, worst_drop = selection(cpu_bf16[1].numpy(), ref_attn.numpy())
+        log(f"{tag} cpu bf16 exact vs cpu fp32 (recorded): top-81 overlap "
+            f"{overlap}, lowest rank dropped {worst_drop}")
+        bf16_witness(dev, state_dict, backbone, x, token_attn, card_attn,
+                     cpu_bf16[1], tag, forward)
+    return results, k4_args
+
+
+def bf16_witness(dev, state_dict, backbone, x, token_attn, card_attn,
+                 cpu_bf16_attn, tag: str, forward) -> None:
+    """Records (holds nothing) how far bf16 exact's selection moves, over
+    all B images of ``thresh``: the card's kernels and the kernels' plain
+    versions run on the card (same roundings, other summation orders),
+    each against the card's fp32 kernel forward (held to the CPU's fp32
+    above) and against each other, and the plain versions on the card
+    against the CPU's bf16 on its 2 images."""
+    from protopformer_tpu_torch.kernels import attention_core as ac
+    from protopformer_tpu_torch.models import layers
+
+    def summary(attn, ref):
+        overlap, worst = selection(attn.numpy(), ref.numpy())
+        drops = [r for r in worst if r is not None]
+        return {"images": len(overlap), "min_overlap": min(overlap),
+                "lowest_rank_dropped": min(drops, default=None),
+                "images_dropping_below_64": sum(r < 64 for r in drops)}
+
+    model = backbone_from(state_dict, backbone, torch.bfloat16, dev)
+    saved = layers.fused_attention_core, layers.fused_attention_mean_padded
+    layers.fused_attention_core = (
+        lambda qkv, pol, heads, ratio, identity_weight:
+        ac.core_plain(qkv, pol, heads, ratio, identity_weight))
+    layers.fused_attention_mean_padded = ac.mean_padded_plain
+    try:
+        _, plain = forward(model, x, token_attn)
+    finally:
+        layers.fused_attention_core, layers.fused_attention_mean_padded = saved
+    plain = plain.float().cpu()
+    del model
+    kern, fp32 = card_attn[f"{tag}_bf16_exact"], card_attn[f"{tag}_fp32"]
+    readings = {"kernels_vs_card_fp32": summary(kern, fp32),
+                "plain_vs_card_fp32": summary(plain, fp32),
+                "kernels_vs_plain": summary(kern, plain),
+                "plain_vs_cpu_bf16": summary(plain[:2], cpu_bf16_attn)}
+    log(f"{tag} bf16 exact selection witness (recorded): "
+        f"{json.dumps(readings)}")
 
 
 # --- phase 4c: the kernel bench ----------------------------------------------------
 
-def bench(dev: torch.device) -> dict:
-    """cli.bench_kernels.run on the card; K5 must have launched."""
+def bench(dev: torch.device, tokens: int = N, path: str = "bench") -> dict:
+    """cli.bench_kernels.run on the card at ``tokens``; K4 and K5 must have
+    launched."""
     from protopformer_tpu_torch import kernels
     from protopformer_tpu_torch.cli import bench_kernels
 
     kernels.reset_launch_counts()
-    res = bench_kernels.run(dev)
+    res = bench_kernels.run(dev, tokens=tokens)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     log(f"bench_kernels: {json.dumps(res)}; launches {json.dumps(launches)}")
     require(launches["fused_attention_core_padded"] > 0
             and launches["fused_attention_core"] > 0,
             "bench_kernels: K4 or K5 never launched")
-    return {"bench": {"launches": launches}}
+    return {path: {"launches": launches}}
 
 
 # --- phase 4d: CaiT serving -------------------------------------------------------
@@ -1158,7 +1279,14 @@ def step_contract(cpu: dict, card: dict, replay: dict) -> dict:
 # --- phase 4f: DeiT-S/B at width, push_forward, the kernel-off structure ----------
 
 SB_PROBE_IMAGES = {"deit_small_patch16_224": PROBE_IMAGES,
-                   "deit_base_patch16_224": 160 * 10}
+                   "deit_base_patch16_224": 160 * 10,
+                   "deit_base_patch16_384": 160 * 4,
+                   "deit_tiny_patch2_32": PROBE_IMAGES}
+# the path and record tag of each preset served at width
+WIDTH_TAGS = {"deit_small_patch16_224": "deit_s",
+              "deit_base_patch16_224": "deit_b",
+              "deit_base_patch16_384": "deit_b384",
+              "deit_tiny_patch2_32": "deit_t_p2"}
 OFF_PROBE_IMAGES = PROBE_IMAGES
 UNPRUNED_B = 32
 NO_LAUNCHES = {name: 0 for name in expected_launches("fp32_parity", 0)}
@@ -1183,15 +1311,28 @@ def first_call(module, name: str):
         setattr(module, name, fn)
 
 
+def log_cluster(what: str, size: int, resident: int) -> None:
+    """Prints a cluster launch's CTAs per sample and how many of its
+    clusters the card holds at once; fails unless some fit."""
+    log(f"{what}: " + json.dumps({"ctas_per_sample": size,
+                                  "resident_clusters": resident}))
+    require(resident > 0, f"{what}: no cluster fits the card")
+
+
 def k1_record(qkv: torch.Tensor, heads: int, exact: bool) -> dict:
     """K1 against its plain version on a model's own qkv (``k1_contract``),
     timed and bounded; returns the partial record."""
+    from protopformer_tpu_torch.kernels import _build
     from protopformer_tpu_torch.kernels import attention_core as ac
     from protopformer_tpu_torch.kernels import stats
     from protopformer_tpu_torch.ops.rollout import masked_map_stats
 
     b, n, c3 = qkv.shape
     c = c3 // 3
+    lib = _build.library()
+    log_cluster(f"K1 launch at N={n}, hd={c // heads}",
+                lib.ppf_attention_block_stats_cluster_size(n),
+                lib.ppf_attention_block_stats_active_clusters(n, c // heads))
     keep = n * n - int(n * n * DISCARD)
     out, fmap, t, s = ac.fused_attention_block_stats(qkv, heads, DISCARD, exact)
     p_out, p_map, p_t, _ = ac.block_stats_plain(qkv, heads, keep, exact)
@@ -1256,10 +1397,16 @@ def k2_record(fmap: torch.Tensor, exact: bool) -> dict:
     """K2 against ``map_stats_plain`` on a model's own stored map (fp32
     exact, or bf16 with the 16-bit prefix select): t bit-equal, s within
     1e-6; timed and bounded; returns the partial record."""
+    from protopformer_tpu_torch.kernels import _build
     from protopformer_tpu_torch.kernels import stats
 
     b, n, _ = fmap.shape
     keep = n * n - int(n * n * DISCARD)
+    lib = _build.library()
+    bf16 = int(fmap.dtype == torch.bfloat16)
+    log_cluster(f"K2 launch at N={n}, {fmap.dtype}",
+                lib.ppf_map_stats_cluster_size(n),
+                lib.ppf_map_stats_active_clusters(n, bf16))
     t, s = stats.fused_map_stats(fmap, DISCARD, exact_discard=exact)
     p_t, p_s = stats.map_stats_plain(fmap, keep, prefix16=not exact)
     torch.cuda.synchronize()
@@ -1283,10 +1430,12 @@ def k2_record(fmap: torch.Tensor, exact: bool) -> dict:
 
 def serve_width(dev: torch.device, preset: str, modes: tuple,
                 rng: np.random.Generator, hold_vs_fp32: bool) -> tuple:
-    """A DeiT-S or DeiT-B PPNet at the CUB preset (seeded weights) served at
-    B=160 in ``modes``: per mode one chunk with the launch counters, a
-    throughput probe and a profile of one chunk; the kernels against their
-    plain versions on the model's own qkv and maps; the card against the
+    """A DeiT PPNet of ``preset`` (WIDTH_TAGS) at the CUB preset (seeded
+    weights) served at B=160 in ``modes``: per mode one chunk with the
+    launch counters, a throughput probe and a profile of one chunk; the
+    kernels against their plain versions on the model's own qkv and maps
+    (K3 in bf16 at N=82 on the 224 presets only: the gathered block has the
+    same shape at every image size); the card against the
     CPU on 2 images: fp32 logits within 1e-4 and the same top-81; each bf16
     mode by phase 5's contract against the CPU's fp32 forward where
     ``hold_vs_fp32``, else that reading recorded; beside it the readings
@@ -1299,8 +1448,7 @@ def serve_width(dev: torch.device, preset: str, modes: tuple,
     from protopformer_tpu_torch.models import construct_ppnet, deit, layers
     from protopformer_tpu_torch.serving import ServingEngine
 
-    tag = {"deit_small_patch16_224": "deit_s",
-           "deit_base_patch16_224": "deit_b"}[preset]
+    tag = WIDTH_TAGS[preset]
     ppnet = PPNetConfig()
     configs = {
         "bf16_speed": (backbone_preset(preset, rollout_exact_discard=False),
@@ -1309,10 +1457,14 @@ def serve_width(dev: torch.device, preset: str, modes: tuple,
         "fp32_parity": (backbone_preset(preset), torch.float32),
     }
     heads = configs["fp32_parity"][0].num_heads
+    size = configs["fp32_parity"][0].img_size
+    n = configs["fp32_parity"][0].num_patches + 1
+    # the record names of the 224 presets carry no token count
+    at = "" if n == N else f",N={n}"
     state_dict = construct_ppnet(
         configs["fp32_parity"][0], ppnet, torch.float32,
         generator=torch.Generator().manual_seed(10)).state_dict()
-    chunk = rng.integers(0, 256, (B, 224, 224, 3), dtype=np.uint8)
+    chunk = rng.integers(0, 256, (B, size, size, 3), dtype=np.uint8)
     results, records = {}, {}
     for mode in modes:
         backbone, dtype = configs[mode]
@@ -1346,17 +1498,17 @@ def serve_width(dev: torch.device, preset: str, modes: tuple,
         torch.cuda.synchronize()
         if mode.startswith("bf16"):
             exact = mode == "bf16_exact"
-            records[f"fused_attention_block_stats[{mode[5:]},H={heads}]"] = (
+            records[f"fused_attention_block_stats[{mode[5:]},H={heads}{at}]"] = (
                 k1_record(k1[0][0][0].clone(), heads, exact))
-            if mode == "bf16_speed":
+            if mode == "bf16_speed" and size == 224:
                 qkv, pol = (a.clone() for a in k3[0][0][:2])
                 records[f"fused_attention_mean_padded[bf16,N=82,H={heads}]"] = (
                     k3_record(qkv, pol, heads))
         else:
             qkv, pol = (a.clone() for a in k3[0][0][:2])
-            records[f"fused_attention_mean_padded[fp32,N=197,H={heads}]"] = (
+            records[f"fused_attention_mean_padded[fp32,N={n},H={heads}]"] = (
                 k3_record(qkv, pol, heads))
-            records[f"fused_map_stats[fp32,H={heads} map]"] = k2_record(
+            records[f"fused_map_stats[fp32,H={heads}{at} map]"] = k2_record(
                 k2[0][0][0].clone(), True)
         del engine, k1, k2, k3
 
@@ -1631,6 +1783,61 @@ def width_phase(dev: torch.device, rng: np.random.Generator,
     return paths, records
 
 
+# --- phase 4g: token counts above 256 (DeiT-B/16@384, deit_tiny_patch2_32) ------
+
+LONG_N = 577  # DeiT-B/16@384: 24 x 24 patches and the CLS token
+
+
+def long_phase(dev: torch.device, rng: np.random.Generator) -> tuple:
+    """Phase 4g (see the module docstring). Returns ({path: {...}},
+    {record name: partial record})."""
+    from protopformer_tpu_torch.cli.bench_kernels import bench_inputs
+
+    paths, records = {}, {}
+    modes = ("bf16_speed", "bf16_exact", "fp32_parity")
+    t0 = time.perf_counter()
+    # the serving contract's bf16 selection was set at DeiT-Tiny's width
+    # and 197 tokens: DeiT-B/16@384's bf16 readings are recorded, not held
+    served, recs, weights, _ = serve_width(dev, "deit_base_patch16_384",
+                                           modes, rng, hold_vs_fp32=False)
+    paths.update(served)
+    records.update(recs)
+    log(f"deit_b384 serving: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    # the selection contract against the CPU's bf16 forward was set at
+    # DeiT-Tiny's width and 197 tokens: recorded here, with a witness
+    thr, k4_args = thresh(dev, weights, rng, "deit_base_patch16_384",
+                          "deit_b384_thresh", hold_bf16_selection=False)
+    paths.update(thr)
+    del weights
+    for path, (args, _) in k4_args.items():
+        qkv, pol, heads, ratio, identity_weight = args
+        require((ratio, identity_weight) == (DISCARD, 0.2),
+                f"{path}: K4 called with discard {ratio}, identity weight "
+                f"{identity_weight}")
+        dtype = "bf16" if qkv.dtype == torch.bfloat16 else "fp32"
+        name = f"fused_attention_core[{dtype},N={LONG_N},H={heads}]"
+        records[name] = core_record(name, qkv.clone(), pol, LONG_N, heads)
+    del k4_args
+    log(f"deit_b384 thresh: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    # the kernel bench at 577 tokens: K5 on real 577 in NP 640
+    paths.update(bench(dev, LONG_N, f"bench_{LONG_N}"))
+    x = bench_inputs(dev, tokens=LONG_N)
+    name = f"fused_attention_core_padded[bf16,bench,N={LONG_N}]"
+    records[name] = core_record(name, x["qkv_pad"], x["policy_pad"], LONG_N,
+                                H)
+    del x
+    log(f"bench at {LONG_N}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    served, recs, _, _ = serve_width(dev, "deit_tiny_patch2_32", modes, rng,
+                                     hold_vs_fp32=False)
+    paths.update(served)
+    records.update(recs)
+    log(f"deit_t_p2 serving: {time.perf_counter() - t0:.1f} s")
+    return paths, records
+
+
 # --- main ----------------------------------------------------------------------
 
 def main() -> int:
@@ -1676,7 +1883,7 @@ def main() -> int:
     log(f"serving: {time.perf_counter() - t0:.1f} s")
     paths = dict(served)
     t0 = time.perf_counter()
-    paths.update(thresh(dev, state_dict, rng))
+    paths.update(thresh(dev, state_dict, rng)[0])
     log(f"thresh forward: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paths.update(bench(dev))
@@ -1696,6 +1903,11 @@ def main() -> int:
     paths.update(wide)
     records.update(wide_records)
     log(f"width, push, kernel-off, unpruned: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    long, long_records = long_phase(dev, rng)
+    paths.update(long)
+    records.update(long_records)
+    log(f"token counts above 256: {time.perf_counter() - t0:.1f} s")
 
     # launches of each record's kernel on the paths that run it
     per_record_mode = {
@@ -1723,6 +1935,24 @@ def main() -> int:
         "fused_attention_mean_padded[fp32,N=197,H=12]": ["deit_b_fp32_parity"],
         "fused_map_stats[fp32,H=12 map]": ["deit_b_fp32_parity"],
         "fused_map_stats[bf16,speed]": ["off_bf16_speed_k2"],
+        "fused_attention_block_stats[speed,H=12,N=577]": [
+            "deit_b384_bf16_speed"],
+        "fused_attention_block_stats[exact,H=12,N=577]": [
+            "deit_b384_bf16_exact"],
+        "fused_attention_mean_padded[fp32,N=577,H=12]": [
+            "deit_b384_fp32_parity"],
+        "fused_map_stats[fp32,H=12,N=577 map]": ["deit_b384_fp32_parity"],
+        "fused_attention_core[bf16,N=577,H=12]": [
+            "deit_b384_thresh_bf16_exact"],
+        "fused_attention_core[fp32,N=577,H=12]": ["deit_b384_thresh_fp32"],
+        "fused_attention_core_padded[bf16,bench,N=577]": ["bench_577"],
+        "fused_attention_block_stats[speed,H=3,N=257]": [
+            "deit_t_p2_bf16_speed"],
+        "fused_attention_block_stats[exact,H=3,N=257]": [
+            "deit_t_p2_bf16_exact"],
+        "fused_attention_mean_padded[fp32,N=257,H=3]": [
+            "deit_t_p2_fp32_parity"],
+        "fused_map_stats[fp32,H=3,N=257 map]": ["deit_t_p2_fp32_parity"],
     }
     line = []
     for name, rec in records.items():
@@ -1741,7 +1971,7 @@ def main() -> int:
             "a kernel of the path has no record")
     log("serving img/s: " + json.dumps(
         {m: r["img_per_sec"] for m, r in {**served, **cait_served,
-                                          **wide}.items()
+                                          **wide, **long}.items()
          if "img_per_sec" in r}))
     log("train img/s (B=128): " + json.dumps(
         {m: r["img_per_sec"] for m, r in trained.items()

@@ -39,9 +39,14 @@
 // (1 + identity_weight, the row sum), so they go through a correctly
 // rounded reciprocal and FMA corrections (ppf::div_by_recip), which equal
 // div.rn and do not branch. Split over a cluster, the normalize takes
-// every real_n <= 256, as phase 1 does. The TPU kernel kept the map in
-// VMEM between the phases; fusing them would mean rewriting K3's attention
-// inside K4 for ~15 us of traffic.
+// every real_n <= NP <= 640, as phase 1 does: above 512 real rows a
+// cluster of 8 CTAs with bands of up to 80 rows (73 at 577, 181 KB of
+// shared memory: one CTA an SM). At B=160, N=577 in fp32 K4 moves 429 MB
+// (qkv, out, the map) and its products are 164 GFLOP at H=12: 2.44 ms on
+// the CUDA cores bounds it; the normalize's round trip of the 213 MB map is
+// 0.13 ms at the memory rate, no longer L2-resident. The TPU kernel kept
+// the map in VMEM between the phases; fusing them would mean rewriting K3's
+// attention inside K4 for ~15 us of traffic at N=197.
 #include "common.cuh"
 
 extern "C" int ppf_attention_mean(const void* qkv, const void* policy, int B,
@@ -61,46 +66,78 @@ __device__ __forceinline__ float blend(float v, bool diag, int lo, float iw,
                            r_opiw);
 }
 
+// kOneStep: real_n <= ppf::kRowStep (cluster_radix_select).
+template <bool kOneStep>
 __global__ void __launch_bounds__(ppf::kMapThreads, ppf::kMapCtasPerSm)
 normalize_kernel(float* __restrict__ map, int NP, int real_n, int keep,
                  float iw, float one_plus_iw) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* m = map + (size_t)blockIdx.y * NP * NP;
   ppf::MapBand band;
-  const int lo = static_cast<int>(ppf::cluster_map_select(
+  const int lo = static_cast<int>(ppf::cluster_map_select<kOneStep>(
       static_cast<const float*>(m), real_n, real_n, NP, false, keep, smem,
       band));
 
-  // the band's rows, one warp a row: each lane blends its (up to 8) entries
-  // of the row once, sums them in column order, the warp sums the lanes,
-  // and each entry is divided by the row sum
+  // the band's rows, one warp a row: each lane blends its entries of the
+  // row once, 8 a step of ppf::kRowStep columns, sums them in column order,
+  // the warp sums the lanes, and each entry is divided by the row sum. Up
+  // to 256 columns the blended entries stay in registers; above, each step
+  // writes them back into the band in place.
   const float r_opiw = __frcp_rn(one_plus_iw);
   const int lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
-  for (int r = threadIdx.x >> 5; r < band.rows; r += nw) {
-    const int i = band.row0 + r;
-    const float* row = band.a + r * band.stride;
-    float bl[8];
-    float sum = 0.f;
+  // blends row i's 8 entries of this lane from column c0 into bl and adds
+  // them to sum
+  auto blend_step = [&](const float* row, int i, int c0, float (&bl)[8],
+                        float& sum) {
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      const int j = lane + ppf::kWarp * u;
+      const int j = c0 + lane + ppf::kWarp * u;
       bl[u] = j < real_n ? blend(row[j], i == j, lo, iw, one_plus_iw, r_opiw)
                          : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < 8; ++u)
-      if (lane + ppf::kWarp * u < real_n) sum = __fadd_rn(sum, bl[u]);
-    sum = ppf::warp_sum(sum);
-    const float denom = sum == 0.f ? 1.f : sum;
-    const float r_denom = __frcp_rn(denom);
+      if (c0 + lane + ppf::kWarp * u < real_n) sum = __fadd_rn(sum, bl[u]);
+  };
+  for (int r = threadIdx.x >> 5; r < band.rows; r += nw) {
+    const int i = band.row0 + r;
+    float* row = band.a + r * band.stride;
     float* dst = m + (size_t)i * NP;
+    float bl[8];
+    float sum = 0.f;
+    if (kOneStep) {
+      blend_step(row, i, 0, bl, sum);
+      sum = ppf::warp_sum(sum);
+      const float denom = sum == 0.f ? 1.f : sum;
+      const float r_denom = __frcp_rn(denom);
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int j = lane + ppf::kWarp * u;
-      if (j < real_n) dst[j] = ppf::div_by_recip(bl[u], denom, r_denom);
+      for (int u = 0; u < 8; ++u) {
+        const int j = lane + ppf::kWarp * u;
+        if (j < real_n) dst[j] = ppf::div_by_recip(bl[u], denom, r_denom);
+      }
+    } else {
+      for (int c0 = 0; c0 < real_n; c0 += ppf::kRowStep) {
+        blend_step(row, i, c0, bl, sum);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int j = c0 + lane + ppf::kWarp * u;
+          if (j < real_n) row[j] = bl[u];
+        }
+      }
+      sum = ppf::warp_sum(sum);
+      const float denom = sum == 0.f ? 1.f : sum;
+      const float r_denom = __frcp_rn(denom);
+      for (int j = lane; j < real_n; j += ppf::kWarp)
+        dst[j] = ppf::div_by_recip(row[j], denom, r_denom);
     }
   }
+}
+
+// The normalize kernel for real_n real tokens.
+auto normalize_for(int real_n) {
+  return real_n <= ppf::kRowStep ? normalize_kernel<true>
+                                 : normalize_kernel<false>;
 }
 
 cudaLaunchConfig_t normalize_config(int B, int NP, int real_n,
@@ -120,25 +157,28 @@ cudaLaunchConfig_t normalize_config(int B, int NP, int real_n,
 // in the qkv dtype; map: (B, NP, NP) fp32, the normalized rollout map.
 // scale = hd**-0.5, eps_over_n = 1e-6/real_n, one_plus_iw =
 // 1 + identity_weight, all as fp32; keep counts on real_n * real_n;
-// real_n <= NP <= 256. Returns the first failing launch's cudaError_t,
+// real_n <= NP <= 640. Returns the first failing launch's cudaError_t,
 // else 0.
 extern "C" int ppf_attention_core(const void* qkv, const void* policy, int B,
                                   int NP, int C, int H, int real_n, int keep,
                                   int is_bf16, float scale, float eps_over_n,
                                   float identity_weight, float one_plus_iw,
                                   void* out, void* map, void* stream) {
+  if (!ppf::hist_counts_fit(ppf::map_band_rows(real_n), real_n))
+    return cudaErrorInvalidValue;
   const int err = ppf_attention_mean(qkv, policy, B, NP, C, H, real_n, is_bf16,
                                      scale, eps_over_n, out, map, stream);
   if (err != 0) return err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = normalize_config(
       B, NP, real_n, static_cast<cudaStream_t>(stream), attr);
+  const auto kernel = normalize_for(real_n);
   cudaError_t e = cudaFuncSetAttribute(
-      normalize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)cfg.dynamicSmemBytes);
   if (e != cudaSuccess) return e;
-  e = cudaLaunchKernelEx(&cfg, normalize_kernel, static_cast<float*>(map), NP,
-                         real_n, keep, identity_weight, one_plus_iw);
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<float*>(map), NP, real_n,
+                         keep, identity_weight, one_plus_iw);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -154,10 +194,11 @@ extern "C" int ppf_attention_core_active_clusters(int real_n, int NP) {
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = normalize_config(1, NP, real_n, nullptr, attr);
   int clusters = 0;
+  const auto kernel = normalize_for(real_n);
   cudaError_t e = cudaFuncSetAttribute(
-      normalize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)cfg.dynamicSmemBytes);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveClusters(&clusters, normalize_kernel, &cfg);
+    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   return e == cudaSuccess ? clusters : -static_cast<int>(e);
 }

@@ -27,6 +27,28 @@
 //    fp32 softmax; the probabilities are rounded to bf16 only as P V's
 //    operand. The band's accumulator stays in shared memory.
 // K and V are re-read from L2 by each row block of a sample.
+//
+// Tokens: NP <= 640. Both kernels above hold a head's K (then V) for every
+// key in shared memory, and the fp32 one its rows' head mean in registers:
+// at NP=577 that is ~254 KB and 19 columns a thread. From 257 on the long
+// kernels stream K and V through shared memory instead:
+//  * fp32 (f32k::mean_long_kernel): 32 query rows a block as above; K, then
+//    V, 128 keys at a time (34 KB); the block's logits, then probabilities
+//    (P) and its head-mean accumulator for every column in shared memory
+//    (2 x 82 KB at 577: one block an SM). Each value is computed as the
+//    kernel above computes it, in the same order. Bound at B=160, NP=577,
+//    H=12: operations, 164 GFLOP on the CUDA cores = 2.44 ms.
+//  * bf16 (bf16k::mean_long_kernel): the tensor-core tiles above over
+//    chunks of 128 keys, two warps a 16-row tile, each on half of every
+//    chunk; three passes a head (the row maximum, the sum of the
+//    exponentials, then the probabilities, the head mean and P V, with
+//    that chunk's K and V in two buffers), recomputing S from the chunk
+//    each pass; the halves' maxima and sums meet in shared memory, their
+//    P V at the end of the head; the band's accumulator in shared memory
+//    (222 KB at 640: one block an SM). The softmax arithmetic of every
+//    probability over three passes, not the tensor cores, bounds it: as
+//    K4's attention phase at 577 (B=160, H=12, an H100 at 700 W) it read
+//    9.5 ms with one warp a tile and 6.9 ms with two (8 an SM).
 #include "common.cuh"
 
 namespace {
@@ -183,11 +205,264 @@ mean_kernel(const __nv_bfloat16* __restrict__ qkv,
   }
 }
 
+// The long kernel (NP >= ppf::kLongMinTokens): two warps a 16-row tile,
+// each on one half of every chunk of kLongTiles key tiles. Its shared
+// memory: the policy and the band's accumulator over the NP columns rounded
+// up to 16, one buffer each for a chunk of K and of V, the halves' P V of
+// each tile, and their row maxima or sums.
+constexpr int kLongTiles = 8;
+constexpr int kLongChunk = 16 * kLongTiles;
+constexpr int kLongThreads = 2 * kThreads;
+
+struct LongLayout {
+  int np, astride, kstride;
+  size_t pol, acc, k, v, xchg, red, total;
+  __host__ __device__ LongLayout(int NP, int hd) {
+    np = ppf::round_up(NP, 16);
+    astride = np + 8;
+    kstride = ppf::kv_stride(hd);
+    pol = 0;
+    acc = ppf::align16(pol + (size_t)ppf::round_up(NP, kLongChunk) *
+                                 sizeof(float));
+    k = ppf::align16(acc + (size_t)16 * kTiles * astride * sizeof(float));
+    v = ppf::align16(k + (size_t)kLongChunk * kstride * sizeof(__nv_bfloat16));
+    xchg = ppf::align16(v + (size_t)kLongChunk * kstride *
+                                sizeof(__nv_bfloat16));
+    red = xchg + (size_t)kTiles * 32 * 32 * sizeof(float);
+    total = ppf::align16(red + (size_t)2 * kTiles * 16 * sizeof(float));
+  }
+};
+
+__global__ void __launch_bounds__(kLongThreads)
+mean_long_kernel(const __nv_bfloat16* __restrict__ qkv,
+                 const float* __restrict__ policy, int NP, int C, int H,
+                 int real_n, float scale, float eps_over_n,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ map_out) {
+  constexpr int KT = kLongTiles / 2;  // key tiles of a chunk a warp takes
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hd = C / H;
+  const int hk = (hd + 15) / 16;
+  const int C3 = 3 * C;
+  const LongLayout L(NP, hd);
+  float* pol = reinterpret_cast<float*>(smem + L.pol);
+  float* acc = reinterpret_cast<float*>(smem + L.acc);
+  __nv_bfloat16* kbuf = reinterpret_cast<__nv_bfloat16*>(smem + L.k);
+  __nv_bfloat16* vbuf = reinterpret_cast<__nv_bfloat16*>(smem + L.v);
+  float* xchg = reinterpret_cast<float*>(smem + L.xchg);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int tw = warp % kTiles;    // the warp's row tile
+  const int half = warp / kTiles;  // the half of each chunk it takes
+  const int b = blockIdx.y;
+  const int r0 = 16 * (blockIdx.x * kTiles + tw);  // this warp's first row
+  const bool active = r0 < NP;
+  // this warp's keys of a chunk: rows ch .. ch + 16 KT - 1 of the buffers
+  const int ch = 16 * KT * half;
+  const int kofs = ch * L.kstride;
+  // the halves' values of this tile's rows g and g + 8
+  float* red_mine = red + (half * kTiles + tw) * 16;
+  const float* red_lo = red + tw * 16;
+  const float* red_hi = red + (kTiles + tw) * 16;
+  const __nv_bfloat16* qkv_b = qkv + (size_t)b * NP * C3;
+  const float rH = 1.0f / (float)H;
+  const float neg_inf = __uint_as_float(0xff800000u);
+
+  load_policy(policy ? policy + (size_t)b * NP : nullptr, NP,
+              ppf::round_up(NP, kLongChunk), pol);
+  for (int e = threadIdx.x; e < 16 * kTiles * L.astride / 4; e += blockDim.x)
+    reinterpret_cast<float4*>(acc)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // starts the copy of keys k0 .. k0 + kLongChunk - 1 of the head slice at
+  // column `col` into `dst`, rows >= valid zeros; arrive() waits for the
+  // copies and publishes them
+  auto copy_chunk = [&](__nv_bfloat16* dst, int col, int k0, int valid) {
+    ppf::load_head_async(qkv_b + (size_t)k0 * C3, C3, col, hd, valid - k0,
+                         kLongChunk, 16 * hk, dst, L.kstride);
+  };
+  auto arrive = [&]() {
+    ppf::cp_async_wait_all();
+    __syncthreads();
+  };
+  // publishes each quad's value of rows g and g + 8 for the other half
+  auto share = [&](const float (&v)[2]) {
+    if (active && t == 0) {
+      red_mine[g] = v[0];
+      red_mine[g + 8] = v[1];
+    }
+    __syncthreads();
+  };
+  // the warp's half of the chunk's fp32 logits times the scale, columns
+  // >= NP -inf; element e of an n-tile is row g + 8 (e >> 1), column
+  // k0 + ch + 8n + 2t + (e & 1)
+  uint32_t qa[4][4];
+  auto logits = [&](float (&S)[2 * KT][4], int k0) {
+    ppf::warp_qk<KT>(S, qa, kbuf + kofs, L.kstride, hk);
+#pragma unroll
+    for (int n = 0; n < 2 * KT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        S[n][e] = __fmul_rn(S[n][e], scale);
+        if (k0 + ch + 8 * n + 2 * t + (e & 1) >= NP) S[n][e] = neg_inf;
+      }
+  };
+  // e = exp(s - m) * policy (0 at the pads, whose policy is 0 as well)
+  auto exps = [&](float (&S)[2 * KT][4], int k0, const float (&m)[2]) {
+#pragma unroll
+    for (int n = 0; n < 2 * KT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + ch + 8 * n + 2 * t + (e & 1);
+        const int row = r0 + g + 8 * (e >> 1);
+        S[n][e] = __fmul_rn(expf(__fsub_rn(S[n][e], m[e >> 1])),
+                            attn_policy(pol, col, row));
+      }
+  };
+
+  for (int h = 0; h < H; ++h) {
+    const int kcol = C + h * hd;
+    if (active)
+      ppf::load_q_frags(qa, qkv_b + (size_t)r0 * C3 + h * hd, C3, NP - r0, hd);
+    float m[2] = {neg_inf, neg_inf};
+    for (int k0 = 0; k0 < NP; k0 += kLongChunk) {
+      __syncthreads();  // every warp is done with the buffers
+      copy_chunk(kbuf, kcol, k0, NP);
+      arrive();
+      if (active) {
+        float S[2 * KT][4];
+        logits(S, k0);
+#pragma unroll
+        for (int n = 0; n < 2 * KT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], S[n][e]);
+      }
+    }
+    m[0] = ppf::quad_max(m[0]);
+    m[1] = ppf::quad_max(m[1]);
+    share(m);
+    m[0] = fmaxf(red_lo[g], red_hi[g]);
+    m[1] = fmaxf(red_lo[g + 8], red_hi[g + 8]);
+    float sum[2] = {0.f, 0.f};
+    for (int k0 = 0; k0 < NP; k0 += kLongChunk) {
+      __syncthreads();
+      copy_chunk(kbuf, kcol, k0, NP);
+      arrive();
+      if (active) {
+        float S[2 * KT][4];
+        logits(S, k0);
+        exps(S, k0, m);
+#pragma unroll
+        for (int n = 0; n < 2 * KT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sum[e >> 1] = __fadd_rn(sum[e >> 1], S[n][e]);
+      }
+    }
+    // each half's sum in column order, then the first half's plus the
+    // second's
+    sum[0] = ppf::quad_sum(sum[0]);
+    sum[1] = ppf::quad_sum(sum[1]);
+    share(sum);
+    float denom[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      denom[i] = __fadd_rn(
+          __fadd_rn(red_lo[g + 8 * i], red_hi[g + 8 * i]), 1e-6f);
+    float O[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) O[n][e] = 0.f;
+    for (int k0 = 0; k0 < NP; k0 += kLongChunk) {
+      __syncthreads();
+      copy_chunk(kbuf, kcol, k0, NP);
+      copy_chunk(vbuf, 2 * C + h * hd, k0, real_n);
+      arrive();
+      if (active) {
+        float S[2 * KT][4];
+        logits(S, k0);
+        exps(S, k0, m);
+        float* arow = acc + (16 * tw + g) * L.astride + k0 + ch + 2 * t;
+#pragma unroll
+        for (int n = 0; n < 2 * KT; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            S[n][e] = __fdiv_rn(__fadd_rn(S[n][e], eps_over_n), denom[e >> 1]);
+            if (k0 + ch + 8 * n + 2 * t + (e & 1) >= NP) S[n][e] = 0.f;
+          }
+          if (k0 + ch + 8 * n < L.np) {  // the last chunk may pass the band
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              float2* a = reinterpret_cast<float2*>(
+                  arow + 8 * half * L.astride + 8 * n);
+              float2 v = *a;
+              v.x = __fadd_rn(v.x, __fmul_rn(S[n][2 * half], rH));
+              v.y = __fadd_rn(v.y, __fmul_rn(S[n][2 * half + 1], rH));
+              *a = v;
+            }
+          }
+        }
+        uint32_t pa[KT][4];
+        ppf::pack_p<KT>(pa, S);  // probabilities rounded to bf16 for P V
+        ppf::warp_pv_add<KT>(O, pa, vbuf + kofs, L.kstride, hk);
+      }
+    }
+    // O = the first half's P V plus the second's; the first warp stores it
+    float* x = xchg + tw * 32 * 32 + lane;
+    if (active && half == 1) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[(4 * n + e) * 32] = O[n][e];
+    }
+    __syncthreads();
+    if (active && half == 0) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          O[n][e] = __fadd_rn(O[n][e], x[(4 * n + e) * 32]);
+      ppf::store_o(out + ((size_t)b * NP + r0) * C + h * hd, C, O, NP - r0,
+                   hd);
+    }
+  }
+  __syncthreads();  // both warps of a tile updated its accumulator rows
+  // each warp writes 8 of its tile's rows
+  for (int r = 8 * half; r < 8 * half + 8; ++r) {
+    const int i = r0 + r;
+    if (i >= NP) break;
+    const float* src = acc + (16 * tw + r) * L.astride;
+    float* dst = map_out + ((size_t)b * NP + i) * NP;
+    for (int j = lane; j < NP; j += ppf::kWarp) {
+      const float real = (i < real_n && j < real_n) ? 1.f : 0.f;
+      dst[j] = __fmul_rn(src[j], real);
+    }
+  }
+}
+
+size_t smem_bytes(int NP, int hd) {
+  return NP >= ppf::kLongMinTokens ? LongLayout(NP, hd).total
+                                   : Layout(NP, hd).total;
+}
+
 cudaError_t launch(const void* qkv, const float* policy, int B, int NP, int C,
                    int H, int real_n, float scale, float eps_over_n, void* out,
                    float* map, cudaStream_t stream) {
-  const size_t smem = Layout(NP, C / H).total;
+  const size_t smem = smem_bytes(NP, C / H);
   const dim3 grid(((NP + 15) / 16 + kTiles - 1) / kTiles, B);
+  if (NP >= ppf::kLongMinTokens) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mean_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    mean_long_kernel<<<grid, kLongThreads, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(qkv), policy, NP, C, H, real_n,
+        scale, eps_over_n, static_cast<__nv_bfloat16*>(out), map);
+    return cudaGetLastError();
+  }
   PPF_DISPATCH_KT(NP, {
     cudaError_t err = cudaFuncSetAttribute(
         mean_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -381,11 +656,215 @@ mean_kernel(const float* __restrict__ qkv, const float* __restrict__ policy,
   }
 }
 
+
+// The long kernel (NP >= ppf::kLongMinTokens): K or V kLongChunk keys at a
+// time; the block's logits, then probabilities (P), and its head-mean
+// accumulator for every column, rounded up to kLongChunk.
+constexpr int kLongChunk = 128;  // 4 columns a lane
+
+struct LongLayout {
+  int cols, kstride, pstride;
+  size_t pol, q, kv, p, acc, total;
+  __host__ __device__ LongLayout(int NP, int hd) {
+    cols = ppf::round_up(NP, kLongChunk);
+    kstride = hd + 4;
+    pstride = cols + 4;  // two rows 8 mod 32 floats apart: P V's float4 reads
+    pol = 0;
+    q = ppf::align16(pol + (size_t)cols * sizeof(float));
+    kv = ppf::align16(q + (size_t)kRows * hd * sizeof(float));
+    p = ppf::align16(kv + (size_t)kLongChunk * kstride * sizeof(float));
+    acc = ppf::align16(p + (size_t)kRows * pstride * sizeof(float));
+    total = ppf::align16(acc + (size_t)kRows * pstride * sizeof(float));
+  }
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+mean_long_kernel(const float* __restrict__ qkv,
+                 const float* __restrict__ policy, int NP, int C, int H,
+                 int real_n, float scale, float eps_over_n,
+                 float* __restrict__ out, float* __restrict__ map_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hd = C / H;
+  const int C3 = 3 * C;
+  const LongLayout L(NP, hd);
+  float* pol = reinterpret_cast<float*>(smem + L.pol);
+  float* q = reinterpret_cast<float*>(smem + L.q);
+  float* kv = reinterpret_cast<float*>(smem + L.kv);
+  float* P = reinterpret_cast<float*>(smem + L.p);
+  float* acc = reinterpret_cast<float*>(smem + L.acc);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * kRows;
+  const float* qkv_b = qkv + (size_t)b * NP * C3;
+  const float rH = 1.0f / (float)H;
+  const float neg_inf = __uint_as_float(0xff800000u);
+  const int srow = 4 * warp;  // S phase and softmax: block rows srow .. + 3
+  const int orow = 4 * warp + 2 * (lane >> 4);  // O phase: 2 rows,
+  const int ocol = 4 * (lane & 15);             // 4 columns
+  const bool live = row0 + srow < NP;
+
+  load_policy(policy ? policy + (size_t)b * NP : nullptr, NP, L.cols, pol);
+  for (int e = threadIdx.x; e < kRows * L.pstride / 4; e += blockDim.x)
+    reinterpret_cast<float4*>(acc)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int h = 0; h < H; ++h) {
+    // S = Q K^T over kLongChunk keys at a time, scaled, into P (-inf at
+    // the pad columns); each thread a 4-row x 4-column tile of a chunk
+    ppf::load_head_async(qkv_b + (size_t)row0 * C3, C3, h * hd, hd,
+                         NP - row0, kRows, hd, q, hd);
+    for (int k0 = 0; k0 < NP; k0 += kLongChunk) {
+      __syncthreads();  // the previous chunk (or head's V) no longer read
+      ppf::load_head_async(qkv_b + (size_t)k0 * C3, C3, C + h * hd, hd,
+                           NP - k0, kLongChunk, hd, kv, L.kstride);
+      ppf::cp_async_wait_all();
+      __syncthreads();
+      float s[4][4];
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) s[rr][u] = 0.f;
+      for (int d = 0; live && d < hd; d += 4) {
+        float4 qv[4];
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr)
+          qv[rr] = *reinterpret_cast<const float4*>(q + (srow + rr) * hd + d);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float4 k4 = *reinterpret_cast<const float4*>(
+              kv + (lane + 32 * u) * L.kstride + d);
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr) {
+            s[rr][u] = fmaf(qv[rr].x, k4.x, s[rr][u]);
+            s[rr][u] = fmaf(qv[rr].y, k4.y, s[rr][u]);
+            s[rr][u] = fmaf(qv[rr].z, k4.z, s[rr][u]);
+            s[rr][u] = fmaf(qv[rr].w, k4.w, s[rr][u]);
+          }
+        }
+      }
+      if (live) {
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int c = k0 + lane + 32 * u;
+            P[(srow + rr) * L.pstride + c] =
+                c < NP ? __fmul_rn(s[rr][u], scale) : neg_inf;
+          }
+      }
+    }
+    __syncwarp();  // a warp's softmax reads the P rows its own lanes wrote
+    // the softmax of each of the warp's rows, a lane's columns in order:
+    // e = exp(s - m) * policy, then p = (e + eps/real_n) / (sum + 1e-6)
+    for (int rr = 0; rr < 4 && live; ++rr) {
+      const int i = row0 + srow + rr;
+      float* prow = P + (srow + rr) * L.pstride;
+      float* arow = acc + (srow + rr) * L.pstride;
+      float m = neg_inf;
+      for (int c = lane; c < L.cols; c += ppf::kWarp) m = fmaxf(m, prow[c]);
+      m = ppf::warp_max(m);
+      float sum = 0.f;
+      for (int c = lane; c < L.cols; c += ppf::kWarp) {
+        const float e = c < NP ? __fmul_rn(expf(__fsub_rn(prow[c], m)),
+                                           attn_policy(pol, c, i))
+                               : 0.f;
+        prow[c] = e;
+        sum = __fadd_rn(sum, e);
+      }
+      const float denom = __fadd_rn(ppf::warp_sum(sum), 1e-6f);
+      for (int c = lane; c < L.cols; c += ppf::kWarp) {
+        const float p =
+            c < NP ? __fdiv_rn(__fadd_rn(prow[c], eps_over_n), denom) : 0.f;
+        arow[c] = __fadd_rn(arow[c], __fmul_rn(p, rH));
+        prow[c] = p;
+      }
+    }
+    // O = P V over kLongChunk value rows at a time (rows >= real_n zeros);
+    // each thread a 2-row x 4-column tile, the products in key order
+    float o[2][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[r][c] = 0.f;
+    for (int k0 = 0; k0 < NP; k0 += kLongChunk) {
+      __syncthreads();  // K (or the previous chunk of V) no longer read
+      ppf::load_head_async(qkv_b + (size_t)k0 * C3, C3, 2 * C + h * hd, hd,
+                           real_n - k0, kLongChunk, hd, kv, L.kstride);
+      ppf::cp_async_wait_all();
+      __syncthreads();
+      if (live && ocol < hd) {
+        // P is 0 and V is 0 past NP, so the last group of 4 may overrun it
+        const int jn = min(kLongChunk, NP - k0);
+        for (int j = 0; j < jn; j += 4) {
+          float4 pv[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            pv[r] = *reinterpret_cast<const float4*>(
+                P + (orow + r) * L.pstride + k0 + j);
+          float4 v[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            v[k] = *reinterpret_cast<const float4*>(
+                kv + (j + k) * L.kstride + ocol);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float pj[4] = {pv[r].x, pv[r].y, pv[r].z, pv[r].w};
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              o[r][0] = fmaf(pj[k], v[k].x, o[r][0]);
+              o[r][1] = fmaf(pj[k], v[k].y, o[r][1]);
+              o[r][2] = fmaf(pj[k], v[k].z, o[r][2]);
+              o[r][3] = fmaf(pj[k], v[k].w, o[r][3]);
+            }
+          }
+        }
+      }
+    }
+    if (live && ocol < hd) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = row0 + orow + r;
+        if (i < NP)
+          *reinterpret_cast<float4*>(out + ((size_t)b * NP + i) * C + h * hd +
+                                     ocol) =
+              make_float4(o[r][0], o[r][1], o[r][2], o[r][3]);
+      }
+    }
+  }
+  // each warp writes the accumulator rows its own softmax updated
+  for (int rr = 0; rr < 4; ++rr) {
+    const int i = row0 + srow + rr;
+    if (i >= NP) break;
+    const float* src = acc + (srow + rr) * L.pstride;
+    float* dst = map_out + ((size_t)b * NP + i) * NP;
+    for (int c = lane; c < NP; c += ppf::kWarp) {
+      const float real = (i < real_n && c < real_n) ? 1.f : 0.f;
+      dst[c] = __fmul_rn(src[c], real);
+    }
+  }
+}
+
+size_t smem_bytes(int NP, int hd) {
+  return NP >= ppf::kLongMinTokens ? LongLayout(NP, hd).total
+                                   : Layout(NP, hd).total;
+}
+
 cudaError_t launch(const void* qkv, const float* policy, int B, int NP, int C,
                    int H, int real_n, float scale, float eps_over_n, void* out,
                    float* map, cudaStream_t stream) {
-  const size_t smem = Layout(NP, C / H).total;
+  const size_t smem = smem_bytes(NP, C / H);
   const dim3 grid((NP + kRows - 1) / kRows, B);
+  if (NP >= ppf::kLongMinTokens) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mean_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    mean_long_kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(qkv), policy, NP, C, H, real_n, scale,
+        eps_over_n, static_cast<float*>(out), map);
+    return cudaGetLastError();
+  }
   PPF_DISPATCH_MAXT(NP, {
     cudaError_t err = cudaFuncSetAttribute(
         mean_kernel<MAXT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -405,12 +884,13 @@ cudaError_t launch(const void* qkv, const float* policy, int B, int NP, int C,
 // qkv: (B, NP, 3C) fp32 or bf16 (is_bf16); policy: (B, NP) fp32 keep-mask
 // (pads 0), or null for all ones; out: (B, NP, C) in the qkv dtype; map:
 // (B, NP, NP) fp32. C / H is at most 64 and a multiple of 4 (fp32) or 8
-// (bf16); NP <= 256.
+// (bf16); NP <= 640.
 // scale = hd**-0.5 and eps_over_n = 1e-6/real_n as fp32.
 extern "C" int ppf_attention_mean(const void* qkv, const void* policy, int B,
                                   int NP, int C, int H, int real_n, int is_bf16,
                                   float scale, float eps_over_n, void* out,
                                   void* map, void* stream) {
+  if (NP > ppf::kMaxTokens) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* pol = static_cast<const float*>(policy);
   float* m = static_cast<float*>(map);
@@ -422,6 +902,6 @@ extern "C" int ppf_attention_mean(const void* qkv, const void* policy, int B,
 }
 
 extern "C" int ppf_attention_mean_smem_bytes(int NP, int hd, int is_bf16) {
-  return (int)(is_bf16 ? bf16k::Layout(NP, hd).total
-                       : f32k::Layout(NP, hd).total);
+  return (int)(is_bf16 ? bf16k::smem_bytes(NP, hd)
+                       : f32k::smem_bytes(NP, hd));
 }

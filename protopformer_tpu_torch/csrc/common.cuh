@@ -74,24 +74,43 @@ __device__ __forceinline__ float threshold_from_key(int lo, bool prefix16) {
   return __int_as_float(prefix16 ? (lo << 16) : lo);
 }
 
+// The most tokens a kernel here takes: a sample's fp32 map band of
+// ceil(640 / kMaxClusterSize) = 80 rows of 640 values fits one CTA's
+// shared memory (map_band_smem), and the long attention kernels' bands too.
+constexpr int kMaxTokens = 640;
+
+// Columns a warp reads in one step of a row: 8 a lane.
+constexpr int kRowStep = 8 * kWarp;
+
 // s[i] = sum_j a[i, j] * [a[i, j] >= t] over `rows` resident rows of `cols`
-// (<= 256) values at row stride `stride`, one warp per row.
+// (<= kMaxTokens) values at row stride `stride`, one warp per row, the
+// row in steps of kRowStep columns. kOneStep: cols <= kRowStep, one
+// unrolled step a row (the kernels' code up to 256 tokens).
+template <bool kOneStep>
 __device__ __forceinline__ void block_masked_row_sums(const float* a, int rows,
                                                       int cols, int stride,
                                                       float t, float* s) {
   const int lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
-  for (int i = threadIdx.x >> 5; i < rows; i += nw) {
-    float v[8];  // the lane's values of the row, loaded together
+  // adds the masked values of row i's step from column c0 to acc
+  auto step = [&](int i, int c0, float& acc) {
+    float v[8];  // the lane's values of the step, loaded together
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      const int j = lane + kWarp * u;
+      const int j = c0 + lane + kWarp * u;
       v[u] = j < cols ? a[i * stride + j] : 0.f;
     }
-    float acc = 0.f;
 #pragma unroll
     for (int u = 0; u < 8; ++u)
-      if (lane + kWarp * u < cols) acc += v[u] >= t ? v[u] : 0.f;
+      if (c0 + lane + kWarp * u < cols) acc += v[u] >= t ? v[u] : 0.f;
+  };
+  for (int i = threadIdx.x >> 5; i < rows; i += nw) {
+    float acc = 0.f;
+    if (kOneStep) {
+      step(i, 0, acc);
+    } else {
+      for (int c0 = 0; c0 < cols; c0 += kRowStep) step(i, c0, acc);
+    }
     acc = warp_sum(acc);
     if (lane == 0) s[i] = acc;
   }
@@ -129,12 +148,31 @@ __device__ __forceinline__ void warp_pick_digit(const int (&c)[8], int k,
   }
 }
 
-// The largest cluster a launch here takes: a sample of at most 256 rows
-// over CTAs of 64 rows (K1's four 16-row tiles, or kMapBandRows).
-constexpr int kMaxClusterSize = 4;
+// The largest cluster a launch here takes, the portable maximum: a sample
+// of up to 256 rows over CTAs of 64 rows (K1's four 16-row tiles, or
+// kMapBandRows) takes 1-4 CTAs, of up to 512 rows 5-8, and above that 8
+// CTAs whose bands grow to 73 rows at 577 and 80 at 640.
+constexpr int kMaxClusterSize = 8;
 
 // Copies of the counting histogram, one per lane group of lane % 16.
 constexpr int kHistCopies = 16;
+
+// The most counts one copy of the histogram takes in a pass over a band of
+// `rows` rows of `cols` columns: lanes l and l + 16 of each warp count into
+// copy l % 16, two of the row's ceil(cols / 32) values a lane each. At the
+// largest band, 80 rows of 640, that is 3,200: far from the 65,535 that a
+// 16-bit counter holds before it carries into its neighbour. Each launcher
+// checks its band against it (hist_counts_fit).
+__host__ __device__ constexpr int hist_copy_counts(int rows, int cols) {
+  return rows * 2 * ((cols + kWarp - 1) / kWarp);
+}
+
+__host__ __device__ constexpr bool hist_counts_fit(int rows, int cols) {
+  return hist_copy_counts(rows, cols) <= 0xFFFF;
+}
+
+static_assert(hist_counts_fit(kMaxTokens / kMaxClusterSize, kMaxTokens),
+              "a band of the largest map overflows the 16-bit counters");
 
 // Shared ints the select takes: per pass the CTA's 256 digit counts (4
 // passes at most), the picked digit and the count above it (2, padded to
@@ -146,7 +184,7 @@ __host__ __device__ constexpr int radix_smem_ints() {
 
 // min(hi, keep-th largest key) over the non-negative fp32 values that the
 // CTAs of the calling cluster hold in shared memory, each `rows` x `cols`
-// (cols <= 256) at row stride `stride`. The key is the fp32 bit pattern, or
+// (cols <= kMaxTokens, hist_counts_fit) at row stride `stride`. The key is the fp32 bit pattern, or
 // its high 16 bits in prefix16 mode; a value whose sign bit is set (-0.0)
 // has key 0, since the JAX kernels bisect signed keys and never count it.
 // Digit by digit from the top, 8 bits a pass (2 passes on 16-bit keys, 4 on
@@ -166,7 +204,9 @@ __host__ __device__ constexpr int radix_smem_ints() {
 // two digits over 8 copies, zeroing what it read) before the cluster
 // barrier. `smem` (radix_smem_ints ints, shared, 16-byte aligned) is zeroed
 // by the caller before a barrier that precedes the call, which also
-// publishes `a`. Called by every thread of every CTA.
+// publishes `a`. Called by every thread of every CTA. kOneStep: cols <=
+// kRowStep and at most 4 CTAs (the kernels' code up to 256 tokens).
+template <bool kOneStep>
 __device__ __forceinline__ unsigned cluster_radix_select(
     const float* a, int rows, int cols, int stride, bool prefix16, int keep,
     unsigned hi, int* smem) {
@@ -182,11 +222,12 @@ __device__ __forceinline__ unsigned cluster_radix_select(
   int k = keep;
   for (int pass = 0; pass < bits / 8; ++pass) {
     const int shift = bits - 8 * (pass + 1);
-    for (int r = threadIdx.x >> 5; r < rows; r += nw) {
-      float v[8];  // the row's values of this lane, loaded together
+    // counts this lane's values of row r's step from column c0 by digit
+    auto count = [&](int r, int c0) {
+      float v[8];  // the step's values of this lane, loaded together
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
-        const int c = lane + kWarp * u;
+        const int c = c0 + lane + kWarp * u;
         v[u] = c < cols ? a[r * stride + c] : 0.f;
       }
 #pragma unroll
@@ -196,11 +237,18 @@ __device__ __forceinline__ unsigned cluster_radix_select(
         if (prefix16) key >>= 16;
         // every entry adds, 0 where it is not counted: no branch splits
         // the warp
-        const bool counted = lane + kWarp * u < cols &&
+        const bool counted = c0 + lane + kWarp * u < cols &&
                              (pass == 0 || (key >> (shift + 8)) == prefix);
         const unsigned digit = (key >> shift) & 255u;
         atomicAdd(mine + (digit >> 1) * kHistCopies,
                   static_cast<unsigned>(counted) << ((digit & 1) << 4));
+      }
+    };
+    for (int r = threadIdx.x >> 5; r < rows; r += nw) {
+      if (kOneStep) {
+        count(r, 0);
+      } else {
+        for (int c0 = 0; c0 < cols; c0 += kRowStep) count(r, c0);
       }
     }
     __syncthreads();
@@ -225,26 +273,28 @@ __device__ __forceinline__ unsigned cluster_radix_select(
     }
     cluster.sync();
     if (threadIdx.x < kWarp) {
-      // lane l sums digits 248 - 8l .. 255 - 8l of every CTA's counts, all
-      // the remote reads in flight at once
-      int4 part[kMaxClusterSize][2];
-#pragma unroll
-      for (int q = 0; q < kMaxClusterSize; ++q) {
-        if (q < nranks) {
-          const int4* src = reinterpret_cast<const int4*>(
-              cluster.map_shared_rank(counts, q) + 248 - 8 * lane);
-          part[q][0] = src[0];
-          part[q][1] = src[1];
-        }
-      }
+      // lane l sums digits 248 - 8l .. 255 - 8l of every CTA's counts,
+      // the remote reads of four CTAs in flight at once
       int c[8] = {0, 0, 0, 0, 0, 0, 0, 0};  // c[u]: digit 255 - 8l - u
+      for (int q0 = 0; q0 < (kOneStep ? 1 : nranks); q0 += 4) {
+        int4 part[4][2];
 #pragma unroll
-      for (int q = 0; q < kMaxClusterSize; ++q) {
-        if (q < nranks) {
-          c[7] += part[q][0].x; c[6] += part[q][0].y;
-          c[5] += part[q][0].z; c[4] += part[q][0].w;
-          c[3] += part[q][1].x; c[2] += part[q][1].y;
-          c[1] += part[q][1].z; c[0] += part[q][1].w;
+        for (int i = 0; i < 4; ++i) {
+          if (q0 + i < nranks) {
+            const int4* src = reinterpret_cast<const int4*>(
+                cluster.map_shared_rank(counts, q0 + i) + 248 - 8 * lane);
+            part[i][0] = src[0];
+            part[i][1] = src[1];
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (q0 + i < nranks) {
+            c[7] += part[i][0].x; c[6] += part[i][0].y;
+            c[5] += part[i][0].z; c[4] += part[i][0].w;
+            c[3] += part[i][1].x; c[2] += part[i][1].y;
+            c[1] += part[i][1].z; c[0] += part[i][1].w;
+          }
         }
       }
       warp_pick_digit(c, k, sel);
@@ -286,17 +336,27 @@ inline cudaLaunchConfig_t cluster_launch_config(int cs, int B, int threads,
 
 // --- one sample's map over a cluster (K2, and K4/K5's normalize) -------------
 
-// Rows of the map a CTA holds at most, its threads, and the CTAs an SM
-// holds at once: as many as the shared memory of ~50-row bands of 197 fp32
-// allows, so that more of B=160's clusters of 4 run in the first round
-// (the kernels' __launch_bounds__ cap their registers to fit).
+// Rows of the map a CTA holds up to 512 rows, its threads, and the CTAs an
+// SM holds at once: as many as the shared memory of ~50-row bands of 197
+// fp32 allows, so that more of B=160's clusters of 4 run in the first round
+// (the kernels' __launch_bounds__ cap their registers to fit). Above 512
+// rows the bands grow instead (73 rows of 577 fp32 are 181 KB: one CTA an
+// SM).
 constexpr int kMapBandRows = 64;
 constexpr int kMapThreads = 256;
 constexpr int kMapCtasPerSm = 4;
 
-// CTAs per sample: 4 at 197 or 256 rows (bands of 49-64 rows), 1 up to 64.
+// CTAs per sample: 1 up to 64 rows, 4 at 197 or 256 rows (bands of 49-64
+// rows), 5 at 257, and kMaxClusterSize (8) from 449 rows on.
 __host__ __device__ inline int map_cluster_size(int rows) {
-  return (rows + kMapBandRows - 1) / kMapBandRows;
+  const int cs = (rows + kMapBandRows - 1) / kMapBandRows;
+  return cs < kMaxClusterSize ? cs : kMaxClusterSize;
+}
+
+// Rows of the largest band of a map of `rows` rows.
+__host__ __device__ inline int map_band_rows(int rows) {
+  const int cs = map_cluster_size(rows);
+  return (rows + cs - 1) / cs;
 }
 
 // Where the band starts in shared memory: after the select's ints.
@@ -316,8 +376,7 @@ __host__ __device__ inline int band_stride(int cols, int stride) {
 // that align it with its source (cluster_map_select).
 __host__ __device__ inline size_t map_band_smem(int rows, int cols,
                                                 int stride) {
-  const int cs = map_cluster_size(rows);
-  const size_t band = (rows + cs - 1) / cs;
+  const size_t band = map_band_rows(rows);
   return map_band_offset() +
          (3 + band * band_stride(cols, stride)) * sizeof(float);
 }
@@ -404,7 +463,7 @@ __device__ __forceinline__ void load_band(float* dst, int dstride,
 
 // A CTA's share of one sample's map: its rows, resident in shared memory.
 struct MapBand {
-  const float* a;  // the band's first row
+  float* a;        // the band's first row
   int stride;      // its row stride (band_stride)
   int row0;        // the map row it starts at
   int rows;
@@ -412,14 +471,15 @@ struct MapBand {
 
 // The keep-th largest key (cluster_radix_select, hi at the top of the key
 // space) of one sample's real `rows` x `cols` map of T at row stride
-// `stride` (cols <= 256), split over the calling cluster of
+// `stride` (rows, cols <= kMaxTokens), split over the calling cluster of
 // map_cluster_size(rows) CTAs (blockIdx.x the rank): each CTA loads a band
 // of whole rows, rows * rank / cs up to the next, into `smem`
 // (map_band_smem bytes) as fp32, pad columns left out, and the cluster
 // selects over the bands.
 // The rows are whole, so each CTA's epilogue on `band` needs no cluster
-// traffic. Called by every thread of every CTA.
-template <typename T>
+// traffic. Called by every thread of every CTA. kOneStep: cols <= kRowStep
+// (cluster_radix_select).
+template <bool kOneStep, typename T>
 __device__ __forceinline__ unsigned cluster_map_select(
     const T* map, int rows, int cols, int stride, bool prefix16, int keep,
     unsigned char* smem, MapBand& band) {
@@ -437,8 +497,9 @@ __device__ __forceinline__ unsigned cluster_map_select(
   zero_radix_smem(radix);
   load_band(a, band.stride, src, band.rows, cols, stride);
   __syncthreads();  // publishes the band and the zeroed counts
-  return cluster_radix_select(a, band.rows, cols, band.stride, prefix16, keep,
-                              prefix16 ? 0xFFFFu : 0xFFFFFFFFu, radix);
+  return cluster_radix_select<kOneStep>(a, band.rows, cols, band.stride,
+                                       prefix16, keep,
+                                       prefix16 ? 0xFFFFu : 0xFFFFFFFFu, radix);
 }
 
 // --- asynchronous copies and tensor-core fragments ---------------------------
@@ -584,19 +645,15 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[KT][4],
   }
 }
 
-// O (16 x 16 hk) = P V, fp32 accumulation; Vs holds 16 KT value rows.
+// O (16 x 16 hk) += P V, fp32 accumulation; Vs holds 16 KT value rows.
 template <int KT>
-__device__ __forceinline__ void warp_pv(float (&O)[8][4],
-                                        const uint32_t (&pa)[KT][4],
-                                        const __nv_bfloat16* Vs, int vstride,
-                                        int hk) {
+__device__ __forceinline__ void warp_pv_add(float (&O)[8][4],
+                                            const uint32_t (&pa)[KT][4],
+                                            const __nv_bfloat16* Vs,
+                                            int vstride, int hk) {
   const int lane = threadIdx.x & 31;
   const int row = (lane & 7) + (((lane >> 3) & 1) << 3);
   const int col = (lane >> 4) * 8;
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) O[n][e] = 0.f;
 #pragma unroll
   for (int j = 0; j < KT; ++j) {
 #pragma unroll
@@ -609,6 +666,19 @@ __device__ __forceinline__ void warp_pv(float (&O)[8][4],
       }
     }
   }
+}
+
+// O (16 x 16 hk) = P V.
+template <int KT>
+__device__ __forceinline__ void warp_pv(float (&O)[8][4],
+                                        const uint32_t (&pa)[KT][4],
+                                        const __nv_bfloat16* Vs, int vstride,
+                                        int hk) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) O[n][e] = 0.f;
+  warp_pv_add<KT>(O, pa, Vs, vstride, hk);
 }
 
 // Store O rounded to bf16: `out` points at the tile's first row at its
@@ -659,11 +729,24 @@ namespace ppf {
 // ceil(N / 16) rounded up to the next of 2, 4, 6, 8, 10, 13, 16 (N = 197
 // takes 13, 82 takes 6, 256 takes 16), so that a build compiles 7 of the
 // 16 possible tile counts. Tiles past ceil(N / 16) hold zero K and V rows
-// and pad columns only. Above 256 tokens: 0, which no kernel takes.
+// and pad columns only. Above 256 tokens: 0. Those counts go to the long
+// kernels instead (kLongMinTokens), which stream the keys through shared
+// memory a chunk of 4 or 8 tiles at a time.
 __host__ __device__ inline int key_tiles(int N) {
   const int t = (N + 15) / 16;
   if (t <= 8) return t <= 2 ? 2 : (t + 1) / 2 * 2;
   return t <= 10 ? 10 : t <= 13 ? 13 : t <= 16 ? 16 : 0;
+}
+
+// The fewest tokens the long attention kernels take; up to 256 the
+// kernels keep every key of a head in shared memory and registers.
+constexpr int kLongMinTokens = 257;
+
+// Shared memory one block may use on Hopper (sm_90), bytes.
+constexpr size_t kMaxSmemPerBlock = 232448;
+
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
 }
 
 // Whether n-tile n (8 key columns) of a KT-tile row holds pad columns

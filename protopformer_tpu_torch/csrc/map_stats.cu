@@ -21,37 +21,55 @@
 // scans the band and ends in a cluster barrier, and 160 clusters of 4 do
 // not fit the card at once (chip_smoke.py prints how many do), so the
 // launch runs in two rounds.
+//
+// Tokens: N <= kMaxTokens (640). Up to 512 rows a CTA holds at most 64
+// (5 CTAs at N=257); above that the cluster stays at the portable 8 CTAs
+// and the bands grow: 73 rows of 577 fp32 values at N=577 (DeiT-B/16 at
+// 384), 181 KB of shared memory, one CTA an SM, so 160 clusters of 8 run
+// in rounds of as many as the card's GPCs hold. Bound there: bytes, 213 MB
+// (the 1.33 MB fp32 map of each of 160 samples read once) = 0.064 ms.
 #include "common.cuh"
 
 namespace {
 
-template <typename T>
+// kOneStep: N <= ppf::kRowStep (cluster_radix_select).
+template <typename T, bool kOneStep>
 __global__ void __launch_bounds__(ppf::kMapThreads, ppf::kMapCtasPerSm)
 map_stats_kernel(const T* __restrict__ map, int N, int keep, bool prefix16,
                  float* __restrict__ t_out, float* __restrict__ s_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.y;
   ppf::MapBand band;
-  const unsigned key = ppf::cluster_map_select(
+  const unsigned key = ppf::cluster_map_select<kOneStep>(
       map + (size_t)b * N * N, N, N, N, prefix16, keep, smem, band);
   const float t = ppf::threshold_from_key(static_cast<int>(key), prefix16);
   if (blockIdx.x == 0 && threadIdx.x == 0) t_out[b] = t;
-  ppf::block_masked_row_sums(band.a, band.rows, N, band.stride, t,
-                             s_out + (size_t)b * N + band.row0);
+  ppf::block_masked_row_sums<kOneStep>(band.a, band.rows, N, band.stride, t,
+                                       s_out + (size_t)b * N + band.row0);
+}
+
+// The kernel for maps of T at N tokens.
+template <typename T>
+auto kernel_for(int N) {
+  return N <= ppf::kRowStep ? map_stats_kernel<T, true>
+                            : map_stats_kernel<T, false>;
 }
 
 template <typename T>
 cudaError_t launch(const void* map, int B, int N, int keep, bool prefix16,
                    void* t_out, void* s_out, cudaStream_t stream) {
+  if (N > ppf::kMaxTokens || !ppf::hist_counts_fit(ppf::map_band_rows(N), N))
+    return cudaErrorInvalidValue;
   const size_t smem = ppf::map_band_smem(N, N, N);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = ppf::cluster_launch_config(
       ppf::map_cluster_size(N), B, ppf::kMapThreads, smem, stream, attr);
+  const auto kernel = kernel_for<T>(N);
   cudaError_t err = cudaFuncSetAttribute(
-      map_stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, map_stats_kernel<T>, static_cast<const T*>(map),
-                           N, keep, prefix16, static_cast<float*>(t_out),
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(map), N, keep,
+                           prefix16, static_cast<float*>(t_out),
                            static_cast<float*>(s_out));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -64,16 +82,17 @@ int active_clusters(int N) {
   const cudaLaunchConfig_t cfg = ppf::cluster_launch_config(
       ppf::map_cluster_size(N), 1, ppf::kMapThreads, smem, nullptr, attr);
   int clusters = 0;
+  const auto kernel = kernel_for<T>(N);
   cudaError_t err = cudaFuncSetAttribute(
-      map_stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&clusters, map_stats_kernel<T>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }
 
 }  // namespace
 
-// map: (B, N, N) fp32 or bf16 (map_is_bf16), N <= 256; t_out: (B,) fp32;
+// map: (B, N, N) fp32 or bf16 (map_is_bf16), N <= 640; t_out: (B,) fp32;
 // s_out: (B, N) fp32. One cluster launch; returns its cudaError_t.
 extern "C" int ppf_map_stats(const void* map, int map_is_bf16, int B, int N,
                              int keep, int prefix16, void* t_out, void* s_out,

@@ -3,6 +3,17 @@
 Each kernel's wrapper keeps a plain integer ``launches`` counter that it
 raises by one where it launches the kernel; ``launch_counts`` reads them
 and ``reset_launch_counts`` sets them to 0.
+
+Every kernel takes token counts N (or NP) up to ``MAX_N`` = 640, which
+covers the 384 presets' 577 and the 640 the JAX package pads them to; a
+wrapper raises ``ValueError`` above it. Up to 256 tokens K1 and K3 keep a
+head's keys in shared memory and registers; from 257 on their long kernels
+stream them through shared memory in chunks, and the selects of K1, K2 and
+K4/K5's normalize split one sample over a cluster of up to 8 CTAs. Bounds
+at B=160, N=577, H=12, hd=64 on an H100 (bytes at 3.35 TB/s, operations
+at 989 TFLOP/s bf16 or 67 TFLOP/s fp32): K1 674 MB (speed) / 780 MB
+(exact), 0.201 / 0.233 ms; K2 213 MB, 0.064 ms; K3 fp32 164 GFLOP,
+2.44 ms.
 """
 
 from typing import Dict
@@ -17,7 +28,11 @@ from protopformer_tpu_torch.kernels.attention_core import (
     fused_attention_mean_padded,
     mean_padded_cuda,
 )
-from protopformer_tpu_torch.kernels.stats import fused_map_stats, map_stats_cuda
+from protopformer_tpu_torch.kernels.stats import (
+    MAX_N,
+    fused_map_stats,
+    map_stats_cuda,
+)
 
 # kernel name (the JAX function it ports) -> its CUDA wrapper
 WRAPPERS = {
@@ -39,6 +54,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "MAX_N",
     "WRAPPERS",
     "fused_attention_block_stats",
     "fused_attention_core",

@@ -372,7 +372,7 @@ def fused_attention_core(
 
     Args:
       qkv: (B, N, 3C) q|k|v activations in the compute dtype (fp32 or
-        bf16), N <= 256.
+        bf16), N <= ``MAX_N`` (640) on CUDA.
       policy: (B, N) keep-mask, or None (all ones).
       ones_policy: the all-ones policy whatever ``policy`` holds
         (pre-prune blocks).
@@ -403,9 +403,9 @@ def fused_attention_core_padded(
     Args:
       qkv: (B, NP, 3C) activations; rows >= real_n are pads.
       policy: (B, NP) keep-mask with pads 0.
-      real_n: the real token count (<= NP <= 256); the eps terms and the
-        discard keep count use it, so the real block matches the unpadded
-        kernel.
+      real_n: the real token count (<= NP <= ``MAX_N``, 640, on CUDA); the
+        eps terms and the discard keep count use it, so the real block
+        matches the unpadded kernel.
 
     Returns:
       (out (B, NP, C) in the qkv dtype, the normalized map (B, NP, NP)

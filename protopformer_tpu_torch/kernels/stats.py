@@ -17,7 +17,10 @@ import torch
 
 from protopformer_tpu_torch.kernels import _build
 
-MAX_N = 256  # tokens a map may have: a cluster of 4 CTAs of 64 rows
+# tokens a map may have: one sample's fp32 map over a cluster of at most 8
+# CTAs, each holding its band of 80 rows of 640 in shared memory
+# (``csrc/common.cuh``, ``kMaxTokens``); the 384 presets have 577 tokens
+MAX_N = 640
 
 
 def bisect_keys(a: torch.Tensor, prefix16: bool) -> torch.Tensor:

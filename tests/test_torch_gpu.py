@@ -86,9 +86,13 @@ def _qkv_policy(rng, B, N, NP, C):
 @pytest.mark.parametrize("B", [1, 3, 8])
 @pytest.mark.parametrize("exact", [True, False])
 # N=40 runs the kernel built for 4 key tiles on 3 tiles of tokens
-# DeiT-Tiny, -Small and -Base at 224: 3, 6 and 12 heads (head dims 64)
+# DeiT-Tiny, -Small and -Base at 224: 3, 6 and 12 heads (head dims 64);
+# the long kernel at deit_tiny_patch2_32's 257 tokens (a cluster of 5),
+# DeiT-B/16@384's 577 (8 CTAs of up to 5 tiles) and the limit, 640
 @pytest.mark.parametrize("N,C,H", [(197, 192, 3), (24, 16, 2), (40, 64, 2),
-                                   (197, 384, 6), (197, 768, 12)])
+                                   (197, 384, 6), (197, 768, 12),
+                                   (257, 192, 3), (577, 768, 12),
+                                   (640, 192, 3)])
 def test_block_stats_kernel_matches_plain(rng, cuda, exact, N, C, H, B):
     qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * C)).astype(np.float32))
     qkv = qkv.to(cuda, torch.bfloat16)
@@ -118,8 +122,9 @@ def test_block_stats_kernel_matches_plain(rng, cuda, exact, N, C, H, B):
 @pytest.mark.parametrize("B", [1, 3, 8])
 @pytest.mark.parametrize("exact", [True, False])
 # one CTA a sample at 17 and 24 tokens, a cluster of 2 at 82 and 4 at 197
-# (bands of 49-50 rows) and 256 (64 rows)
-@pytest.mark.parametrize("N", [17, 24, 82, 197, 256])
+# (bands of 49-50 rows) and 256 (64 rows), 5 at 257 (51-52 rows), and 8 at
+# 577 (72-73 rows) and 640 (80 rows)
+@pytest.mark.parametrize("N", [17, 24, 82, 197, 256, 257, 577, 640])
 def test_map_stats_kernel_matches_plain(rng, cuda, exact, N, B):
     maps = _prob_maps(rng, B, N).to(cuda)
     if not exact:
@@ -197,6 +202,14 @@ def test_map_stats_kernel_padded_keep_elements(rng, cuda):
     (torch.float32, 197, 197, 768, 12),
     (torch.bfloat16, 82, 82, 384, 6),
     (torch.bfloat16, 82, 82, 768, 12),
+    # the long kernels: deit_tiny_patch2_32 (257), DeiT-B/16@384 (577, and
+    # 640 as the JAX package pads it), bf16 after a gather of 300 tokens
+    (torch.float32, 257, 257, 192, 3),
+    (torch.float32, 577, 577, 768, 12),
+    (torch.float32, 577, 640, 192, 3),
+    (torch.bfloat16, 257, 257, 192, 3),
+    (torch.bfloat16, 301, 301, 192, 3),
+    (torch.bfloat16, 577, 640, 768, 12),
 ])
 def test_mean_padded_kernel_matches_plain(rng, cuda, dtype, N, NP, C, H):
     qkv, pol = _qkv_policy(rng, 8, N, NP, C)
@@ -245,6 +258,10 @@ def _check_core(qkv, pol, H, real_n, out, fmap, p_out, p_map):
     (torch.float32, 24, 16, 2, True),
     (torch.bfloat16, 256, 192, 3, True),
     (torch.float32, 256, 192, 3, False),
+    # masked_forward_thresh at 384 (K4 on DeiT-B's 577 tokens) and at 257
+    (torch.bfloat16, 577, 768, 12, True),
+    (torch.float32, 577, 768, 12, False),
+    (torch.float32, 257, 192, 3, False),
 ])
 def test_core_kernel_matches_plain(rng, cuda, dtype, N, C, H, ones):
     qkv, pol = _qkv_policy(rng, 8, N, N, C)
@@ -265,6 +282,9 @@ def test_core_kernel_matches_plain(rng, cuda, dtype, N, C, H, ones):
     (torch.bfloat16, 250, 256, 192, 3),
     (torch.bfloat16, 256, 256, 192, 3),
     (torch.float32, 250, 256, 192, 3),
+    # real 577 in NP 640, as the JAX package pads the 384 presets
+    (torch.bfloat16, 577, 640, 192, 3),
+    (torch.float32, 577, 640, 768, 12),
 ])
 def test_core_padded_kernel_matches_plain(rng, cuda, dtype, N, NP, C, H):
     qkv, pol = _qkv_policy(rng, 8, N, NP, C)
@@ -286,17 +306,25 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
             torch.zeros((2, 24, 48), device=cuda).transpose(1, 2), torch.ones(
                 (2, 48), device=cuda), 2, 48,
         )
-    # every kernel takes at most 256 tokens
-    with pytest.raises(ValueError, match="at most 256"):
-        stats.fused_map_stats(torch.zeros((2, 257, 257), device=cuda), 0.9)
-    with pytest.raises(ValueError, match="at most 256"):
-        ac.fused_attention_core(torch.zeros((2, 257, 48), device=cuda),
+    # every kernel takes at most 640 tokens
+    with pytest.raises(ValueError, match="at most 640"):
+        stats.fused_map_stats(torch.zeros((2, 641, 641), device=cuda), 0.9)
+    with pytest.raises(ValueError, match="at most 640"):
+        ac.fused_attention_core(torch.zeros((2, 641, 48), device=cuda),
                                 None, 2, ones_policy=True)
-    with pytest.raises(ValueError, match="at most 256"):
+    with pytest.raises(ValueError, match="at most 640"):
         ac.fused_attention_core_padded(
-            torch.zeros((2, 264, 48), device=cuda),
-            torch.ones((2, 264), device=cuda), 2, 250,
+            torch.zeros((2, 648, 48), device=cuda),
+            torch.ones((2, 648), device=cuda), 2, 577,
         )
+    with pytest.raises(ValueError, match="at most 640"):
+        ac.fused_attention_block_stats(
+            torch.zeros((2, 641, 48), device=cuda, dtype=torch.bfloat16), 2,
+            0.9)
+    with pytest.raises(ValueError, match="at most 640"):
+        ac.fused_attention_mean_padded(
+            torch.zeros((2, 641, 48), device=cuda),
+            torch.ones((2, 641), device=cuda), 2, 577)
 
 
 _DIV_CHECK = r"""
