@@ -1319,6 +1319,14 @@ def log_cluster(what: str, size: int, resident: int) -> None:
     require(resident > 0, f"{what}: no cluster fits the card")
 
 
+def log_resident(what: str, ctas: int, smem: int) -> None:
+    """Prints a plain launch's CTAs an SM holds at once and its shared
+    memory; fails unless one fits."""
+    log(f"{what}: " + json.dumps({"resident_ctas_per_sm": ctas,
+                                  "smem_bytes": smem}))
+    require(ctas > 0, f"{what}: no CTA fits an SM")
+
+
 def k1_record(qkv: torch.Tensor, heads: int, exact: bool) -> dict:
     """K1 against its plain version on a model's own qkv (``k1_contract``),
     timed and bounded; returns the partial record."""
@@ -1330,9 +1338,16 @@ def k1_record(qkv: torch.Tensor, heads: int, exact: bool) -> dict:
     b, n, c3 = qkv.shape
     c = c3 // 3
     lib = _build.library()
+    # up to 256 tokens K1's own cluster launch, above that K2's select after
+    # the heads kernel (log_resident)
     log_cluster(f"K1 launch at N={n}, hd={c // heads}",
                 lib.ppf_attention_block_stats_cluster_size(n),
                 lib.ppf_attention_block_stats_active_clusters(n, c // heads))
+    if n > 256:
+        log_resident(f"K1 heads kernel at N={n}, hd={c // heads}",
+                     lib.ppf_attention_block_stats_long_resident_ctas(
+                         n, c // heads),
+                     lib.ppf_attention_block_stats_smem_bytes(n, c // heads))
     keep = n * n - int(n * n * DISCARD)
     out, fmap, t, s = ac.fused_attention_block_stats(qkv, heads, DISCARD, exact)
     p_out, p_map, p_t, _ = ac.block_stats_plain(qkv, heads, keep, exact)
@@ -1365,10 +1380,16 @@ def k3_record(qkv: torch.Tensor, pol: torch.Tensor, heads: int) -> dict:
     """K3 against its plain version on a model's own qkv and policy (out
     within 1e-5 in fp32 or 1e-2 in bf16, map within 1e-6), timed and
     bounded; returns the partial record."""
+    from protopformer_tpu_torch.kernels import _build
     from protopformer_tpu_torch.kernels import attention_core as ac
 
     b, n, c3 = qkv.shape
     c = c3 // 3
+    if n > 256 and qkv.dtype == torch.float32:
+        lib = _build.library()
+        log_resident(f"K3 fp32 long kernel at N={n}, hd={c // heads}",
+                     lib.ppf_attention_mean_f32_resident_blocks(n, c // heads),
+                     lib.ppf_attention_mean_smem_bytes(n, c // heads, 0))
     out, fmap = ac.fused_attention_mean_padded(qkv, pol, heads, real_n=n)
     p_out, p_map = ac.mean_padded_plain(qkv, pol, heads, real_n=n)
     torch.cuda.synchronize()
@@ -1788,6 +1809,33 @@ def width_phase(dev: torch.device, rng: np.random.Generator,
 LONG_N = 577  # DeiT-B/16@384: 24 x 24 patches and the CLS token
 
 
+def k3_bf16_long_reading(qkv: torch.Tensor, pol, heads: int) -> None:
+    """K3's bf16 long kernel (``bf16k::mean_long_kernel``, K4's attention
+    phase above 256 tokens; its launches count as K4's) on K4's operands
+    at 577 tokens: its time beside its plain version's and its bound,
+    printed (out within 1e-2, the map within 1e-6, as ``k3_record``)."""
+    from protopformer_tpu_torch.kernels import attention_core as ac
+
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    pol = torch.ones((b, n), device=qkv.device) if pol is None else pol
+    kernel = lambda: ac.fused_attention_mean_padded(qkv, pol, heads, n)
+    plain = lambda: ac.mean_padded_plain(qkv, pol, heads, n)
+    out, fmap = kernel()
+    p_out, p_map = plain()
+    torch.cuda.synchronize()
+    errs = {"out": max_err(out, p_out), "map": max_err(fmap, p_map)}
+    require(errs["out"] <= 1e-2 and errs["map"] <= 1e-6,
+            f"K3 bf16 N={n}: outside tolerance")
+    nbytes = b * n * c3 * 2 + b * n * 4 + b * n * c * 2 + b * n * n * 4
+    bound_ms, bound_by = bound(nbytes, (4.0 * b * n * n * c, BF16_FLOPS))
+    log(f"K3 bf16 long N={n} H={heads} (K4's attention phase, K4's "
+        "operands): " + json.dumps({
+            "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": errs}))
+
+
 def long_phase(dev: torch.device, rng: np.random.Generator) -> tuple:
     """Phase 4g (see the module docstring). Returns ({path: {...}},
     {record name: partial record})."""
@@ -1818,6 +1866,8 @@ def long_phase(dev: torch.device, rng: np.random.Generator) -> tuple:
         dtype = "bf16" if qkv.dtype == torch.bfloat16 else "fp32"
         name = f"fused_attention_core[{dtype},N={LONG_N},H={heads}]"
         records[name] = core_record(name, qkv.clone(), pol, LONG_N, heads)
+        if dtype == "bf16":
+            k3_bf16_long_reading(qkv, pol, heads)
     del k4_args
     log(f"deit_b384 thresh: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()

@@ -1,25 +1,43 @@
-"""K1's and K3's long kernels against their short ones at N <= 256.
+"""K1's and K3's long kernels, timed against their short ones at N <= 256
+or against a parent commit's at the models' own operands.
 
 K1 and K3 launch their long kernels (``block_stats_long_kernel``,
 ``bf16k``/``f32k::mean_long_kernel``) from ``kLongMinTokens`` = 257 tokens
-on (``csrc/common.cuh``) and their short ones below. This times both at
-the short kernels' token counts: it copies the package to
-``build/long_kernels/`` with ``kLongMinTokens`` set to 1, so that every N
-takes the long kernels, and runs the same cases in the package and in the
-copy, each in a process of its own that builds its own library, in the
-order package, copy, copy, package. Every case is first held against its
-plain version (K1: t equal to ``masked_map_stats`` on its own map, s
-within 1e-6, the map within one bf16 ulp and out within two of their
-largest entries; K3: out within 1e-5 in fp32 or 1e-2 in bf16, the map
-within 1e-6). N = 257 takes the long kernels in both and is the control.
+on (``csrc/common.cuh``) and their short ones below. Each comparison runs
+its two sides in processes of their own, each building its own library,
+in the order A, B, B, A, and reports the mean of each side's two readings:
+
+* ``--against short`` (the default): the package (A) against a copy
+  under ``build/long_kernels/`` with ``kLongMinTokens`` set to 1 (B), so
+  that every N takes the long kernels, at the short kernels' token counts
+  on seeded random operands. N = 257 takes the long kernels in both and is
+  the control. Every case is first held against its plain version (K1: t
+  equal to ``masked_map_stats`` on its own map, s within 1e-6, the map
+  within one bf16 ulp and out within two of their largest entries; K3: out
+  within 1e-5 in fp32 or 1e-2 in bf16, the map within 1e-6).
+* ``--against parent --parent DIR``: a copy under
+  ``build/long_kernels_parent/`` whose ``csrc/`` is DIR's (A; DIR holds an
+  unpacked tree of the parent commit, ``git archive HEAD | tar -x -C
+  DIR``), the Python being this checkout's, against the package (B). Each
+  side builds DeiT-B/16@384's and ``deit_tiny_patch2_32``'s PPNets at the
+  CUB preset from a seed and serves a chunk in each mode, capturing the
+  operands of the first K1 and K3 calls (block 0's), holds the kernels
+  against their plain versions on them as above and times them; K4 in
+  fp32 on the 384 fp32 operands (its attention phase is K3's kernel); and
+  DeiT-B/16@384's serving img/s in the three modes
+  (``ServingEngine.throughput_probe``).
+
 B = 160 (a serving chunk). Needs a CUDA card.
 
     python -m protopformer_tpu_torch.cli.time_long_kernels
+    python -m protopformer_tpu_torch.cli.time_long_kernels --against parent \\
+        --parent build/parent
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import shutil
@@ -31,12 +49,19 @@ from typing import Dict
 import torch
 
 ROOT = Path(__file__).resolve().parents[2]
+PACKAGE = "protopformer_tpu_torch"
 COPY = ROOT / "build" / "long_kernels"
+PARENT_COPY = ROOT / "build" / "long_kernels_parent"
 THRESHOLD = "constexpr int kLongMinTokens = 257;"
 # (N, C, H): DeiT-Tiny at 197 tokens and after the gather (82), DeiT-B's
 # heads at 197, and the control at 257
 CASES = ((197, 192, 3), (82, 192, 3), (197, 768, 12), (257, 192, 3))
+# the models of the parent comparison, by the record tag of their token
+# count, and the serving modes timed on the first
+MODELS = {"N=577": "deit_base_patch16_384", "N=257": "deit_tiny_patch2_32"}
+MODES = ("bf16_speed", "bf16_exact", "fp32_parity")
 B = 160
+PROBE_IMAGES = 3 * B
 
 
 def _bf16_ulp(x: torch.Tensor) -> float:
@@ -47,11 +72,44 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def worker() -> Dict[str, float]:
-    """Hold and time every case with the package on ``sys.path``."""
-    from protopformer_tpu_torch.cli.bench_kernels import _time_ms
+def _hold_k1(name: str, qkv: torch.Tensor, heads: int, exact: bool):
+    """K1 against its plain version on ``qkv``; returns the launch."""
     from protopformer_tpu_torch.kernels import attention_core as ac
     from protopformer_tpu_torch.ops.rollout import masked_map_stats
+
+    n = qkv.shape[1]
+    keep = n * n - int(n * n * 0.9)
+    call = lambda: ac.fused_attention_block_stats(  # noqa: E731
+        qkv, heads, 0.9, exact_discard=exact)
+    out, fmap, t, s = call()
+    p_out, p_map, _, _ = ac.block_stats_plain(qkv, heads, keep, exact)
+    own_t, own_s = masked_map_stats(fmap, 0.9, exact_discard=exact)
+    if not (torch.equal(t, own_t) and _max_err(s, own_s) <= 1e-6
+            and _max_err(fmap, p_map) <= _bf16_ulp(p_map)
+            and _max_err(out, p_out) <= 2 * _bf16_ulp(p_out)):
+        raise AssertionError(f"{name}: differs from its plain version")
+    return call
+
+
+def _hold_k3(name: str, qkv: torch.Tensor, pol: torch.Tensor, heads: int):
+    """K3 against its plain version on ``qkv``; returns the launch."""
+    from protopformer_tpu_torch.kernels import attention_core as ac
+
+    n = qkv.shape[1]
+    tol = 1e-5 if qkv.dtype == torch.float32 else 1e-2
+    call = lambda: ac.fused_attention_mean_padded(  # noqa: E731
+        qkv, pol, heads, real_n=n)
+    out, fmap = call()
+    p_out, p_map = ac.mean_padded_plain(qkv, pol, heads, real_n=n)
+    if not (_max_err(out, p_out) <= tol and _max_err(fmap, p_map) <= 1e-6):
+        raise AssertionError(f"{name}: differs from its plain version")
+    return call
+
+
+def short_worker() -> Dict[str, float]:
+    """Hold and time every case of ``CASES`` with the package on
+    ``sys.path``."""
+    from protopformer_tpu_torch.cli.bench_kernels import _time_ms
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
@@ -62,39 +120,105 @@ def worker() -> Dict[str, float]:
         pol = (torch.rand((B, n), generator=gen) > 0.3).float()
         pol[:, 0] = 1.0
         pol = pol.to(dev)
-        keep = n * n - int(n * n * 0.9)
         for exact in (False, True):
             name = f"K1[{'exact' if exact else 'speed'},N={n},H={h}]"
-            call = lambda: ac.fused_attention_block_stats(  # noqa: E731
-                qb, h, 0.9, exact_discard=exact)
-            out, fmap, t, s = call()
-            p_out, p_map, _, _ = ac.block_stats_plain(qb, h, keep, exact)
-            own_t, own_s = masked_map_stats(fmap, 0.9, exact_discard=exact)
-            if not (torch.equal(t, own_t) and _max_err(s, own_s) <= 1e-6
-                    and _max_err(fmap, p_map) <= _bf16_ulp(p_map)
-                    and _max_err(out, p_out) <= 2 * _bf16_ulp(p_out)):
-                raise AssertionError(f"{name}: differs from its plain version")
-            ms[name] = _time_ms(call, dev, 3, 20)
-        for q, tag, tol in ((q32, "fp32", 1e-5), (qb, "bf16", 1e-2)):
+            ms[name] = _time_ms(_hold_k1(name, qb, h, exact), dev, 3, 20)
+        for q, tag in ((q32, "fp32"), (qb, "bf16")):
             name = f"K3[{tag},N={n},H={h}]"
-            call = lambda: ac.fused_attention_mean_padded(  # noqa: E731
-                q, pol, h, real_n=n)
-            out, fmap = call()
-            p_out, p_map = ac.mean_padded_plain(q, pol, h, real_n=n)
-            if not (_max_err(out, p_out) <= tol
-                    and _max_err(fmap, p_map) <= 1e-6):
-                raise AssertionError(f"{name}: differs from its plain version")
-            ms[name] = _time_ms(call, dev, 3, 20)
+            ms[name] = _time_ms(_hold_k3(name, q, pol, h), dev, 3, 20)
     return ms
+
+
+@contextlib.contextmanager
+def _first_calls(module, names):
+    """Record the arguments of the first call of each ``module.<name>``
+    (called through) in the dict it yields."""
+    seen, saved = {}, {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def wrapped(*args, **kwargs):
+            seen.setdefault(name, args)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    for name, fn in saved.items():
+        setattr(module, name, wrap(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def parent_worker(dev: torch.device = torch.device("cuda")
+                  ) -> Dict[str, float]:
+    """Serve each model of ``MODELS`` with the package on ``sys.path``;
+    hold and time the long kernels on its operands. Returns ms per kernel
+    record and img/s per serving mode."""
+    from protopformer_tpu_torch.cli.bench_kernels import _time_ms
+    from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
+    from protopformer_tpu_torch.kernels import attention_core as ac
+    from protopformer_tpu_torch.models import construct_ppnet, layers
+    from protopformer_tpu_torch.serving import ServingEngine
+
+    ppnet = PPNetConfig()
+    res = {}
+    for at, preset in MODELS.items():
+        cfg = backbone_preset(preset)
+        heads = cfg.num_heads
+        state_dict = construct_ppnet(
+            cfg, ppnet, torch.float32,
+            generator=torch.Generator().manual_seed(10)).state_dict()
+        gen = torch.Generator().manual_seed(11)
+        chunk = torch.randint(0, 256, (B, cfg.img_size, cfg.img_size, 3),
+                              generator=gen, dtype=torch.uint8).to(dev)
+        for mode in MODES:
+            backbone = (backbone_preset(preset, rollout_exact_discard=False)
+                        if mode == "bf16_speed" else cfg)
+            dtype = torch.float32 if mode == "fp32_parity" else torch.bfloat16
+            engine = ServingEngine(backbone, ppnet, state_dict, batch_size=B,
+                                   compute_dtype=dtype, with_attn=True,
+                                   device=dev)
+            with _first_calls(layers, ("fused_attention_block_stats",
+                                       "fused_attention_mean_padded")) as seen:
+                engine._forward(chunk)
+            torch.cuda.synchronize()
+            if mode == "fp32_parity":
+                qkv, pol = (a.clone() for a in
+                            seen["fused_attention_mean_padded"][:2])
+                name = f"K3[fp32,{at},H={heads}]"
+                res[name] = _time_ms(_hold_k3(name, qkv, pol, heads), dev, 3,
+                                     20)
+                if at == "N=577":
+                    res[f"K4[fp32,{at},H={heads}]"] = _time_ms(
+                        lambda: ac.fused_attention_core(qkv, pol, heads, 0.9,
+                                                        0.2), dev, 3, 20)
+                del qkv, pol
+            else:
+                qkv = seen["fused_attention_block_stats"][0].clone()
+                name = f"K1[{mode[5:]},{at},H={heads}]"
+                res[name] = _time_ms(
+                    _hold_k1(name, qkv, heads, mode == "bf16_exact"), dev, 3,
+                    20)
+                del qkv
+            if at == "N=577":
+                probe = engine.throughput_probe(n_images=PROBE_IMAGES, reps=2)
+                res[f"img_per_sec[{mode}]"] = probe["img_per_sec"]
+            del engine, seen
+            torch.cuda.empty_cache()
+    return res
+
+
+def _copy_package(dest: Path) -> Path:
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(ROOT / PACKAGE, dest / PACKAGE,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    return dest
 
 
 def make_copy() -> Path:
     """The package under ``COPY`` with every N taking the long kernels."""
-    shutil.rmtree(COPY, ignore_errors=True)
-    shutil.copytree(ROOT / "protopformer_tpu_torch",
-                    COPY / "protopformer_tpu_torch",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    header = COPY / "protopformer_tpu_torch" / "csrc" / "common.cuh"
+    header = _copy_package(COPY) / PACKAGE / "csrc" / "common.cuh"
     text = header.read_text()
     if THRESHOLD not in text:
         raise RuntimeError(f"{header}: no line {THRESHOLD!r} to change")
@@ -103,32 +227,62 @@ def make_copy() -> Path:
     return COPY
 
 
-def run() -> Dict[str, object]:
+def make_parent(parent: Path) -> Path:
+    """The package under ``PARENT_COPY`` with the kernel sources of the tree
+    unpacked at ``parent``."""
+    src = Path(parent) / PACKAGE / "csrc"
+    if not src.is_dir():
+        raise RuntimeError(f"{src}: no kernel sources of a parent tree")
+    csrc = _copy_package(PARENT_COPY) / PACKAGE / "csrc"
+    shutil.rmtree(csrc)
+    shutil.copytree(src, csrc)
+    return PARENT_COPY
+
+
+def run(against: str = "short", parent: Path = None) -> Dict[str, object]:
     if not torch.cuda.is_available():
         raise RuntimeError("time_long_kernels needs a CUDA card")
-    roots = {"short": ROOT, "long": make_copy()}
-    readings = {"short": [], "long": []}
-    for side in ("short", "long", "long", "short"):
+    if against == "short":
+        roots = {"short": ROOT, "long": make_copy()}
+    else:
+        roots = {"parent": make_parent(parent), "change": ROOT}
+    a, b = roots
+    readings = {a: [], b: []}
+    for side in (a, b, b, a):
         proc = subprocess.run(
-            [sys.executable, "-m", "protopformer_tpu_torch.cli.time_long_kernels",
-             "--worker"], cwd=roots[side], check=True, capture_output=True,
+            [sys.executable, "-m", f"{PACKAGE}.cli.time_long_kernels",
+             "--worker", against], cwd=roots[side], capture_output=True,
             text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the {side} side failed:\n{proc.stderr}")
         readings[side].append(json.loads(proc.stdout.strip().splitlines()[-1]))
     mean = {side: {k: sum(r[k] for r in rs) / len(rs) for k in rs[0]}
             for side, rs in readings.items()}
     return {"device": torch.cuda.get_device_name(0), "batch": B,
-            "ms": {k: {"short": mean["short"][k], "long": mean["long"][k],
-                       "long_over_short": mean["long"][k] / mean["short"][k]}
-                   for k in mean["short"]},
+            "against": against,
+            "values": {k: {a: mean[a][k], b: mean[b][k],
+                           f"{b}_over_{a}": mean[b][k] / mean[a][k]}
+                       for k in mean[a]},
             "readings": readings}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--worker", action="store_true",
+    parser.add_argument("--against", choices=("short", "parent"),
+                        default="short")
+    parser.add_argument("--parent", type=Path,
+                        help="an unpacked tree of the parent commit "
+                             "(--against parent)")
+    parser.add_argument("--worker", choices=("short", "parent"),
                         help="time the package on sys.path and print JSON")
     args = parser.parse_args(argv)
-    print(json.dumps(worker() if args.worker else run()))
+    if args.worker:
+        out = short_worker() if args.worker == "short" else parent_worker()
+    else:
+        if args.against == "parent" and args.parent is None:
+            parser.error("--against parent needs --parent DIR")
+        out = run(args.against, args.parent)
+    print(json.dumps(out))
     return 0
 
 

@@ -39,32 +39,40 @@
 //
 // Tokens: N <= 640. Up to 256 the kernel above keeps a head's K (then V)
 // for every key in shared memory and a row's logits in registers. From 257
-// on (block_stats_long_kernel) neither fits: at N=577, H=12 (DeiT-B/16 at
-// 384) a band's fp32 accumulator is ~200 KB and a row's 37 key tiles
-// would take 296 accumulator registers. The long kernel keeps the band
-// (16 x ceil(tiles / cluster) rows, the columns rounded up to 16) and
-// streams K and V through one buffer of 128 keys (64 where that pads less
-// or the buffer does not fit). Two warps take each 16-row tile, each one
-// half of every chunk's keys, and make three passes over the keys of a
-// head, recomputing their tile of S = Q K^T from the chunk each time (the
-// tensor cores have the operations to spare): the row maximum, then the
-// sum of the bf16 exponentials, then the probabilities, the head mean and
-// P V; the halves' maxima and sums meet in shared memory, and their P V
-// at the end of the head. Each value is rounded where the kernel above
-// rounds it (the row maximum from the largest dot, the rounding being
-// monotonic); a row sum adds each half's values in column order, then the
-// two halves (on chunks of 64 keys one warp takes a tile, in column
-// order). The cluster is the portable 8 CTAs from 449 tokens on (5 at
-// 257), each of up to 5 tiles: 223,376 bytes of shared memory at 577, one
-// CTA an SM. Bound at B=160, N=577, H=12: bytes, 674 MB (speed) / 780 MB
-// (exact) = 0.201 / 0.233 ms, against 164 GFLOP that the tensor cores do
-// in 0.17 ms; the three passes make that 0.42 ms of products. What holds
-// it far above the bound is the instruction rate: the bf16 roundings,
-// exponentials and accumulator updates of every probability over three
-// passes, on one CTA an SM. chip_smoke.py read it at 577 (an H100 at
-// 700 W) as 8.9 ms with one warp a tile and 64-key chunks, 7.9 ms with
-// 128-key chunks, 7.7 ms with pass 1 from the raw dots and 5.6 ms (28x)
-// with two warps a tile (10 an SM).
+// on neither fits: at N=577, H=12 (DeiT-B/16 at 384) a band's fp32
+// accumulator is ~200 KB and a row's 37 key tiles would take 296
+// accumulator registers. There K1 is two launches: block_stats_long_kernel
+// (the heads, the head mean, the map stored once) and then K2's cluster
+// kernel (map_stats.cu), which selects the threshold of the STORED map,
+// capped at bits(1.0) as above, and sums its masked rows: the same select
+// and row sums on the same stored values, read back once from L2.
+//  * Bound at B=160, N=577, H=12: bytes, 674 MB (speed) / 780 MB (exact)
+//    = 0.201 / 0.233 ms, against 164 GFLOP that the tensor cores do in
+//    0.17 ms. What holds it above: the instruction rate of the softmax
+//    arithmetic (for every probability bf16 roundings, an expf and the
+//    head-mean update), one CTA an SM, and the K and V chunks that every
+//    CTA of a sample streams from L2.
+//  * The heads kernel takes 3 row tiles (48 rows) a CTA, no cluster (13
+//    CTAs a sample at 577), 4 warps a tile: one CTA an SM (212 KB of
+//    shared memory at 577, 224 KB at 640), 12 warps. The band's fp32
+//    accumulator and its bf16 logits stay in shared memory.
+//  * Pass 1 computes each logit once (mma.sync, each warp 2 key tiles of a
+//    128-key chunk), rounds it as the kernel above does and stores it in
+//    bf16; the row maxima come from the raw dots. Passes 2 and 3 read the
+//    stored logits, not K: each warp its 4 rows side by side, each row
+//    held in registers as bf16 pairs from its load to its store (e and the
+//    row sum, then p and the head mean). Pass 4 multiplies the stored P by
+//    V, each warp 16 columns of the head dim, so no two warps' sums meet.
+//    Where three passes recomputed QK^T from K (eight loads of a head's
+//    K and V chunks), one pass reads K and one reads V.
+//  * K and V stream through a ring of 2 chunk buffers filled by cp.async
+//    one chunk ahead (one barrier a chunk); a thread's copies step by the
+//    block's threads from offsets computed once (ppf::copy_steps).
+// A row sum adds each lane's values in column order, then the warp's
+// lanes; P V sums its 16-key products in key order. Measured
+// (cli.time_long_kernels --against parent, an H100 at 700 W, B=160, the
+// model's own qkv; PERF.md): 5.62 -> 3.25 ms (speed) and 5.83 -> 3.47 ms
+// (exact) at 577, 0.511 -> 0.333 / 0.573 -> 0.382 ms at 257.
 #include "common.cuh"
 
 namespace {
@@ -87,60 +95,12 @@ struct Layout {
   }
 };
 
-// CTAs per sample: each takes a band of at most kTilesPerCta row tiles
-// up to 8 CTAs, and kLongTiles above (from 449 tokens on).
+// CTAs per sample of the kernel above: each takes a band of at most
+// kTilesPerCta row tiles (N <= 256: at most 4 CTAs).
 __host__ __device__ inline int cluster_size(int N) {
   const int tiles = (N + 15) / 16;
   const int cs = (tiles + kTilesPerCta - 1) / kTilesPerCta;
   return cs < ppf::kMaxClusterSize ? cs : ppf::kMaxClusterSize;
-}
-
-// The long kernel (N >= ppf::kLongMinTokens): 16-row tiles a CTA holds at
-// most (ceil(40 / 8) at 640), one or two warps each (long_threads).
-constexpr int kLongTiles = 5;
-
-// The long kernel's shared memory: the select's ints (during the heads the
-// two warps of a tile exchange their halves of P V there), the band's fp32
-// accumulator (its rows by the N columns rounded up to 16, at a stride 8
-// or 24 mod 32), one buffer of a chunk of `kt` key tiles, and the halves'
-// row maxima or sums of each tile's 16 rows.
-struct LongLayout {
-  int np, astride, kstride, rows;
-  size_t radix, acc, kv, red, total;
-  __host__ __device__ LongLayout(int N, int hd, int kt) {
-    np = ppf::round_up(N, 16);
-    astride = np + 8;
-    kstride = ppf::kv_stride(hd);
-    const int tiles = (N + 15) / 16;
-    const int cs = cluster_size(N);
-    rows = 16 * ((tiles + cs - 1) / cs);
-    radix = 0;
-    acc = ppf::align16(radix + ppf::radix_smem_ints() * sizeof(int));
-    kv = ppf::align16(acc + (size_t)rows * astride * sizeof(float));
-    red = ppf::align16(kv + (size_t)16 * kt * kstride *
-                                sizeof(__nv_bfloat16));
-    total = ppf::align16(red + (size_t)2 * kLongTiles * 16 * sizeof(float));
-  }
-};
-
-// Key tiles a chunk of the long kernel holds: 8 (128 keys) where they pad
-// the keys no further than 4 tiles do and the shared memory takes them
-// (577 tokens: 223,376 bytes), else 4 (257 tokens, which 8 would pad to
-// 384 keys; 229,520 bytes at 640). Each chunk costs a load and two
-// barriers: at 577 the larger chunk took K1 from 8.9 to 7.9 ms.
-__host__ __device__ inline int long_chunk_tiles(int N, int hd) {
-  return ppf::round_up(N, 128) == ppf::round_up(N, 64) &&
-                 LongLayout(N, hd, 8).total <= ppf::kMaxSmemPerBlock
-             ? 8
-             : 4;
-}
-
-// Threads of the long kernel's CTA: each warp takes 4 key tiles of a
-// chunk, so a tile has two warps on a chunk of 8 (10 warps an SM at 577
-// tokens: K1 7.7 -> 5.6 ms) and one on a chunk of 4 (at 257 two CTAs
-// share an SM already, and a split chunk of 4 would leave a warp 2 tiles).
-inline int long_threads(int N, int hd) {
-  return 32 * kLongTiles * (long_chunk_tiles(N, hd) / 4);
 }
 
 template <int KT>
@@ -307,340 +267,391 @@ block_stats_kernel(const __nv_bfloat16* __restrict__ qkv, int N, int C, int H,
 }
 
 
-// K1 for N >= ppf::kLongMinTokens (see the header): the band's accumulator
-// in shared memory, K and V streamed CT key tiles (long_chunk_tiles) at a
-// time, three passes over a head's keys; on chunks of 8 tiles each row
-// tile's two warps take the two halves. Launched as block_stats_kernel
-// is, in clusters of cluster_size(N) CTAs of long_threads threads.
-template <int CT>
-__global__ void __launch_bounds__(32 * kLongTiles * (CT / 4), 1)
+// --- N >= ppf::kLongMinTokens: two launches -----------------------------------
+
+// block_stats_long_kernel computes a sample's attention, head mean and
+// stored map in CTAs of kLongTiles row tiles, one CTA per band, no cluster;
+// K2's cluster kernel (map_stats.cu) then selects the stored map's
+// threshold, capped at bits(1.0), and sums its masked rows.
+constexpr int kLongTiles = 3;  // 16-row tiles a CTA
+constexpr int kLongWarps = 4;  // warps a row tile
+constexpr int kLongRows = 16 * kLongTiles;
+constexpr int kLongThreads = 32 * kLongWarps * kLongTiles;
+constexpr int kLongChunk = 32 * kLongWarps;  // keys a chunk: 2 key tiles a warp
+constexpr int kLongStages = 2;  // chunk buffers in the ring
+constexpr int kLongRowsPerWarp = kLongRows * 32 / kLongThreads;
+
+// The long kernel's shared memory: the band's fp32 accumulator over the
+// columns of the key tiles that hold real keys (nk), and its bf16 logits
+// (then exponentials, then probabilities) over those of the warps' 32-key
+// blocks that do (pass 1 writes whole blocks), each at a stride 8 past it
+// (the logits' then 4 or 20 mod 32 words: a quad's rows, and ldmatrix's 8,
+// on distinct banks); the ring of K or V chunks; each warp's row maxima of
+// its tile.
+struct LongLayout {
+  int np, nk, astride, lstride, kstride;
+  size_t acc, lg, ring, red, total;
+  __host__ __device__ LongLayout(int N, int hd) {
+    np = ppf::round_up(N, kLongChunk);
+    nk = ppf::round_up(N, 16);
+    astride = nk + 8;
+    lstride = ppf::round_up(N, 32) + 8;
+    kstride = ppf::kv_stride(hd);
+    acc = 0;
+    lg = ppf::align16(acc + (size_t)kLongRows * astride * sizeof(float));
+    ring = ppf::align16(lg + (size_t)kLongRows * lstride *
+                                 sizeof(__nv_bfloat16));
+    red = ppf::align16(ring + (size_t)kLongStages * kLongChunk * kstride *
+                                  sizeof(__nv_bfloat16));
+    total = ppf::align16(red + (size_t)kLongTiles * kLongWarps * 16 *
+                                   sizeof(float));
+  }
+};
+
+__device__ __forceinline__ void unpack4_bf16(uint2 v, float (&x)[4]) {
+  x[0] = __uint_as_float(v.x << 16);
+  x[1] = __uint_as_float(v.x & 0xffff0000u);
+  x[2] = __uint_as_float(v.y << 16);
+  x[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
+// K1's heads for N >= ppf::kLongMinTokens (see the header): rows
+// kLongRows * blockIdx.x on of sample blockIdx.y. Pass 1 stores each
+// logit once, passes 2 and 3 run over the stored values, and only P V
+// reads the chunks of V.
+__global__ void __launch_bounds__(kLongThreads, 1)
 block_stats_long_kernel(const __nv_bfloat16* __restrict__ qkv, int N, int C,
-                        int H, int keep, bool exact, float scale_bf16,
-                        float eps_over_n_bf16,
-                        __nv_bfloat16* __restrict__ out,
-                        void* __restrict__ map_out, float* __restrict__ t_out,
-                        float* __restrict__ s_out) {
-  constexpr int kSplit = CT / 4;  // warps a row tile
-  constexpr int KT = CT / kSplit;  // key tiles of a chunk a warp takes
-  constexpr int KC = 16 * CT;      // keys a chunk
-  constexpr int kXchgTiles = 3;  // tiles whose P V halves the ints hold
-  static_assert(kXchgTiles * 32 * 32 <= ppf::radix_smem_ints(),
-                "the select's ints cannot hold the P V exchange");
+                        int H, bool exact, float scale_bf16,
+                        float eps_over_n_bf16, __nv_bfloat16* __restrict__ out,
+                        void* __restrict__ map_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int hd = C / H;
   const int hk = (hd + 15) / 16;
   const int C3 = 3 * C;
-  const LongLayout L(N, hd, CT);
-  int* radix = reinterpret_cast<int*>(smem + L.radix);
-  float* xchg = reinterpret_cast<float*>(smem + L.radix);
+  const LongLayout L(N, hd);
   float* acc = reinterpret_cast<float*>(smem + L.acc);
-  __nv_bfloat16* kv = reinterpret_cast<__nv_bfloat16*>(smem + L.kv);
+  __nv_bfloat16* lg = reinterpret_cast<__nv_bfloat16*>(smem + L.lg);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem + L.ring);
   float* red = reinterpret_cast<float*>(smem + L.red);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int tw = warp % kLongTiles;    // the warp's row tile
-  const int half = warp / kLongTiles;  // the half of each chunk it takes
-  const int rank = blockIdx.x;
-  const int tiles = (N + 15) / 16;
-  const int tile0 = rank * tiles / (int)gridDim.x;
-  const int tile1 = (rank + 1) * tiles / (int)gridDim.x;
-  const int row0 = 16 * tile0;
-  const int band = min(16 * (tile1 - tile0), N - row0);  // real rows
-  const bool active = tw < tile1 - tile0;
-  const int r0 = row0 + 16 * tw;  // this warp's first row
+  const int tw = warp / kLongWarps;  // the warp's row tile
+  const int w = warp % kLongWarps;   // its 2 key tiles of a chunk, and its
+                                     // 16 columns of the head dim in P V
+  const int row0 = kLongRows * blockIdx.x;
+  const int rows = min(kLongRows, N - row0);  // real rows of the band
+  const int r0 = row0 + 16 * tw;              // the tile's first row
+  const bool active = 16 * tw < rows;
+  const bool pv = active && w < hk;
   const int b = blockIdx.y;
   const __nv_bfloat16* qkv_b = qkv + (size_t)b * N * C3;
   const float rH = 1.0f / (float)H;
   const float neg_inf = __uint_as_float(0xff800000u);
-  // this warp's keys of a chunk: rows ch .. ch + 16 KT - 1 of the buffer
-  const int ch = 16 * KT * half;
-  const __nv_bfloat16* ks = kv + ch * L.kstride;
-  // the halves' values of this tile's rows g and g + 8
-  float* red_mine = red + (half * kLongTiles + tw) * 16;
-  const float* red_lo = red + tw * 16;
-  const float* red_hi = red + (kLongTiles + tw) * 16;
+  const int nc = L.np / kLongChunk;  // chunks of K (and of V) a head
+  __nv_bfloat16* ltile = lg + 16 * tw * L.lstride;
+  // ldmatrix's row and column of this lane in a 16 x 16 tile
+  const int lrow = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int lcol = (lane >> 4) * 8;
 
-  for (int e = threadIdx.x; e < L.rows * L.astride / 4; e += blockDim.x)
+  for (int e = threadIdx.x; e < kLongRows * L.astride / 4; e += blockDim.x)
     reinterpret_cast<float4*>(acc)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  // keys k0 .. k0 + KC - 1 of the head slice at column `col` into the
-  // buffer, rows >= N zeros
-  auto load_chunk = [&](int col, int k0) {
-    __syncthreads();  // every warp is done with the buffer
-    ppf::load_head_async(qkv_b + (size_t)k0 * C3, C3, col, hd, N - k0, KC,
-                         16 * hk, kv, L.kstride);
-    ppf::cp_async_wait_all();
-    __syncthreads();
-  };
-  // publishes each quad's value of rows g and g + 8 for the other half
-  auto share = [&](const float (&v)[2]) {
-    if (active && t == 0) {
-      red_mine[g] = v[0];
-      red_mine[g + 8] = v[1];
+  // the stream of chunks: each head's K chunks, then its V chunks, rows
+  // >= N zeros. fetch() copies the next one, (ih, ic), into stage ist;
+  // arrive() waits for the oldest, in stage cst, publishes it, and refills
+  // the stage every warp is done with
+  const size_t chunk = (size_t)kLongChunk * L.kstride;
+  const ppf::CopySteps cs = ppf::copy_steps<__nv_bfloat16>(16 * hk);
+  int ih = 0, ic = 0, ist = 0, cst = 0;
+  auto fetch = [&]() {
+    if (ih < H) {
+      const int k0 = (ic < nc ? ic : ic - nc) * kLongChunk;
+      ppf::load_rows_async(qkv_b + (size_t)k0 * C3, C3,
+                           (ic < nc ? C : 2 * C) + ih * hd, hd, N - k0,
+                           kLongChunk, ring + ist * chunk, L.kstride, cs);
     }
+    if (++ic == 2 * nc) {
+      ic = 0;
+      ++ih;
+    }
+    ist = ist + 1 == kLongStages ? 0 : ist + 1;
+    ppf::cp_async_commit();
+  };
+  auto arrive = [&]() {
+    ppf::cp_async_wait<kLongStages - 2>();
     __syncthreads();
-  };
-  // the warp's half of the chunk's logits as the kernel above rounds them:
-  // fp32 dot -> bf16, then x bf16(scale) in bf16; columns >= N -inf.
-  // Element e of an n-tile is row g + 8 (e >> 1), column
-  // k0 + ch + 8n + 2t + (e & 1).
-  uint32_t qa[4][4];
-  auto logits = [&](float (&S)[2 * KT][4], int k0) {
-    ppf::warp_qk<KT>(S, qa, ks, L.kstride, hk);
-#pragma unroll
-    for (int n = 0; n < 2 * KT; ++n)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float& x = S[n][2 * r];
-        float& y = S[n][2 * r + 1];
-        ppf::round2_bf16(x, y);
-        x = __fmul_rn(x, scale_bf16);
-        y = __fmul_rn(y, scale_bf16);
-        ppf::round2_bf16(x, y);
-        const int col = k0 + ch + 8 * n + 2 * t;
-        if (col >= N) x = neg_inf;
-        if (col + 1 >= N) y = neg_inf;
-      }
-  };
-  // bf16 exp of the bf16 difference from the row maximum m (0 at -inf)
-  auto exps = [&](float (&S)[2 * KT][4], const float (&m)[2]) {
-#pragma unroll
-    for (int n = 0; n < 2 * KT; ++n)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float& x = S[n][2 * r];
-        float& y = S[n][2 * r + 1];
-        x = __fsub_rn(x, m[r]);
-        y = __fsub_rn(y, m[r]);
-        ppf::round2_bf16(x, y);
-        x = expf(x);
-        y = expf(y);
-        ppf::round2_bf16(x, y);
-      }
+    fetch();
+    const __nv_bfloat16* buf = ring + cst * chunk;
+    cst = cst + 1 == kLongStages ? 0 : cst + 1;
+    return buf;
   };
 
+  for (int k = 0; k < kLongStages - 1; ++k) fetch();
+  uint32_t qa[4][4];
+  if (active) ppf::load_q_frags(qa, qkv_b + (size_t)r0 * C3, C3, N - r0, hd);
   for (int h = 0; h < H; ++h) {
-    const int kcol = C + h * hd;
-    if (active)
-      ppf::load_q_frags(qa, qkv_b + (size_t)r0 * C3 + h * hd, C3, N - r0, hd);
-    // pass 1: the row maxima of the logits. A logit is the fp32 dot
-    // rounded to bf16, times the positive bf16 scale, rounded again: each
-    // step is monotonic, so the largest logit is that of the largest dot
-    float m[2] = {neg_inf, neg_inf};
-    for (int k0 = 0; k0 < N; k0 += KC) {
-      load_chunk(kcol, k0);
+    // pass 1: each warp its 2 key tiles of every chunk. The logits as the
+    // kernel above rounds them (fp32 dot -> bf16, then x bf16(scale) in
+    // bf16; columns >= N -inf) into the band's bf16 rows, and the row
+    // maxima of the raw dots: each rounding is monotonic, so the largest
+    // logit is that of the largest dot
+    float mx[2] = {neg_inf, neg_inf};
+    for (int c = 0; c < nc; ++c) {
+      const __nv_bfloat16* kb = arrive();
       if (active) {
-        float S[2 * KT][4];
-        ppf::warp_qk<KT>(S, qa, ks, L.kstride, hk);
+        const int k0 = c * kLongChunk + 32 * w;
+        if (k0 >= N) continue;  // key tiles of pads only: never read
+        float S[4][4];
+        ppf::warp_qk<2>(S, qa, kb + 32 * w * L.kstride, L.kstride, hk);
 #pragma unroll
-        for (int n = 0; n < 2 * KT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (k0 + ch + 8 * n + 2 * t + (e & 1) < N)
-              m[e >> 1] = fmaxf(m[e >> 1], S[n][e]);
-      }
-    }
-    m[0] = ppf::quad_max(m[0]);
-    m[1] = ppf::quad_max(m[1]);
-    if constexpr (kSplit == 2) {
-      share(m);
-      m[0] = fmaxf(red_lo[g], red_hi[g]);
-      m[1] = fmaxf(red_lo[g + 8], red_hi[g + 8]);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      m[r] = ppf::bf16_round(__fmul_rn(ppf::bf16_round(m[r]), scale_bf16));
-    // pass 2: the row sums of the exponentials, each half's in column
-    // order, then the first half's plus the second's
-    float sum[2] = {0.f, 0.f};
-    for (int k0 = 0; k0 < N; k0 += KC) {
-      load_chunk(kcol, k0);
-      if (active) {
-        float S[2 * KT][4];
-        logits(S, k0);
-        exps(S, m);
-#pragma unroll
-        for (int n = 0; n < 2 * KT; ++n)
-#pragma unroll
-          for (int r = 0; r < 2; ++r)
-            sum[r] = __fadd_rn(__fadd_rn(sum[r], S[n][2 * r]),
-                               S[n][2 * r + 1]);
-      }
-    }
-    sum[0] = ppf::quad_sum(sum[0]);
-    sum[1] = ppf::quad_sum(sum[1]);
-    if constexpr (kSplit == 2) {
-      share(sum);
-      sum[0] = __fadd_rn(red_lo[g], red_hi[g]);
-      sum[1] = __fadd_rn(red_lo[g + 8], red_hi[g + 8]);
-    }
-    float inv[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      inv[r] = ppf::bf16_round(__fdiv_rn(1.0f, __fadd_rn(sum[r], 1e-6f)));
-    // pass 3: p = bf16(bf16(e + eps/N) * inv), pads 0; the head mean over
-    // this warp's rows and columns in head order; O += P V over its keys
-    float O[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) O[n][e] = 0.f;
-    for (int k0 = 0; k0 < N; k0 += KC) {
-      load_chunk(kcol, k0);
-      uint32_t pa[KT][4];
-      if (active) {
-        float S[2 * KT][4];
-        logits(S, k0);
-        exps(S, m);
-        float* arow = acc + (16 * tw + g) * L.astride + k0 + ch + 2 * t;
-#pragma unroll
-        for (int n = 0; n < 2 * KT; ++n)
+        for (int n = 0; n < 4; ++n)
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
-            float x = __fadd_rn(S[n][2 * r], eps_over_n_bf16);
-            float y = __fadd_rn(S[n][2 * r + 1], eps_over_n_bf16);
+            float x = S[n][2 * r];
+            float y = S[n][2 * r + 1];
+            const int col = k0 + 8 * n + 2 * t;
+            if (col < N) mx[r] = fmaxf(mx[r], x);
+            if (col + 1 < N) mx[r] = fmaxf(mx[r], y);
             ppf::round2_bf16(x, y);
-            x = __fmul_rn(x, inv[r]);
-            y = __fmul_rn(y, inv[r]);
+            x = __fmul_rn(x, scale_bf16);
+            y = __fmul_rn(y, scale_bf16);
             uint32_t packed = ppf::round2_bf16(x, y);
-            const int col = k0 + ch + 8 * n + 2 * t;
-            if (col + 1 >= N) {
-              if (col >= N) x = 0.f;
-              y = 0.f;
-              packed = ppf::pack_bf16(x, y);
-            }
-            pa[n >> 1][(n & 1) * 2 + r] = packed;
-            if (col < L.np) {  // the last chunk may pass the band's columns
-              float2* a =
-                  reinterpret_cast<float2*>(arow + 8 * r * L.astride + 8 * n);
-              float2 v = *a;
-              v.x = __fadd_rn(v.x, __fmul_rn(x, rH));
-              v.y = __fadd_rn(v.y, __fmul_rn(y, rH));
-              *a = v;
-            }
+            if (col + 1 >= N)
+              packed = ppf::pack_bf16(col < N ? x : neg_inf, neg_inf);
+            *reinterpret_cast<uint32_t*>(ltile + (g + 8 * r) * L.lstride +
+                                         col) = packed;
           }
       }
-      load_chunk(2 * C + h * hd, k0);
-      if (active) ppf::warp_pv_add<KT>(O, pa, ks, L.kstride, hk);
     }
-    // O = the first half's P V plus the second's, kXchgTiles tiles a round
-    // through the select's ints; the first warp of each tile stores it
-    for (int base = 0; kSplit == 2 && base < kLongTiles; base += kXchgTiles) {
-      const bool mine = active && tw >= base && tw < base + kXchgTiles;
-      float* x = xchg + (mine ? tw - base : 0) * 32 * 32 + lane;
-      if (mine && half == 1) {
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) x[(4 * n + e) * 32] = O[n][e];
+    if (active) {
+      mx[0] = ppf::quad_max(mx[0]);
+      mx[1] = ppf::quad_max(mx[1]);
+      if (t == 0) {
+        red[warp * 16 + g] = mx[0];
+        red[warp * 16 + g + 8] = mx[1];
       }
-      __syncthreads();
-      if (mine && half == 0) {
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            O[n][e] = __fadd_rn(O[n][e], x[(4 * n + e) * 32]);
-      }
-      __syncthreads();
     }
-    if (active && half == 0)
-      ppf::store_o(out + ((size_t)b * N + r0) * C + h * hd, C, O, N - r0, hd);
+    uint32_t qn[4][4];  // the next head's Q, loaded under passes 2-4
+    if (active && h + 1 < H)
+      ppf::load_q_frags(qn, qkv_b + (size_t)r0 * C3 + (h + 1) * hd, C3,
+                        N - r0, hd);
+    __syncthreads();  // every logit and row maximum of the band stored
+    // passes 2 and 3, each warp its kLongRowsPerWarp rows warp + 12 k side
+    // by side (rows past the band's compute on what their buffers hold and
+    // are never stored), a lane 4 columns of each 128, held in registers as
+    // bf16 pairs from their load to their store: e = bf16 exp of the bf16
+    // difference from the row maximum (0 at -inf) and its row sum (each
+    // lane's values in column order, then the warp's lanes); p =
+    // bf16(bf16(e + eps/N) * inv), pads 0, over the logits in place, and
+    // the head mean of the row in head order. The bf16 difference, sum and
+    // product are bf16x2 operations (sub_bf16x2): their one rounding of the
+    // exact result is the fp32 operation's rounded to bf16, as below
+    {
+      constexpr int kRW = kLongRowsPerWarp;
+      constexpr int kNW = kLongThreads / 32;
+      constexpr int kSteps = ppf::kMaxTokens / (4 * ppf::kWarp);
+      uint2 v[kRW][kSteps];
+      float sum[kRW];
+#pragma unroll
+      for (int k = 0; k < kRW; ++k) {
+        const int r = warp + kNW * k;
+        const __nv_bfloat16* prow = lg + r * L.lstride + 4 * lane;
+#pragma unroll
+        for (int st = 0; st < kSteps; ++st)
+          if (4 * lane + 128 * st < L.nk)
+            v[k][st] = *reinterpret_cast<const uint2*>(prow + 128 * st);
+      }
+#pragma unroll
+      for (int k = 0; k < kRW; ++k) {
+        const int r = warp + kNW * k;
+        const float* rm = red + (r >> 4) * kLongWarps * 16 + (r & 15);
+        float m = rm[0];
+#pragma unroll
+        for (int q = 1; q < kLongWarps; ++q) m = fmaxf(m, rm[16 * q]);
+        m = ppf::bf16_round(__fmul_rn(ppf::bf16_round(m), scale_bf16));
+        const uint32_t m2 = ppf::pack_bf16(m, m);
+        sum[k] = 0.f;
+#pragma unroll
+        for (int st = 0; st < kSteps; ++st) {
+          if (4 * lane + 128 * st < L.nk) {
+            float x[4];
+            unpack4_bf16(make_uint2(ppf::sub_bf16x2(v[k][st].x, m2),
+                                    ppf::sub_bf16x2(v[k][st].y, m2)),
+                         x);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) x[j] = expf(x[j]);
+            v[k][st].x = ppf::round2_bf16(x[0], x[1]);
+            v[k][st].y = ppf::round2_bf16(x[2], x[3]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) sum[k] = __fadd_rn(sum[k], x[j]);
+          }
+        }
+      }
+      const uint32_t eps2 = ppf::pack_bf16(eps_over_n_bf16, eps_over_n_bf16);
+#pragma unroll
+      for (int k = 0; k < kRW; ++k) {
+        const int r = warp + kNW * k;
+        const float inv = ppf::bf16_round(
+            __fdiv_rn(1.0f, __fadd_rn(ppf::warp_sum(sum[k]), 1e-6f)));
+        const uint32_t inv2 = ppf::pack_bf16(inv, inv);
+        __nv_bfloat16* prow = lg + r * L.lstride + 4 * lane;
+        float* arow = acc + r * L.astride + 4 * lane;
+#pragma unroll
+        for (int st = 0; st < kSteps; ++st) {
+          const int c0 = 4 * lane + 128 * st;
+          if (c0 < L.nk) {
+            uint2 pv;
+            pv.x = ppf::mul_bf16x2(ppf::add_bf16x2(v[k][st].x, eps2), inv2);
+            pv.y = ppf::mul_bf16x2(ppf::add_bf16x2(v[k][st].y, eps2), inv2);
+            if (c0 + 3 >= N) {  // pads 0
+              pv.x &= (c0 < N ? 0xffffu : 0u) | (c0 + 1 < N ? 0xffff0000u : 0u);
+              pv.y &= (c0 + 2 < N ? 0xffffu : 0u) |
+                      (c0 + 3 < N ? 0xffff0000u : 0u);
+            }
+            *reinterpret_cast<uint2*>(prow + 128 * st) = pv;
+            float x[4];
+            unpack4_bf16(pv, x);
+            float4 a = *reinterpret_cast<const float4*>(arow + 128 * st);
+            a.x = __fadd_rn(a.x, __fmul_rn(x[0], rH));
+            a.y = __fadd_rn(a.y, __fmul_rn(x[1], rH));
+            a.z = __fadd_rn(a.z, __fmul_rn(x[2], rH));
+            a.w = __fadd_rn(a.w, __fmul_rn(x[3], rH));
+            *reinterpret_cast<float4*>(arow + 128 * st) = a;
+          }
+        }
+      }
+    }
+    // pass 4: O = P V over the chunks of V, in key order; each warp the
+    // head dim's columns 16 w .. 16 w + 15, so no two warps' sums meet
+    float O[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) O[n][e] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      const __nv_bfloat16* vb = arrive();  // its barrier also publishes P
+      if (pv) {
+#pragma unroll
+        for (int j = 0; j < kLongChunk / 16; ++j) {
+          if (c * kLongChunk + 16 * j >= N) break;  // pads only
+          uint32_t pa[4], bv[4];
+          ppf::ldmatrix_x4(pa, ltile + lrow * L.lstride + c * kLongChunk +
+                                   16 * j + lcol);
+          ppf::ldmatrix_x4_trans(
+              bv, vb + (16 * j + lrow) * L.kstride + 16 * w + lcol);
+          ppf::mma_bf16(O[0], pa, bv[0], bv[1]);
+          ppf::mma_bf16(O[1], pa, bv[2], bv[3]);
+        }
+      }
+    }
+    if (pv) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int col = 16 * w + 8 * n + 2 * t;
+        if (col < hd) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int row = g + 8 * half;
+            if (row < N - r0)
+              *reinterpret_cast<__nv_bfloat162*>(
+                  out + ((size_t)b * N + r0 + row) * C + h * hd + col) =
+                  __floats2bfloat162_rn(O[n][2 * half], O[n][2 * half + 1]);
+          }
+        }
+      }
+    }
+    if (active && h + 1 < H) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[kk][e] = qn[kk][e];
+    }
   }
-  ppf::zero_radix_smem(radix);  // the heads used the ints for P V
 
-  // round once to the storage dtype and write the band's map rows; the
-  // select and the row sums read the STORED values
-  for (int r = warp; r < band; r += kLongTiles * kSplit) {
-    float* arow = acc + r * L.astride;
+  // round each warp's rows of the head mean once to the storage dtype and
+  // write them; K2 selects and sums on the stored values
+  for (int r = warp; r < rows; r += kLongThreads / 32) {
+    const float* arow = acc + r * L.astride;
     const size_t o = ((size_t)b * N + row0 + r) * N;
     for (int c = lane; c < N; c += ppf::kWarp) {
-      float v = arow[c];
-      if (exact) {
-        static_cast<float*>(map_out)[o + c] = v;
-      } else {
-        const __nv_bfloat16 vb = __float2bfloat16_rn(v);
-        static_cast<__nv_bfloat16*>(map_out)[o + c] = vb;
-        v = __bfloat162float(vb);
-      }
-      arow[c] = v;
+      if (exact)
+        static_cast<float*>(map_out)[o + c] = arow[c];
+      else
+        static_cast<__nv_bfloat16*>(map_out)[o + c] =
+            __float2bfloat16_rn(arow[c]);
     }
   }
-  __syncthreads();
-  const bool prefix16 = !exact;
-  const unsigned key = ppf::cluster_radix_select<false>(
-      acc, band, N, L.astride, prefix16, keep,
-      prefix16 ? (0x3F800000u >> 16) : 0x3F800000u, radix);
-  const float thr = ppf::threshold_from_key(static_cast<int>(key), prefix16);
-  if (rank == 0 && threadIdx.x == 0) t_out[b] = thr;
-  ppf::block_masked_row_sums<false>(acc, band, N, L.astride, thr,
-                                    s_out + (size_t)b * N + row0);
 }
 
 bool long_tokens(int N) { return N >= ppf::kLongMinTokens; }
 
 size_t smem_bytes(int N, int hd) {
-  return long_tokens(N) ? LongLayout(N, hd, long_chunk_tiles(N, hd)).total
-                        : Layout(N, hd).total;
+  return long_tokens(N) ? LongLayout(N, hd).total : Layout(N, hd).total;
 }
 
 // Whether the launch at N tokens fits what the kernels take: N <= 640 and
-// a band whose counts fit the select's 16-bit counters.
-bool takes(int N, int hd) {
+// a band whose counts fit the select's 16-bit counters (K2's band above
+// 256 tokens).
+bool takes(int N) {
   const int rows =
-      long_tokens(N) ? LongLayout(N, hd, 4).rows : 16 * kTilesPerCta;
+      long_tokens(N) ? ppf::map_band_rows(N) : 16 * kTilesPerCta;
   return N <= ppf::kMaxTokens && ppf::hist_counts_fit(rows, N);
 }
 
-// The cluster launch of B samples at N tokens; `attr` must outlive the
-// launch call.
-cudaLaunchConfig_t cluster_config(int B, int N, int hd, size_t smem,
+// The cluster launch of B samples at N <= 256 tokens; `attr` must outlive
+// the launch call.
+cudaLaunchConfig_t cluster_config(int B, int N, size_t smem,
                                   cudaStream_t stream,
                                   cudaLaunchAttribute* attr) {
-  return ppf::cluster_launch_config(
-      cluster_size(N), B, long_tokens(N) ? long_threads(N, hd) : kThreads,
-      smem, stream, attr);
+  return ppf::cluster_launch_config(cluster_size(N), B, kThreads, smem, stream,
+                                    attr);
 }
 
-// Runs the statements given with `kernel` the block-stats kernel for N
-// tokens at head dim hd; returns cudaErrorInvalidValue where no kernel
-// takes N.
-#define PPF_DISPATCH_BLOCK_STATS(N, hd, ...)                           \
-  if (long_tokens(N) && long_chunk_tiles(N, hd) == 8) {                \
-    auto kernel = block_stats_long_kernel<8>;                          \
-    __VA_ARGS__                                                        \
-  } else if (long_tokens(N)) {                                         \
-    auto kernel = block_stats_long_kernel<4>;                          \
-    __VA_ARGS__                                                        \
-  } else {                                                             \
-    PPF_DISPATCH_KT(N, {                                               \
-      auto kernel = block_stats_kernel<KT>;                            \
-      __VA_ARGS__                                                      \
-    });                                                                \
-  }
-
 }  // namespace
+
+// K2's launch (map_stats.cu) with the key capped at `hi`.
+extern "C" int ppf_map_stats_at_most(const void* map, int map_is_bf16, int B,
+                                     int N, int keep, int prefix16,
+                                     unsigned hi, void* t_out, void* s_out,
+                                     void* stream);
+extern "C" int ppf_map_stats_active_clusters(int N, int map_is_bf16);
 
 // qkv: (B, N, 3C) bf16; out: (B, N, C) bf16; map: (B, N, N) fp32 (exact)
 // or bf16; t: (B,) fp32; s: (B, N) fp32. scale_bf16 / eps_over_n_bf16 are
 // hd**-0.5 and 1e-6/N rounded to bf16 by the caller. C / H is a multiple
-// of 8 and at most 64; N <= 640. One cluster launch; a refused launch
-// returns its cudaError_t.
+// of 8 and at most 64; N <= 640. One cluster launch up to 256 tokens, the
+// heads kernel and K2's cluster launch above; a refused launch returns its
+// cudaError_t.
 extern "C" int ppf_attention_block_stats(const void* qkv, int B, int N, int C,
                                          int H, int keep, int exact,
                                          float scale_bf16, float eps_over_n_bf16,
                                          void* out, void* map, void* t, void* s,
                                          void* stream) {
-  if (!takes(N, C / H)) return cudaErrorInvalidValue;
+  if (!takes(N)) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(N, C / H);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (long_tokens(N)) {
+    cudaError_t err = cudaFuncSetAttribute(
+        block_stats_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((N + kLongRows - 1) / kLongRows, B);
+    block_stats_long_kernel<<<grid, kLongThreads, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(qkv), N, C, H, exact != 0,
+        scale_bf16, eps_over_n_bf16, static_cast<__nv_bfloat16*>(out), map);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    // the key of 1.0: its fp32 pattern, or that pattern's high 16 bits
+    return ppf_map_stats_at_most(map, !exact, B, N, keep, !exact,
+                                 exact ? 0x3F800000u : 0x3F80u, t, s, stream);
+  }
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      cluster_config(B, N, C / H, smem, static_cast<cudaStream_t>(stream),
-                     attr);
-  PPF_DISPATCH_BLOCK_STATS(N, C / H, {
+  const cudaLaunchConfig_t cfg = cluster_config(B, N, smem, st, attr);
+  PPF_DISPATCH_KT(N, {
+    const auto kernel = block_stats_kernel<KT>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -654,25 +665,28 @@ extern "C" int ppf_attention_block_stats(const void* qkv, int B, int N, int C,
   return cudaGetLastError();
 }
 
+// Shared memory of the kernel that runs the heads at N tokens.
 extern "C" int ppf_attention_block_stats_smem_bytes(int N, int hd) {
   return (int)smem_bytes(N, hd);
 }
 
-// CTAs per sample (the cluster size) of the launch at N tokens.
+// CTAs per sample of the select's cluster launch at N tokens (K1's own up
+// to 256, K2's above).
 extern "C" int ppf_attention_block_stats_cluster_size(int N) {
-  return cluster_size(N);
+  return long_tokens(N) ? ppf::map_cluster_size(N) : cluster_size(N);
 }
 
 // How many of those clusters the card can hold at once (negative: the
 // cudaError_t of the query).
 extern "C" int ppf_attention_block_stats_active_clusters(int N, int hd) {
-  if (!takes(N, hd)) return -static_cast<int>(cudaErrorInvalidValue);
+  if (!takes(N)) return -static_cast<int>(cudaErrorInvalidValue);
+  if (long_tokens(N)) return ppf_map_stats_active_clusters(N, 0);
   const size_t smem = smem_bytes(N, hd);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      cluster_config(1, N, hd, smem, nullptr, attr);
+  const cudaLaunchConfig_t cfg = cluster_config(1, N, smem, nullptr, attr);
   int clusters = 0;
-  PPF_DISPATCH_BLOCK_STATS(N, hd, {
+  PPF_DISPATCH_KT(N, {
+    const auto kernel = block_stats_kernel<KT>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err == cudaSuccess)
@@ -680,4 +694,21 @@ extern "C" int ppf_attention_block_stats_active_clusters(int N, int hd) {
     if (err != cudaSuccess) return -static_cast<int>(err);
   });
   return clusters;
+}
+
+// CTAs of the heads kernel an SM holds at once above 256 tokens (negative:
+// the cudaError_t of the query; 0 up to 256, where the cluster query
+// above applies).
+extern "C" int ppf_attention_block_stats_long_resident_ctas(int N, int hd) {
+  if (!takes(N)) return -static_cast<int>(cudaErrorInvalidValue);
+  if (!long_tokens(N)) return 0;
+  const size_t smem = smem_bytes(N, hd);
+  int ctas = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      block_stats_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &ctas, block_stats_long_kernel, kLongThreads, smem);
+  return err == cudaSuccess ? ctas : -static_cast<int>(err);
 }

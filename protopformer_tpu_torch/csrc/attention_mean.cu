@@ -32,12 +32,27 @@
 // key in shared memory, and the fp32 one its rows' head mean in registers:
 // at NP=577 that is ~254 KB and 19 columns a thread. From 257 on the long
 // kernels stream K and V through shared memory instead:
-//  * fp32 (f32k::mean_long_kernel): 32 query rows a block as above; K, then
-//    V, 128 keys at a time (34 KB); the block's logits, then probabilities
-//    (P) and its head-mean accumulator for every column in shared memory
-//    (2 x 82 KB at 577: one block an SM). Each value is computed as the
-//    kernel above computes it, in the same order. Bound at B=160, NP=577,
-//    H=12: operations, 164 GFLOP on the CUDA cores = 2.44 ms.
+//  * fp32 (f32k::mean_long_kernel): 32 query rows a block as above, 8
+//    warps, one block an SM (207 KB of shared memory at 577 and 640).
+//    Bound at B=160, NP=577, H=12: operations, 164 GFLOP on the CUDA cores
+//    = 2.44 ms. What holds it above: shared-memory traffic (each FMA of S
+//    needs half a 16-byte load, of P V an eighth), registers (the head
+//    mean takes 80 a thread) and the latency of one block's phases.
+//    K, then V, stream through a ring of three 128-key buffers filled by
+//    cp.async two chunks ahead (one barrier a chunk); the next head's Q
+//    comes with its first K chunk. S: a warp takes 16 rows x 32 keys of a
+//    chunk, a lane 4 x 4 on 2-D lanes (a warp's loads on distinct banks),
+//    into P in shared memory with the row maxima. The softmax: each warp
+//    its 4 rows, two at a time, each row in registers from its load to
+//    its store; the division from the row's reciprocal; the head mean in
+//    registers. P V: each warp 16 keys of every chunk for all 32 x 64
+//    outputs, a lane 8 x 8 (10 loads feed 64 FMAs); the 8 warps' sums meet
+//    in P's space in warp order. S, the softmax and the head mean are
+//    computed in the order of the kernel above; out sums each warp's keys
+//    in order, then the warps (held to 1e-5 at 257, 301, 577 and 640 by
+//    tests/test_torch_gpu.py). Measured (cli.time_long_kernels --against
+//    parent, an H100 at 700 W, B=160, the model's own operands; PERF.md):
+//    13.19 -> 8.07 ms at 577, 0.901 -> 0.547 ms at 257.
 //  * bf16 (bf16k::mean_long_kernel): the tensor-core tiles above over
 //    chunks of 128 keys, two warps a 16-row tile, each on half of every
 //    chunk; three passes a head (the row maximum, the sum of the
@@ -657,27 +672,47 @@ mean_kernel(const float* __restrict__ qkv, const float* __restrict__ policy,
 }
 
 
-// The long kernel (NP >= ppf::kLongMinTokens): K or V kLongChunk keys at a
-// time; the block's logits, then probabilities (P), and its head-mean
-// accumulator for every column, rounded up to kLongChunk.
-constexpr int kLongChunk = 128;  // 4 columns a lane
+// The long kernel (NP >= ppf::kLongMinTokens), 32 query rows a block as
+// above. K, then V, stream through a ring of kLongStages buffers of
+// kLongChunk keys, each filled by cp.async two chunks ahead of its use (one
+// barrier a chunk); the Q of the next head comes with its first K chunk.
+// The block's scaled logits, then its probabilities (P), sit in shared
+// memory; its head-mean accumulator in registers, CT = cols / 32 columns a
+// lane of each of a warp's 4 rows.
+constexpr int kLongChunk = 128;
+constexpr int kLongStages = 3;
+constexpr int kLongMinCols = 384;  // CT = 12 at least (long_ct)
 
 struct LongLayout {
   int cols, kstride, pstride;
-  size_t pol, q, kv, p, acc, total;
+  size_t pol, red, q, ring, p, total;
   __host__ __device__ LongLayout(int NP, int hd) {
     cols = ppf::round_up(NP, kLongChunk);
+    if (cols < kLongMinCols) cols = kLongMinCols;
+    // an odd multiple of 4 floats for hd a multiple of 8: the 16-byte rows
+    // of 8 consecutive keys, or of 4 rows 4 apart, fall on distinct banks
     kstride = hd + 4;
-    pstride = cols + 4;  // two rows 8 mod 32 floats apart: P V's float4 reads
+    pstride = cols + 8;  // 8 mod 32: rows 4 apart on distinct banks
     pol = 0;
-    q = ppf::align16(pol + (size_t)cols * sizeof(float));
-    kv = ppf::align16(q + (size_t)kRows * hd * sizeof(float));
-    p = ppf::align16(kv + (size_t)kLongChunk * kstride * sizeof(float));
-    acc = ppf::align16(p + (size_t)kRows * pstride * sizeof(float));
-    total = ppf::align16(acc + (size_t)kRows * pstride * sizeof(float));
+    red = ppf::align16(pol + (size_t)cols * sizeof(float));
+    q = ppf::align16(red + (size_t)4 * kRows * sizeof(float));
+    ring = ppf::align16(q + (size_t)2 * kRows * kstride * sizeof(float));
+    p = ppf::align16(ring + (size_t)kLongStages * kLongChunk * kstride *
+                                sizeof(float));
+    // P, whose space also takes the 8 warps' 32 x 64 sums of P V
+    const int pf = kRows * pstride > 8 * kRows * 64 ? kRows * pstride
+                                                    : 8 * kRows * 64;
+    total = ppf::align16(p + (size_t)pf * sizeof(float));
   }
 };
 
+// Accumulator columns of a lane (lane + 32 u, u < CT = cols / 32) at NP
+// tokens: the long kernel is built for CT = 12, 16 and 20 (cols = 384,
+// 512 and 640; 384 also below 385 tokens, as cli.time_long_kernels's copy
+// runs it at N <= 256).
+inline int long_ct(int NP) { return LongLayout(NP, 4).cols / 32; }
+
+template <int CT>
 __global__ void __launch_bounds__(kThreads, 1)
 mean_long_kernel(const float* __restrict__ qkv,
                  const float* __restrict__ policy, int NP, int C, int H,
@@ -688,10 +723,10 @@ mean_long_kernel(const float* __restrict__ qkv,
   const int C3 = 3 * C;
   const LongLayout L(NP, hd);
   float* pol = reinterpret_cast<float*>(smem + L.pol);
-  float* q = reinterpret_cast<float*>(smem + L.q);
-  float* kv = reinterpret_cast<float*>(smem + L.kv);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  float* qbuf = reinterpret_cast<float*>(smem + L.q);
+  float* ring = reinterpret_cast<float*>(smem + L.ring);
   float* P = reinterpret_cast<float*>(smem + L.p);
-  float* acc = reinterpret_cast<float*>(smem + L.acc);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -700,181 +735,305 @@ mean_long_kernel(const float* __restrict__ qkv,
   const float* qkv_b = qkv + (size_t)b * NP * C3;
   const float rH = 1.0f / (float)H;
   const float neg_inf = __uint_as_float(0xff800000u);
-  const int srow = 4 * warp;  // S phase and softmax: block rows srow .. + 3
-  const int orow = 4 * warp + 2 * (lane >> 4);  // O phase: 2 rows,
-  const int ocol = 4 * (lane & 15);             // 4 columns
-  const bool live = row0 + srow < NP;
+  const int nc = L.cols / kLongChunk;  // chunks of K (and of V) a head
+  // S = Q K^T: a warp takes 16 rows x 32 keys of a chunk, a lane 4 x 4 of
+  // them, rows s_r + 4i and keys s_c + 8j: the 16-byte loads of a warp
+  // fall on distinct banks
+  const int s_r = 16 * (warp & 1) + (lane >> 3);
+  const int s_c = 32 * (warp >> 1) + (lane & 7);
+  const bool s_live = row0 + 16 * (warp & 1) < NP;
+  // softmax and the head mean: block rows srow .. srow + 3
+  const int srow = 4 * warp;
+  // O = P V: warp kg takes keys 16 kg .. 16 kg + 15 of every chunk for all
+  // 32 x 64 outputs, a lane 8 x 8 of them (rows o_r + 4i, columns o_c ..
+  // o_c + 3 and o_c + 32 .. o_c + 35): 10 loads feed 64 FMAs; the 8 warps'
+  // sums meet in shared memory at the end of the head
+  const int kg = warp;
+  const int o_r = lane >> 3;
+  const int o_c = 4 * (lane & 7);
 
   load_policy(policy ? policy + (size_t)b * NP : nullptr, NP, L.cols, pol);
-  for (int e = threadIdx.x; e < kRows * L.pstride / 4; e += blockDim.x)
-    reinterpret_cast<float4*>(acc)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float acc[4][CT];
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+    for (int u = 0; u < CT; ++u) acc[rr][u] = 0.f;
 
+  // the stream of chunks: each head's K chunks, then its V chunks (rows
+  // >= NP, or >= real_n for V, zeros); with the first K chunk the head's
+  // 32 Q rows into Q buffer h % 2. fetch() copies the next one, (ih, ic),
+  // into stage ist; arrive() waits for the oldest, in stage cst, publishes
+  // it, and refills the stage every warp is done with
+  const size_t chunk = (size_t)kLongChunk * L.kstride;
+  const ppf::CopySteps cs = ppf::copy_steps<float>(hd);
+  int ih = 0, ic = 0, ist = 0, cst = 0;
+  auto fetch = [&]() {
+    if (ih < H) {
+      if (ic == 0)
+        ppf::load_rows_async(qkv_b + (size_t)row0 * C3, C3, ih * hd, hd,
+                             NP - row0, kRows,
+                             qbuf + (ih & 1) * kRows * L.kstride, L.kstride,
+                             cs);
+      const int k0 = (ic < nc ? ic : ic - nc) * kLongChunk;
+      ppf::load_rows_async(qkv_b + (size_t)k0 * C3, C3,
+                           (ic < nc ? C : 2 * C) + ih * hd, hd,
+                           (ic < nc ? NP : real_n) - k0, kLongChunk,
+                           ring + ist * chunk, L.kstride, cs);
+    }
+    if (++ic == 2 * nc) {
+      ic = 0;
+      ++ih;
+    }
+    ist = ist + 1 == kLongStages ? 0 : ist + 1;
+    ppf::cp_async_commit();
+  };
+  auto arrive = [&]() {
+    ppf::cp_async_wait<kLongStages - 2>();
+    __syncthreads();
+    fetch();
+    const float* buf = ring + cst * chunk;
+    cst = cst + 1 == kLongStages ? 0 : cst + 1;
+    return buf;
+  };
+
+  for (int k = 0; k < kLongStages - 1; ++k) fetch();
   for (int h = 0; h < H; ++h) {
-    // S = Q K^T over kLongChunk keys at a time, scaled, into P (-inf at
-    // the pad columns); each thread a 4-row x 4-column tile of a chunk
-    ppf::load_head_async(qkv_b + (size_t)row0 * C3, C3, h * hd, hd,
-                         NP - row0, kRows, hd, q, hd);
-    for (int k0 = 0; k0 < NP; k0 += kLongChunk) {
-      __syncthreads();  // the previous chunk (or head's V) no longer read
-      ppf::load_head_async(qkv_b + (size_t)k0 * C3, C3, C + h * hd, hd,
-                           NP - k0, kLongChunk, hd, kv, L.kstride);
-      ppf::cp_async_wait_all();
-      __syncthreads();
-      float s[4][4];
+    const float* q = qbuf + (h & 1) * kRows * L.kstride;
+    // S = Q K^T, each dot by FMAs in head-dim order, times the scale, into
+    // P; -inf at the pad columns. Each lane keeps the maxima of its rows
+    float mx[4] = {neg_inf, neg_inf, neg_inf, neg_inf};
+    for (int c = 0; c < nc; ++c) {
+      const float* kb = arrive();
+      const int k0 = c * kLongChunk;
+      if (s_live) {
+        float sv[4][4];
 #pragma unroll
-      for (int rr = 0; rr < 4; ++rr)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int u = 0; u < 4; ++u) s[rr][u] = 0.f;
-      for (int d = 0; live && d < hd; d += 4) {
-        float4 qv[4];
+          for (int j = 0; j < 4; ++j) sv[i][j] = 0.f;
+        // a warp whose 32 keys are all pads only writes -inf
+        const int dn = k0 + 32 * (warp >> 1) < NP ? hd : 0;
+#pragma unroll 4
+        for (int d = 0; d < dn; d += 4) {
+          float4 qv[4], kv[4];
 #pragma unroll
-        for (int rr = 0; rr < 4; ++rr)
-          qv[rr] = *reinterpret_cast<const float4*>(q + (srow + rr) * hd + d);
+          for (int i = 0; i < 4; ++i)
+            qv[i] = *reinterpret_cast<const float4*>(
+                q + (s_r + 4 * i) * L.kstride + d);
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float4 k4 = *reinterpret_cast<const float4*>(
-              kv + (lane + 32 * u) * L.kstride + d);
+          for (int j = 0; j < 4; ++j)
+            kv[j] = *reinterpret_cast<const float4*>(
+                kb + (s_c + 8 * j) * L.kstride + d);
 #pragma unroll
-          for (int rr = 0; rr < 4; ++rr) {
-            s[rr][u] = fmaf(qv[rr].x, k4.x, s[rr][u]);
-            s[rr][u] = fmaf(qv[rr].y, k4.y, s[rr][u]);
-            s[rr][u] = fmaf(qv[rr].z, k4.z, s[rr][u]);
-            s[rr][u] = fmaf(qv[rr].w, k4.w, s[rr][u]);
-          }
-        }
-      }
-      if (live) {
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int rr = 0; rr < 4; ++rr)
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int c = k0 + lane + 32 * u;
-            P[(srow + rr) * L.pstride + c] =
-                c < NP ? __fmul_rn(s[rr][u], scale) : neg_inf;
-          }
-      }
-    }
-    __syncwarp();  // a warp's softmax reads the P rows its own lanes wrote
-    // the softmax of each of the warp's rows, a lane's columns in order:
-    // e = exp(s - m) * policy, then p = (e + eps/real_n) / (sum + 1e-6)
-    for (int rr = 0; rr < 4 && live; ++rr) {
-      const int i = row0 + srow + rr;
-      float* prow = P + (srow + rr) * L.pstride;
-      float* arow = acc + (srow + rr) * L.pstride;
-      float m = neg_inf;
-      for (int c = lane; c < L.cols; c += ppf::kWarp) m = fmaxf(m, prow[c]);
-      m = ppf::warp_max(m);
-      float sum = 0.f;
-      for (int c = lane; c < L.cols; c += ppf::kWarp) {
-        const float e = c < NP ? __fmul_rn(expf(__fsub_rn(prow[c], m)),
-                                           attn_policy(pol, c, i))
-                               : 0.f;
-        prow[c] = e;
-        sum = __fadd_rn(sum, e);
-      }
-      const float denom = __fadd_rn(ppf::warp_sum(sum), 1e-6f);
-      for (int c = lane; c < L.cols; c += ppf::kWarp) {
-        const float p =
-            c < NP ? __fdiv_rn(__fadd_rn(prow[c], eps_over_n), denom) : 0.f;
-        arow[c] = __fadd_rn(arow[c], __fmul_rn(p, rH));
-        prow[c] = p;
-      }
-    }
-    // O = P V over kLongChunk value rows at a time (rows >= real_n zeros);
-    // each thread a 2-row x 4-column tile, the products in key order
-    float o[2][4];
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) o[r][c] = 0.f;
-    for (int k0 = 0; k0 < NP; k0 += kLongChunk) {
-      __syncthreads();  // K (or the previous chunk of V) no longer read
-      ppf::load_head_async(qkv_b + (size_t)k0 * C3, C3, 2 * C + h * hd, hd,
-                           real_n - k0, kLongChunk, hd, kv, L.kstride);
-      ppf::cp_async_wait_all();
-      __syncthreads();
-      if (live && ocol < hd) {
-        // P is 0 and V is 0 past NP, so the last group of 4 may overrun it
-        const int jn = min(kLongChunk, NP - k0);
-        for (int j = 0; j < jn; j += 4) {
-          float4 pv[2];
-#pragma unroll
-          for (int r = 0; r < 2; ++r)
-            pv[r] = *reinterpret_cast<const float4*>(
-                P + (orow + r) * L.pstride + k0 + j);
-          float4 v[4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            v[k] = *reinterpret_cast<const float4*>(
-                kv + (j + k) * L.kstride + ocol);
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const float pj[4] = {pv[r].x, pv[r].y, pv[r].z, pv[r].w};
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              o[r][0] = fmaf(pj[k], v[k].x, o[r][0]);
-              o[r][1] = fmaf(pj[k], v[k].y, o[r][1]);
-              o[r][2] = fmaf(pj[k], v[k].z, o[r][2]);
-              o[r][3] = fmaf(pj[k], v[k].w, o[r][3]);
+            for (int j = 0; j < 4; ++j) {
+              sv[i][j] = fmaf(qv[i].x, kv[j].x, sv[i][j]);
+              sv[i][j] = fmaf(qv[i].y, kv[j].y, sv[i][j]);
+              sv[i][j] = fmaf(qv[i].z, kv[j].z, sv[i][j]);
+              sv[i][j] = fmaf(qv[i].w, kv[j].w, sv[i][j]);
             }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = k0 + s_c + 8 * j;
+            const float x = col < NP ? __fmul_rn(sv[i][j], scale) : neg_inf;
+            P[(s_r + 4 * i) * L.pstride + col] = x;
+            mx[i] = fmaxf(mx[i], x);
+          }
+      }
+    }
+    // the row maxima over the 8 lanes of a row group, then the 4 warps of
+    // a row block (the maximum is the same in any order)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 4));
+      if ((lane & 7) == 0) red[(warp >> 1) * kRows + s_r + 4 * i] = mx[i];
+    }
+    __syncthreads();  // P holds every logit of the block, red its maxima
+    // the softmax of the warp's 4 rows, two at a time, a lane's columns
+    // in order, each row's values held in registers from its load to its
+    // store: e = exp(s - m) * policy, then p = (e + eps/real_n) / (sum +
+    // 1e-6), the division from the row's reciprocal (ppf::div_by_recip).
+    // Every column is swept, with no branch: past NP s is -inf and the
+    // policy 0, so e is 0 and adds nothing to the sum; p there is not 0,
+    // but it meets zero V rows in P V and is never stored
+    if (row0 + srow < NP) {  // a warp of pad rows only (a band's last) skips
+#pragma unroll
+      for (int r2 = 0; r2 < 4; r2 += 2) {
+        float x[2][CT], sum[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const float* prow = P + (srow + r2 + k) * L.pstride + lane;
+#pragma unroll
+          for (int u = 0; u < CT; ++u) x[k][u] = prow[32 * u];
+        }
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const float* rm = red + srow + r2 + k;
+          const float m = fmaxf(fmaxf(rm[0], rm[kRows]),
+                                fmaxf(rm[2 * kRows], rm[3 * kRows]));
+          const int i = row0 + srow + r2 + k;
+          sum[k] = 0.f;
+#pragma unroll
+          for (int u = 0; u < CT; ++u) {
+            const int c = lane + 32 * u;
+            const float pe = pol[c];
+            const float w = c == i ? __fadd_rn(pe, __fsub_rn(1.f, pe)) : pe;
+            x[k][u] = __fmul_rn(expf(__fsub_rn(x[k][u], m)), w);
+            sum[k] = __fadd_rn(sum[k], x[k][u]);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const float denom = __fadd_rn(ppf::warp_sum(sum[k]), 1e-6f);
+          const float rcp = __frcp_rn(denom);
+          float* prow = P + (srow + r2 + k) * L.pstride + lane;
+#pragma unroll
+          for (int u = 0; u < CT; ++u) {
+            const float p = ppf::div_by_recip(__fadd_rn(x[k][u], eps_over_n),
+                                              denom, rcp);
+            acc[r2 + k][u] = __fadd_rn(acc[r2 + k][u], __fmul_rn(p, rH));
+            prow[32 * u] = p;
           }
         }
       }
     }
-    if (live && ocol < hd) {
+    // O = P V, this warp's keys of each chunk in key order (V rows >=
+    // real_n zeros)
+    float o[8][8];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = row0 + orow + r;
-        if (i < NP)
-          *reinterpret_cast<float4*>(out + ((size_t)b * NP + i) * C + h * hd +
-                                     ocol) =
-              make_float4(o[r][0], o[r][1], o[r][2], o[r][3]);
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) o[i][j] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      const float* vb = arrive();  // its barrier also publishes P
+      const int k0 = c * kLongChunk + 16 * kg;
+      if (k0 < NP) {
+#pragma unroll 4
+        for (int j = 0; j < 16; ++j) {
+          float p[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) p[i] = P[(o_r + 4 * i) * L.pstride + k0 + j];
+          const float* vrow = vb + (16 * kg + j) * L.kstride + o_c;
+          const float4 v0 = *reinterpret_cast<const float4*>(vrow);
+          const float4 v1 = *reinterpret_cast<const float4*>(vrow + 32);
+          const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) o[i][jj] = fmaf(p[i], v[jj], o[i][jj]);
+        }
       }
+    }
+    // O = the 8 warps' sums in warp order, through P's space
+    __syncthreads();  // every warp is done with P
+    float* part = P + kg * kRows * 64;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float* dst = part + (o_r + 4 * i) * 64 + o_c;
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
+      *reinterpret_cast<float4*>(dst + 32) =
+          make_float4(o[i][4], o[i][5], o[i][6], o[i][7]);
+    }
+    __syncthreads();
+    {
+      // thread t: row t / 8, columns 8 (t % 8) .. + 7
+      const int r = threadIdx.x >> 3;
+      const int c0 = 8 * (threadIdx.x & 7);
+      float4 a0 = *reinterpret_cast<const float4*>(P + r * 64 + c0);
+      float4 a1 = *reinterpret_cast<const float4*>(P + r * 64 + c0 + 4);
+#pragma unroll
+      for (int g = 1; g < kThreads / 32; ++g) {
+        const float* src = P + g * kRows * 64 + r * 64 + c0;
+        const float4 b0 = *reinterpret_cast<const float4*>(src);
+        const float4 b1 = *reinterpret_cast<const float4*>(src + 4);
+        a0.x = __fadd_rn(a0.x, b0.x); a0.y = __fadd_rn(a0.y, b0.y);
+        a0.z = __fadd_rn(a0.z, b0.z); a0.w = __fadd_rn(a0.w, b0.w);
+        a1.x = __fadd_rn(a1.x, b1.x); a1.y = __fadd_rn(a1.y, b1.y);
+        a1.z = __fadd_rn(a1.z, b1.z); a1.w = __fadd_rn(a1.w, b1.w);
+      }
+      const int i = row0 + r;
+      float* dst = out + ((size_t)b * NP + i) * C + h * hd + c0;
+      if (i < NP && c0 < hd) *reinterpret_cast<float4*>(dst) = a0;
+      if (i < NP && c0 + 4 < hd) *reinterpret_cast<float4*>(dst + 4) = a1;
     }
   }
-  // each warp writes the accumulator rows its own softmax updated
+  // each lane writes the accumulator entries it holds
+#pragma unroll
   for (int rr = 0; rr < 4; ++rr) {
     const int i = row0 + srow + rr;
-    if (i >= NP) break;
-    const float* src = acc + (srow + rr) * L.pstride;
-    float* dst = map_out + ((size_t)b * NP + i) * NP;
-    for (int c = lane; c < NP; c += ppf::kWarp) {
-      const float real = (i < real_n && c < real_n) ? 1.f : 0.f;
-      dst[c] = __fmul_rn(src[c], real);
+    if (i < NP) {
+      float* dst = map_out + ((size_t)b * NP + i) * NP;
+#pragma unroll
+      for (int u = 0; u < CT; ++u) {
+        const int c = lane + 32 * u;
+        if (c < NP) {
+          const float real = (i < real_n && c < real_n) ? 1.f : 0.f;
+          dst[c] = __fmul_rn(acc[rr][u], real);
+        }
+      }
     }
   }
 }
 
+bool long_tokens(int NP) { return NP >= ppf::kLongMinTokens; }
+
 size_t smem_bytes(int NP, int hd) {
-  return NP >= ppf::kLongMinTokens ? LongLayout(NP, hd).total
-                                   : Layout(NP, hd).total;
+  return long_tokens(NP) ? LongLayout(NP, hd).total : Layout(NP, hd).total;
 }
+
+// Runs the statements given with `kernel` the fp32 kernel for NP tokens;
+// returns cudaErrorInvalidValue where none takes NP.
+#define PPF_DISPATCH_F32(NP, ...)                                        \
+  if (long_tokens(NP)) {                                                 \
+    switch (long_ct(NP)) {                                               \
+      case 12: { auto kernel = mean_long_kernel<12>; __VA_ARGS__ } break; \
+      case 16: { auto kernel = mean_long_kernel<16>; __VA_ARGS__ } break; \
+      case 20: { auto kernel = mean_long_kernel<20>; __VA_ARGS__ } break; \
+      default: return cudaErrorInvalidValue;                             \
+    }                                                                    \
+  } else {                                                               \
+    PPF_DISPATCH_MAXT(NP, {                                              \
+      auto kernel = mean_kernel<MAXT>;                                   \
+      __VA_ARGS__                                                        \
+    });                                                                  \
+  }
 
 cudaError_t launch(const void* qkv, const float* policy, int B, int NP, int C,
                    int H, int real_n, float scale, float eps_over_n, void* out,
                    float* map, cudaStream_t stream) {
   const size_t smem = smem_bytes(NP, C / H);
   const dim3 grid((NP + kRows - 1) / kRows, B);
-  if (NP >= ppf::kLongMinTokens) {
+  PPF_DISPATCH_F32(NP, {
     cudaError_t err = cudaFuncSetAttribute(
-        mean_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    mean_long_kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(qkv), policy, NP, C, H, real_n, scale,
-        eps_over_n, static_cast<float*>(out), map);
-    return cudaGetLastError();
-  }
-  PPF_DISPATCH_MAXT(NP, {
-    cudaError_t err = cudaFuncSetAttribute(
-        mean_kernel<MAXT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    mean_kernel<MAXT><<<grid, kThreads, smem, stream>>>(
+    kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const float*>(qkv), policy, NP, C, H, real_n, scale,
         eps_over_n, static_cast<float*>(out), map);
   });
   return cudaGetLastError();
+}
+
+// Blocks of the kernel for NP tokens an SM holds at once.
+int resident_blocks(int NP, int hd) {
+  const size_t smem = smem_bytes(NP, hd);
+  int blocks = 0;
+  PPF_DISPATCH_F32(NP, {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                          kThreads, smem);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+  });
+  return blocks;
 }
 
 }  // namespace f32k
@@ -904,4 +1063,11 @@ extern "C" int ppf_attention_mean(const void* qkv, const void* policy, int B,
 extern "C" int ppf_attention_mean_smem_bytes(int NP, int hd, int is_bf16) {
   return (int)(is_bf16 ? bf16k::smem_bytes(NP, hd)
                        : f32k::smem_bytes(NP, hd));
+}
+
+// Blocks of the fp32 kernel for NP tokens at head dim hd an SM holds at
+// once (negative: the cudaError_t of the query).
+extern "C" int ppf_attention_mean_f32_resident_blocks(int NP, int hd) {
+  if (NP > ppf::kMaxTokens) return -static_cast<int>(cudaErrorInvalidValue);
+  return f32k::resident_blocks(NP, hd);
 }

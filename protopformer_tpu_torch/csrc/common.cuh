@@ -469,9 +469,10 @@ struct MapBand {
   int rows;
 };
 
-// The keep-th largest key (cluster_radix_select, hi at the top of the key
-// space) of one sample's real `rows` x `cols` map of T at row stride
-// `stride` (rows, cols <= kMaxTokens), split over the calling cluster of
+// The keep-th largest key, at most `hi` (cluster_radix_select; 0 takes the
+// top of the key space), of one sample's real `rows` x `cols` map of T at
+// row stride `stride` (rows, cols <= kMaxTokens), split over the calling
+// cluster of
 // map_cluster_size(rows) CTAs (blockIdx.x the rank): each CTA loads a band
 // of whole rows, rows * rank / cs up to the next, into `smem`
 // (map_band_smem bytes) as fp32, pad columns left out, and the cluster
@@ -482,7 +483,7 @@ struct MapBand {
 template <bool kOneStep, typename T>
 __device__ __forceinline__ unsigned cluster_map_select(
     const T* map, int rows, int cols, int stride, bool prefix16, int keep,
-    unsigned char* smem, MapBand& band) {
+    unsigned char* smem, MapBand& band, unsigned hi = 0) {
   const int cs = static_cast<int>(gridDim.x);
   const int rank = static_cast<int>(blockIdx.x);
   band.row0 = rank * rows / cs;
@@ -497,9 +498,9 @@ __device__ __forceinline__ unsigned cluster_map_select(
   zero_radix_smem(radix);
   load_band(a, band.stride, src, band.rows, cols, stride);
   __syncthreads();  // publishes the band and the zeroed counts
+  if (hi == 0) hi = prefix16 ? 0xFFFFu : 0xFFFFFFFFu;
   return cluster_radix_select<kOneStep>(a, band.rows, cols, band.stride,
-                                       prefix16, keep,
-                                       prefix16 ? 0xFFFFu : 0xFFFFFFFFu, radix);
+                                       prefix16, keep, hi, radix);
 }
 
 // --- asynchronous copies and tensor-core fragments ---------------------------
@@ -520,6 +521,71 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Closes the thread's current group of copies (possibly empty), so that
+// every thread counts the same groups.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most `kPending` of the thread's groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// The copies of load_head_async (below) with the thread's first row and
+// column, and its step in both, from copy_steps: a ring of chunks, copied
+// again and again at the same width, computes them once, so a copy costs
+// a few integer operations instead of a division.
+struct CopySteps {
+  int n0, c0, dn, dc, width;
+};
+
+template <typename T>
+__device__ __forceinline__ CopySteps copy_steps(int width) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int cpr = width / kVec;
+  CopySteps st;
+  st.n0 = threadIdx.x / cpr;
+  st.c0 = (threadIdx.x - st.n0 * cpr) * kVec;
+  st.dn = blockDim.x / cpr;
+  st.dc = (blockDim.x - st.dn * cpr) * kVec;
+  st.width = width;
+  return st;
+}
+
+template <typename T>
+__device__ __forceinline__ void load_rows_async(const T* qkv_b, int C3,
+                                                int col, int hd,
+                                                int rows_valid, int rows_alloc,
+                                                T* dst, int stride,
+                                                const CopySteps& st) {
+  int n = st.n0, c = st.c0;
+  if (st.dc == 0) {  // the block's threads cover whole rows: c is fixed
+    const bool col_ok = c < hd;
+    const T* src = qkv_b + (size_t)n * C3 + col + c;
+    T* d = dst + n * stride + c;
+    const size_t src_step = (size_t)st.dn * C3;
+    const int dst_step = st.dn * stride;
+    for (; n < rows_alloc; n += st.dn, src += src_step, d += dst_step) {
+      const bool ok = col_ok && n < rows_valid;
+      cp_async16(d, ok ? src : qkv_b, ok ? 16 : 0);
+    }
+    return;
+  }
+  while (n < rows_alloc) {
+    const bool ok = n < rows_valid && c < hd;
+    const T* src = ok ? qkv_b + (size_t)n * C3 + col + c : qkv_b;
+    cp_async16(dst + n * stride + c, src, ok ? 16 : 0);
+    n += st.dn;
+    c += st.dc;
+    if (c >= st.width) {
+      c -= st.width;
+      ++n;
+    }
+  }
+}
+
 // Copy one head's (rows_valid, hd) slice at column `col` of the packed
 // (N, 3C) qkv rows of one sample into a shared tile of `rows_alloc` rows
 // and `width` columns at row stride `stride` (elements), in 16-byte
@@ -532,15 +598,8 @@ __device__ __forceinline__ void load_head_async(const T* qkv_b, int C3,
                                                 int rows_valid, int rows_alloc,
                                                 int width, T* dst,
                                                 int stride) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int cpr = width / kVec;
-  for (int idx = threadIdx.x; idx < rows_alloc * cpr; idx += blockDim.x) {
-    const int n = idx / cpr;
-    const int c = (idx - n * cpr) * kVec;
-    const bool ok = n < rows_valid && c < hd;
-    const T* src = ok ? qkv_b + (size_t)n * C3 + col + c : qkv_b;
-    cp_async16(dst + n * stride + c, src, ok ? 16 : 0);
-  }
+  load_rows_async(qkv_b, C3, col, hd, rows_valid, rows_alloc, dst, stride,
+                  copy_steps<T>(width));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -570,6 +629,29 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// a - b, a + b, a * b on bf16 pairs, each rounded once to bf16 (nearest
+// even). For bf16 operands this is the fp32 operation rounded to bf16: a
+// product is exact in fp32; a sum or difference is too unless one operand
+// is below 2^-16 of the other, and then both give the larger operand's
+// neighbourhood alike, since the small one lies far below half a bf16 ulp.
+__device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
 }
 
 // Rounds x and y to bf16 (nearest even) with one conversion of the pair;

@@ -28,6 +28,8 @@
 // 384), 181 KB of shared memory, one CTA an SM, so 160 clusters of 8 run
 // in rounds of as many as the card's GPCs hold. Bound there: bytes, 213 MB
 // (the 1.33 MB fp32 map of each of 160 samples read once) = 0.064 ms.
+// Above 256 tokens the same launch is also K1's select, on the map K1's
+// heads kernel stored (attention_block_stats.cu).
 #include "common.cuh"
 
 namespace {
@@ -36,12 +38,13 @@ namespace {
 template <typename T, bool kOneStep>
 __global__ void __launch_bounds__(ppf::kMapThreads, ppf::kMapCtasPerSm)
 map_stats_kernel(const T* __restrict__ map, int N, int keep, bool prefix16,
-                 float* __restrict__ t_out, float* __restrict__ s_out) {
+                 unsigned hi, float* __restrict__ t_out,
+                 float* __restrict__ s_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.y;
   ppf::MapBand band;
   const unsigned key = ppf::cluster_map_select<kOneStep>(
-      map + (size_t)b * N * N, N, N, N, prefix16, keep, smem, band);
+      map + (size_t)b * N * N, N, N, N, prefix16, keep, smem, band, hi);
   const float t = ppf::threshold_from_key(static_cast<int>(key), prefix16);
   if (blockIdx.x == 0 && threadIdx.x == 0) t_out[b] = t;
   ppf::block_masked_row_sums<kOneStep>(band.a, band.rows, N, band.stride, t,
@@ -57,7 +60,8 @@ auto kernel_for(int N) {
 
 template <typename T>
 cudaError_t launch(const void* map, int B, int N, int keep, bool prefix16,
-                   void* t_out, void* s_out, cudaStream_t stream) {
+                   unsigned hi, void* t_out, void* s_out,
+                   cudaStream_t stream) {
   if (N > ppf::kMaxTokens || !ppf::hist_counts_fit(ppf::map_band_rows(N), N))
     return cudaErrorInvalidValue;
   const size_t smem = ppf::map_band_smem(N, N, N);
@@ -69,7 +73,7 @@ cudaError_t launch(const void* map, int B, int N, int keep, bool prefix16,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(map), N, keep,
-                           prefix16, static_cast<float*>(t_out),
+                           prefix16, hi, static_cast<float*>(t_out),
                            static_cast<float*>(s_out));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -93,14 +97,26 @@ int active_clusters(int N) {
 }  // namespace
 
 // map: (B, N, N) fp32 or bf16 (map_is_bf16), N <= 640; t_out: (B,) fp32;
-// s_out: (B, N) fp32. One cluster launch; returns its cudaError_t.
+// s_out: (B, N) fp32; the key capped at `hi` (0: the top of the key space;
+// K1 above 256 tokens caps it at the key of 1.0, as its JAX kernel's
+// bisection from [0, 1] is). One cluster launch; returns its cudaError_t.
+extern "C" int ppf_map_stats_at_most(const void* map, int map_is_bf16, int B,
+                                     int N, int keep, int prefix16,
+                                     unsigned hi, void* t_out, void* s_out,
+                                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (map_is_bf16)
+    return launch<__nv_bfloat16>(map, B, N, keep, prefix16 != 0, hi, t_out,
+                                 s_out, s);
+  return launch<float>(map, B, N, keep, prefix16 != 0, hi, t_out, s_out, s);
+}
+
+// K2: the same with no cap.
 extern "C" int ppf_map_stats(const void* map, int map_is_bf16, int B, int N,
                              int keep, int prefix16, void* t_out, void* s_out,
                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (map_is_bf16)
-    return launch<__nv_bfloat16>(map, B, N, keep, prefix16 != 0, t_out, s_out, s);
-  return launch<float>(map, B, N, keep, prefix16 != 0, t_out, s_out, s);
+  return ppf_map_stats_at_most(map, map_is_bf16, B, N, keep, prefix16, 0,
+                               t_out, s_out, stream);
 }
 
 // CTAs per sample (the cluster size) of the launch at N.

@@ -47,9 +47,11 @@ _SIGNATURES = {
     "ppf_attention_block_stats_smem_bytes": [_INT, _INT],
     "ppf_attention_block_stats_cluster_size": [_INT],
     "ppf_attention_block_stats_active_clusters": [_INT, _INT],
+    "ppf_attention_block_stats_long_resident_ctas": [_INT, _INT],
     "ppf_attention_mean": [_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT, _INT,
                            _FLOAT, _FLOAT, _VOIDP, _VOIDP, _VOIDP],
     "ppf_attention_mean_smem_bytes": [_INT, _INT, _INT],
+    "ppf_attention_mean_f32_resident_blocks": [_INT, _INT],
     "ppf_attention_core": [_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT, _INT,
                            _INT, _FLOAT, _FLOAT, _FLOAT, _FLOAT, _VOIDP,
                            _VOIDP, _VOIDP],
@@ -139,7 +141,12 @@ def library() -> ctypes.CDLL:
         build()
         lib = ctypes.CDLL(str(BUILD_DIR / LIB_NAME))
         for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+            # a symbol the sources lack (an older tree of them, as
+            # cli.time_long_kernels builds) stays unbound and raises
+            # AttributeError where it is called
+            fn = getattr(lib, name, None)
+            if fn is None:
+                continue
             fn.argtypes = argtypes
             fn.restype = _INT
         _LIB = lib

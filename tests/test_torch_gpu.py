@@ -87,11 +87,13 @@ def _qkv_policy(rng, B, N, NP, C):
 @pytest.mark.parametrize("exact", [True, False])
 # N=40 runs the kernel built for 4 key tiles on 3 tiles of tokens
 # DeiT-Tiny, -Small and -Base at 224: 3, 6 and 12 heads (head dims 64);
-# the long kernel at deit_tiny_patch2_32's 257 tokens (a cluster of 5),
-# DeiT-B/16@384's 577 (8 CTAs of up to 5 tiles) and the limit, 640
+# the long path (the heads kernel in CTAs of 3 row tiles, then K2's select)
+# at deit_tiny_patch2_32's 257 tokens, 301 (a ragged last chunk and band),
+# DeiT-B/16@384's 577 at 3 and 12 heads, and the limit, 640
 @pytest.mark.parametrize("N,C,H", [(197, 192, 3), (24, 16, 2), (40, 64, 2),
                                    (197, 384, 6), (197, 768, 12),
-                                   (257, 192, 3), (577, 768, 12),
+                                   (257, 192, 3), (301, 192, 3),
+                                   (577, 192, 3), (577, 768, 12),
                                    (640, 192, 3)])
 def test_block_stats_kernel_matches_plain(rng, cuda, exact, N, C, H, B):
     qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * C)).astype(np.float32))
@@ -117,6 +119,33 @@ def test_block_stats_kernel_matches_plain(rng, cuda, exact, N, C, H, B):
     t_diff = t != p_t.to(t.dtype)
     assert int(t_diff.sum()) <= max(1, B // 80)
     assert bool((map_diff.any(dim=1) | ~t_diff).all())
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_block_stats_long_select_caps_the_threshold_at_one(rng, cuda, exact):
+    """Above 256 tokens K1's threshold comes from K2's select capped at the
+    key of 1.0, as the JAX kernel's bisection from [0, 1] is: at 10 heads
+    the fp32 head mean of ten probabilities of 1 is 1.0000001, and with
+    keep = 1 the cap binds in exact mode."""
+    B, N, C, H = 2, 257, 320, 10
+    hd = C // H
+    qkv = (0.05 * rng.normal(size=(B, N, 3 * C))).astype(np.float32)
+    # token 5 attends to token 9 alone in every head
+    qkv[:, 5, 0:C:hd] = 20.0
+    qkv[:, 9, C:2 * C:hd] = 20.0
+    qkv = torch.from_numpy(qkv).to(cuda, torch.bfloat16)
+    E = N * N
+    ratio = 1.0 - 0.5 / E  # keep = E - int(E * ratio) = 1
+    out, fmap, t, s = ac.fused_attention_block_stats(qkv, H, ratio, exact)
+    p_out, p_map, p_t, _ = ac.block_stats_plain(qkv, H, 1, exact)
+    torch.cuda.synchronize()
+    assert float(fmap[:, 5, 9].float().min()) >= 1.0
+    if exact:
+        assert float(fmap.max()) > 1.0  # the cap binds
+    assert torch.equal(t.float(), torch.ones_like(t, dtype=torch.float32))
+    assert torch.equal(t, p_t.to(t.dtype))
+    assert _max_err(s, stats.masked_row_sums(fmap.float(), t.float())) <= 1e-6
+    assert _max_err(fmap, p_map) <= _bf16_ulp(p_map)
 
 
 @pytest.mark.parametrize("B", [1, 3, 8])
@@ -203,10 +232,14 @@ def test_map_stats_kernel_padded_keep_elements(rng, cuda):
     (torch.bfloat16, 82, 82, 384, 6),
     (torch.bfloat16, 82, 82, 768, 12),
     # the long kernels: deit_tiny_patch2_32 (257), DeiT-B/16@384 (577, and
-    # 640 as the JAX package pads it), bf16 after a gather of 300 tokens
+    # 640 as the JAX package pads it), bf16 after a gather of 300 tokens;
+    # fp32 at 301 (a ragged last chunk of 45 keys) and 577 at 3 and 12 heads
     (torch.float32, 257, 257, 192, 3),
+    (torch.float32, 301, 301, 192, 3),
+    (torch.float32, 577, 577, 192, 3),
     (torch.float32, 577, 577, 768, 12),
     (torch.float32, 577, 640, 192, 3),
+    (torch.float32, 577, 640, 768, 12),
     (torch.bfloat16, 257, 257, 192, 3),
     (torch.bfloat16, 301, 301, 192, 3),
     (torch.bfloat16, 577, 640, 768, 12),

@@ -285,3 +285,30 @@ def test_time_long_kernels_copies_the_package_with_every_n_long(
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="needs a CUDA card"):
             tl.run()
+
+
+def test_time_long_kernels_copies_the_package_with_the_parents_kernels(
+        tmp_path, monkeypatch):
+    """``cli.time_long_kernels --against parent`` times a copy of the
+    package whose ``csrc/`` is an unpacked parent tree's and whose Python
+    is this checkout's; a tree without kernel sources raises."""
+    from protopformer_tpu_torch.cli import time_long_kernels as tl
+
+    monkeypatch.setattr(tl, "PARENT_COPY", tmp_path / "copy")
+    src = tl.ROOT / "protopformer_tpu_torch"
+    parent = tmp_path / "parent"
+    (parent / "protopformer_tpu_torch" / "csrc").mkdir(parents=True)
+    sources = {"common.cuh": "// the parent's header\n",
+               "attention_mean.cu": "// the parent's K3\n"}
+    for name, text in sources.items():
+        (parent / "protopformer_tpu_torch" / "csrc" / name).write_text(text)
+    copy = tl.make_parent(parent) / "protopformer_tpu_torch"
+    assert {p.name: p.read_text() for p in (copy / "csrc").iterdir()} == (
+        sources)
+    assert not list(copy.rglob("__pycache__"))
+    for path in src.rglob("*.py"):
+        if "__pycache__" not in path.parts:
+            rel = path.relative_to(src)
+            assert (copy / rel).read_bytes() == path.read_bytes(), rel
+    with pytest.raises(RuntimeError, match="no kernel sources"):
+        tl.make_parent(tmp_path / "missing")
