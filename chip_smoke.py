@@ -112,8 +112,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      bf16_witness's 160-image readings, with each K4 on its forward's own
      qkv held as check_core_kernels holds K4; the kernel
      bench at 577 tokens (K5 on real 577 in NP 640, held the same way);
-     then deit_tiny_patch2_32 (257 tokens, 3 heads) in the three modes as
-     DeiT-B/16@384;
+     K3's bf16 long kernel (K4's and K5's attention phase) on K4's
+     operands at 577 and on K5's bench operands, with its blocks an SM and
+     shared memory (k3_bf16_long_reading); the map select's readings
+     (select_reading): K2 at 577 on the fp32 serving map beside a two-call
+     torch.kthvalue reference, K1's select alone on K1's stored map, and
+     K4/K5's normalize phase at 577 and 640 with its bound (the map's
+     round trip); then deit_tiny_patch2_32 (257 tokens, 3 heads) in the
+     three modes as DeiT-B/16@384;
   5. the card against the CPU: fp32 parity on 2 images (logits within
      1e-4, the same top-81 tokens), and bf16 speed and bf16 exact against
      the CPU's fp32 forward (at least 74 of the top-81 tokens kept, none
@@ -516,15 +522,18 @@ def core_record(name: str, q: torch.Tensor, p, n: int, heads: int) -> dict:
     one bf16 ulp of max|out| (``bf16_ulp``; bf16: probs @ v sums its fp32
     products in another order, then rounds), the entries whose kept state
     differs counted (expected 0), the map within 1e-6 on every sample whose
-    kept entries agree. The normalize's cluster and its two launches'
-    device times are printed."""
+    kept entries agree. The normalize's cluster, its select's route above
+    256 tokens (``stats.select_route``) and its two launches' device times
+    are printed."""
     from protopformer_tpu_torch.kernels import _build
     from protopformer_tpu_torch.kernels import attention_core as ac
+    from protopformer_tpu_torch.kernels import stats
     from protopformer_tpu_torch.ops.rollout import normalize_attention_map
 
     lib = _build.library()
     bq, np_, c3 = q.shape
     c = c3 // 3
+    stats.select_route(n, "core")  # zeroes the route record
     if "padded" in name:
         kernel = lambda: ac.fused_attention_core_padded(q, p, heads, n)
         plain = lambda: ac.core_padded_plain(q, p, heads, n)
@@ -536,6 +545,7 @@ def core_record(name: str, q: torch.Tensor, p, n: int, heads: int) -> dict:
     pol = torch.ones((bq, np_), device=q.device) if p is None else p
     attention = lambda: ac.fused_attention_mean_padded(q, pol, heads, n)
     _, raw = attention()
+    route = stats.select_route(n, "core") if n > 256 else None
     want = normalize_attention_map(raw[:, :n, :n], DISCARD, 0.2, True)
     torch.cuda.synchronize()
     same_kept = torch.equal(_kept(fmap[:, :n, :n]), _kept(want))
@@ -566,8 +576,12 @@ def core_record(name: str, q: torch.Tensor, p, n: int, heads: int) -> dict:
                "resident_clusters":
                    lib.ppf_attention_core_active_clusters(n, np_)}
     phases = phase_ms(kernel, attention)
+    # the normalize's bound: the real block's round trip (read once,
+    # written once)
+    phases["normalize_bound_ms"] = bound(2.0 * bq * n * n * 4)[0]
     log(f"{name}: normalize launch {bq} clusters, {json.dumps(cluster)}; "
-        f"device ms per call by phase {json.dumps(phases)}")
+        f"device ms per call by phase {json.dumps(phases)}; select route "
+        f"of the first call {json.dumps(route)}")
     require(cluster["ctas_per_sample"] > 1
             and cluster["resident_clusters"] > 0,
             f"{name}: the normalize is not a multi-CTA cluster launch")
@@ -1327,6 +1341,60 @@ def log_resident(what: str, ctas: int, smem: int) -> None:
     require(ctas > 0, f"{what}: no CTA fits an SM")
 
 
+def select_reading(what: str, fmap: torch.Tensor, exact: bool,
+                   kthvalue: bool = False) -> None:
+    """Prints the map select's launch (K2's kernel: K2 itself, or K1's
+    second launch above 256 tokens, whose only difference is the cap at
+    1.0) on a model's stored (B, N, N) map: t bit-equal to the plain
+    version, its ms beside its bound (the map read once, t and s written
+    once) and its cluster; on fp32 keys also the select's route
+    (``stats.select_route``), required to be the compact lists' above
+    512 tokens. With ``kthvalue``, also the time of a two-call
+    reference on the same map: ``torch.kthvalue`` of the flattened map,
+    then the masked row sum (a reference, not a yardstick: kthvalue
+    orders values, not the select's keys)."""
+    from protopformer_tpu_torch.kernels import _build
+    from protopformer_tpu_torch.kernels import stats
+
+    b, n, _ = fmap.shape
+    keep = n * n - int(n * n * DISCARD)
+    lib = _build.library()
+    stats.select_route(n)  # zeroes the route record
+    t, s = stats.fused_map_stats(fmap, DISCARD, exact_discard=exact)
+    p_t, p_s = stats.map_stats_plain(fmap, keep, prefix16=not exact)
+    torch.cuda.synchronize()
+    route = stats.select_route(n)
+    require(torch.equal(t.float(), p_t) and max_err(s, p_s) <= 1e-6,
+            f"{what}: t or s differs from the plain version")
+    nbytes = b * n * n * fmap.element_size() + b * 4 + b * n * 4
+    bound_ms, bound_by = bound(nbytes, (2.0 * b * n * n, FP32_FLOPS))
+    reading = {
+        "ms": time_ms(lambda: stats.fused_map_stats(fmap, DISCARD, exact)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "ctas_per_sample": lib.ppf_map_stats_cluster_size(n),
+        "resident_clusters": lib.ppf_map_stats_active_clusters(
+            n, int(fmap.dtype == torch.bfloat16))}
+    if kthvalue:
+        flat = fmap.float().reshape(b, -1)
+        kth = n * n - keep + 1  # the keep-th largest is the kth smallest
+
+        def two_calls():
+            tk = flat.kthvalue(kth, dim=1).values
+            return torch.where(fmap >= tk[:, None, None], fmap, 0).sum(-1)
+
+        reading["kthvalue_and_row_sum_ms"] = time_ms(two_calls)
+    log(f"{what} (the select alone, the model's map): "
+        f"{json.dumps(reading)}")
+    require(reading["resident_clusters"] > 0, f"{what}: no cluster fits")
+    if exact:
+        # fp32 keys: the last two passes over the compact key lists where
+        # they fit; above 512 tokens the models' maps must take that route
+        log(f"{what}: select route {json.dumps(route)} (band_passes: "
+            f"samples whose lists overflowed)")
+        require(n <= 512 or route["band_passes"] == 0,
+                f"{what}: the key lists overflowed on the model's map")
+
+
 def k1_record(qkv: torch.Tensor, heads: int, exact: bool) -> dict:
     """K1 against its plain version on a model's own qkv (``k1_contract``),
     timed and bounded; returns the partial record."""
@@ -1357,6 +1425,8 @@ def k1_record(qkv: torch.Tensor, heads: int, exact: bool) -> dict:
     res = k1_contract(out, fmap, t, s, p_out, p_map, p_t, own_t, own_s,
                       heads)
     mode = "exact" if exact else "speed"
+    if n > 256:
+        select_reading(f"K1's select at N={n}, {mode}", fmap, exact)
     log(f"K1 {mode} H={heads} C={c} (model qkv): {json.dumps(res)}")
     require(res["t_equal_own"],
             f"K1 {mode} H={heads}: t differs from masked_map_stats on its map")
@@ -1437,6 +1507,9 @@ def k2_record(fmap: torch.Tensor, exact: bool) -> dict:
         "(tolerance s 1e-6)")
     require(torch.equal(t.float(), p_t), "K2: t differs from the plain version")
     require(err <= 1e-6, "K2: outside tolerance")
+    if n > 256:
+        select_reading(f"K2 at N={n}, {fmap.dtype}", fmap, exact,
+                       kthvalue=True)
     nbytes = b * n * n * fmap.element_size() + b * 4 + b * n * 4
     return dict(
         kernel="fused_map_stats",
@@ -1809,28 +1882,35 @@ def width_phase(dev: torch.device, rng: np.random.Generator,
 LONG_N = 577  # DeiT-B/16@384: 24 x 24 patches and the CLS token
 
 
-def k3_bf16_long_reading(qkv: torch.Tensor, pol, heads: int) -> None:
-    """K3's bf16 long kernel (``bf16k::mean_long_kernel``, K4's attention
-    phase above 256 tokens; its launches count as K4's) on K4's operands
-    at 577 tokens: its time beside its plain version's and its bound,
-    printed (out within 1e-2, the map within 1e-6, as ``k3_record``)."""
+def k3_bf16_long_reading(qkv: torch.Tensor, pol, heads: int,
+                         real_n: int) -> None:
+    """K3's bf16 long kernel (``bf16k::mean_long_kernel``, K4's and K5's
+    attention phase above 256 tokens; its launches count as K4's or K5's)
+    on their operands: its time beside its plain version's and its bound,
+    and its blocks an SM and shared memory, printed (out within 1e-2, the
+    map within 1e-6, as ``k3_record``)."""
+    from protopformer_tpu_torch.kernels import _build
     from protopformer_tpu_torch.kernels import attention_core as ac
 
     b, n, c3 = qkv.shape
     c = c3 // 3
+    lib = _build.library()
+    log_resident(f"K3 bf16 long kernel at NP={n}, hd={c // heads}",
+                 lib.ppf_attention_mean_bf16_resident_blocks(n, c // heads),
+                 lib.ppf_attention_mean_smem_bytes(n, c // heads, 1))
     pol = torch.ones((b, n), device=qkv.device) if pol is None else pol
-    kernel = lambda: ac.fused_attention_mean_padded(qkv, pol, heads, n)
-    plain = lambda: ac.mean_padded_plain(qkv, pol, heads, n)
+    kernel = lambda: ac.fused_attention_mean_padded(qkv, pol, heads, real_n)
+    plain = lambda: ac.mean_padded_plain(qkv, pol, heads, real_n)
     out, fmap = kernel()
     p_out, p_map = plain()
     torch.cuda.synchronize()
     errs = {"out": max_err(out, p_out), "map": max_err(fmap, p_map)}
     require(errs["out"] <= 1e-2 and errs["map"] <= 1e-6,
-            f"K3 bf16 N={n}: outside tolerance")
+            f"K3 bf16 NP={n} real_n={real_n}: outside tolerance")
     nbytes = b * n * c3 * 2 + b * n * 4 + b * n * c * 2 + b * n * n * 4
     bound_ms, bound_by = bound(nbytes, (4.0 * b * n * n * c, BF16_FLOPS))
-    log(f"K3 bf16 long N={n} H={heads} (K4's attention phase, K4's "
-        "operands): " + json.dumps({
+    log(f"K3 bf16 long NP={n} real_n={real_n} H={heads} B={b} (the "
+        "attention phase, on the K4/K5 call's operands): " + json.dumps({
             "ms": time_ms(kernel), "plain_ms": time_ms(plain),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": errs}))
@@ -1867,7 +1947,7 @@ def long_phase(dev: torch.device, rng: np.random.Generator) -> tuple:
         name = f"fused_attention_core[{dtype},N={LONG_N},H={heads}]"
         records[name] = core_record(name, qkv.clone(), pol, LONG_N, heads)
         if dtype == "bf16":
-            k3_bf16_long_reading(qkv, pol, heads)
+            k3_bf16_long_reading(qkv, pol, heads, LONG_N)
     del k4_args
     log(f"deit_b384 thresh: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1877,6 +1957,7 @@ def long_phase(dev: torch.device, rng: np.random.Generator) -> tuple:
     name = f"fused_attention_core_padded[bf16,bench,N={LONG_N}]"
     records[name] = core_record(name, x["qkv_pad"], x["policy_pad"], LONG_N,
                                 H)
+    k3_bf16_long_reading(x["qkv_pad"], x["policy_pad"], H, LONG_N)
     del x
     log(f"bench at {LONG_N}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()

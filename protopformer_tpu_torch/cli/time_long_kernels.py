@@ -21,13 +21,23 @@ in the order A, B, B, A, and reports the mean of each side's two readings:
   DIR``), the Python being this checkout's, against the package (B). Each
   side builds DeiT-B/16@384's and ``deit_tiny_patch2_32``'s PPNets at the
   CUB preset from a seed and serves a chunk in each mode, capturing the
-  operands of the first K1 and K3 calls (block 0's), holds the kernels
-  against their plain versions on them as above and times them; K4 in
-  fp32 on the 384 fp32 operands (its attention phase is K3's kernel); and
-  DeiT-B/16@384's serving img/s in the three modes
-  (``ServingEngine.throughput_probe``).
+  operands of the first K1, K2 and K3 calls (block 0's), holds the
+  kernels against their plain versions on them as above and times them:
+  K1, K1's select alone (K2's launch on K1's stored map), K2 on the fp32
+  serving map (t bit-equal to ``map_stats_plain``, s within 1e-6), K3 in
+  fp32; K4 in fp32 on the 384 fp32 operands (its attention phase is K3's
+  kernel); DeiT-B/16@384's serving img/s in the three modes
+  (``ServingEngine.throughput_probe``); its bf16 exact
+  ``masked_forward_thresh`` at B=160: img/s, and K4 with its attention
+  phase (K3 bf16's long kernel) on the first K4 call's operands; and K5 on
+  the kernel bench's operands at 577 tokens (real 577 in NP 640, B=256;
+  held against the plain normalize of K3's map) with its attention
+  phase, and K3 bf16 on the bench's operands at 257; and the routes at N <= 256 that share the select's code, on
+  seeded random operands: K1 in both modes and K2 on K1's exact map at
+  197 and 256 tokens, and K5 on the bench's operands at 197 and 256 with
+  its attention phase and its normalize (the call less that phase).
 
-B = 160 (a serving chunk). Needs a CUDA card.
+B = 160 (a serving chunk) but for the bench's K5. Needs a CUDA card.
 
     python -m protopformer_tpu_torch.cli.time_long_kernels
     python -m protopformer_tpu_torch.cli.time_long_kernels --against parent \\
@@ -60,6 +70,9 @@ CASES = ((197, 192, 3), (82, 192, 3), (197, 768, 12), (257, 192, 3))
 # count, and the serving modes timed on the first
 MODELS = {"N=577": "deit_base_patch16_384", "N=257": "deit_tiny_patch2_32"}
 MODES = ("bf16_speed", "bf16_exact", "fp32_parity")
+# (N, C, H) of the parent comparison's short readings: DeiT-Tiny and
+# DeiT-B's heads at 197, and the short route's largest N
+SHORT_CASES = ((197, 192, 3), (197, 768, 12), (256, 192, 3))
 B = 160
 PROBE_IMAGES = 3 * B
 
@@ -91,11 +104,13 @@ def _hold_k1(name: str, qkv: torch.Tensor, heads: int, exact: bool):
     return call
 
 
-def _hold_k3(name: str, qkv: torch.Tensor, pol: torch.Tensor, heads: int):
-    """K3 against its plain version on ``qkv``; returns the launch."""
+def _hold_k3(name: str, qkv: torch.Tensor, pol: torch.Tensor, heads: int,
+             real_n: int = None):
+    """K3 against its plain version on ``qkv`` (``real_n`` real tokens, all
+    by default); returns the launch."""
     from protopformer_tpu_torch.kernels import attention_core as ac
 
-    n = qkv.shape[1]
+    n = qkv.shape[1] if real_n is None else real_n
     tol = 1e-5 if qkv.dtype == torch.float32 else 1e-2
     call = lambda: ac.fused_attention_mean_padded(  # noqa: E731
         qkv, pol, heads, real_n=n)
@@ -103,6 +118,45 @@ def _hold_k3(name: str, qkv: torch.Tensor, pol: torch.Tensor, heads: int):
     p_out, p_map = ac.mean_padded_plain(qkv, pol, heads, real_n=n)
     if not (_max_err(out, p_out) <= tol and _max_err(fmap, p_map) <= 1e-6):
         raise AssertionError(f"{name}: differs from its plain version")
+    return call
+
+
+def _hold_k2(name: str, fmap: torch.Tensor, exact: bool):
+    """K2's launch on a stored map against ``map_stats_plain`` (t
+    bit-equal, s within 1e-6); returns the launch."""
+    from protopformer_tpu_torch.kernels import stats
+
+    n = fmap.shape[1]
+    call = lambda: stats.fused_map_stats(fmap, 0.9, exact)  # noqa: E731
+    t, s = call()
+    p_t, p_s = stats.map_stats_plain(fmap, n * n - int(n * n * 0.9),
+                                     not exact)
+    if not (torch.equal(t.float(), p_t) and _max_err(s, p_s) <= 1e-6):
+        raise AssertionError(f"{name}: differs from its plain version")
+    return call
+
+
+def _hold_k5(name: str, qkv: torch.Tensor, pol: torch.Tensor, heads: int,
+             real_n: int):
+    """K5 against the plain normalize of K3's raw map on the same operands
+    (the same entries kept, the map within 1e-6, the pads 0); returns the
+    launch."""
+    from protopformer_tpu_torch.kernels import attention_core as ac
+    from protopformer_tpu_torch.ops.rollout import normalize_attention_map
+
+    n = real_n
+    call = lambda: ac.fused_attention_core_padded(  # noqa: E731
+        qkv, pol, heads, n)
+    _, fmap = call()
+    _, raw = ac.fused_attention_mean_padded(qkv, pol, heads, n)
+    want = normalize_attention_map(raw[:, :n, :n], 0.9, 0.2, True)
+    eye = torch.eye(n, dtype=torch.bool, device=qkv.device)
+    kept = lambda m: (m > 0) & ~eye  # noqa: E731
+    if not (torch.equal(kept(fmap[:, :n, :n]), kept(want))
+            and _max_err(fmap[:, :n, :n], want) <= 1e-6
+            and float(fmap[:, n:].abs().sum() + fmap[:, :, n:].abs().sum())
+            == 0.0):
+        raise AssertionError(f"{name}: differs from the plain normalize")
     return call
 
 
@@ -158,7 +212,7 @@ def parent_worker(dev: torch.device = torch.device("cuda")
     from protopformer_tpu_torch.cli.bench_kernels import _time_ms
     from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
     from protopformer_tpu_torch.kernels import attention_core as ac
-    from protopformer_tpu_torch.models import construct_ppnet, layers
+    from protopformer_tpu_torch.models import construct_ppnet, deit, layers
     from protopformer_tpu_torch.serving import ServingEngine
 
     ppnet = PPNetConfig()
@@ -180,7 +234,8 @@ def parent_worker(dev: torch.device = torch.device("cuda")
                                    compute_dtype=dtype, with_attn=True,
                                    device=dev)
             with _first_calls(layers, ("fused_attention_block_stats",
-                                       "fused_attention_mean_padded")) as seen:
+                                       "fused_attention_mean_padded")) as seen, \
+                    _first_calls(deit, ("fused_map_stats",)) as seen_k2:
                 engine._forward(chunk)
             torch.cuda.synchronize()
             if mode == "fp32_parity":
@@ -193,19 +248,136 @@ def parent_worker(dev: torch.device = torch.device("cuda")
                     res[f"K4[fp32,{at},H={heads}]"] = _time_ms(
                         lambda: ac.fused_attention_core(qkv, pol, heads, 0.9,
                                                         0.2), dev, 3, 20)
-                del qkv, pol
+                # K2 on the serving map (block 0's)
+                fmap = seen_k2["fused_map_stats"][0].clone()
+                name = f"K2[fp32,{at}]"
+                res[name] = _time_ms(_hold_k2(name, fmap, True), dev, 3, 20)
+                del qkv, pol, fmap
             else:
                 qkv = seen["fused_attention_block_stats"][0].clone()
+                exact = mode == "bf16_exact"
                 name = f"K1[{mode[5:]},{at},H={heads}]"
-                res[name] = _time_ms(
-                    _hold_k1(name, qkv, heads, mode == "bf16_exact"), dev, 3,
-                    20)
-                del qkv
+                res[name] = _time_ms(_hold_k1(name, qkv, heads, exact), dev,
+                                     3, 20)
+                # K1's second launch alone: K2's select on K1's stored map
+                # (the cap at 1.0 aside)
+                _, fmap, _, _ = ac.fused_attention_block_stats(qkv, heads,
+                                                               0.9, exact)
+                name = f"K1_select[{mode[5:]},{at}]"
+                res[name] = _time_ms(_hold_k2(name, fmap, exact), dev, 3, 20)
+                del qkv, fmap
             if at == "N=577":
                 probe = engine.throughput_probe(n_images=PROBE_IMAGES, reps=2)
                 res[f"img_per_sec[{mode}]"] = probe["img_per_sec"]
-            del engine, seen
+            del engine, seen, seen_k2
             torch.cuda.empty_cache()
+        if at == "N=577":
+            res.update(thresh_readings(cfg, ppnet, state_dict, dev))
+        del state_dict
+    res.update(bench_readings(dev))
+    res.update(short_readings(dev))
+    return res
+
+
+def thresh_readings(cfg, ppnet, state_dict, dev) -> Dict[str, float]:
+    """The bf16 exact ``masked_forward_thresh`` of ``cfg``'s backbone at
+    B=160 (K4 on blocks 0-10): its img/s (CUDA events over 5 forwards
+    after 2), and K4's attention phase (K3 bf16's long kernel) and whole
+    call on the first K4 call's operands."""
+    from protopformer_tpu_torch.cli.bench_kernels import _time_ms
+    from protopformer_tpu_torch.kernels import attention_core as ac
+    from protopformer_tpu_torch.models import DeiTBackbone, layers
+
+    at = f"N={cfg.num_patches + 1}"
+    heads = cfg.num_heads
+    model = DeiTBackbone(cfg, torch.bfloat16)
+    model.load_state_dict({k[len("features."):]: v
+                           for k, v in state_dict.items()
+                           if k.startswith("features.")}, strict=True)
+    model = model.to(dev).eval()
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn((B, cfg.img_size, cfg.img_size, 3), generator=gen).to(dev)
+    token_attn = (torch.rand((B, cfg.num_patches), generator=gen)
+                  * (2.0 / cfg.num_patches)).to(dev)
+    reserve = ppnet.reserve_layer_nums
+
+    def forward():
+        with torch.inference_mode():
+            return model.masked_forward_thresh(*model.embed_all(x),
+                                               token_attn, reserve)
+
+    with _first_calls(layers, ("fused_attention_core",)) as seen:
+        forward()
+    qkv = seen["fused_attention_core"][0].clone()
+    ones = torch.ones(qkv.shape[:2], device=dev)
+    res = {}
+    name = f"K3[bf16,thresh,{at},H={heads}]"
+    res[name] = _time_ms(_hold_k3(name, qkv, ones, heads), dev, 3, 20)
+    res[f"K4[bf16,thresh,{at},H={heads}]"] = _time_ms(
+        lambda: ac.fused_attention_core(qkv, None, heads, 0.9, 0.2,
+                                        ones_policy=True), dev, 3, 20)
+    res["img_per_sec[thresh_bf16_exact]"] = B / (_time_ms(forward, dev, 2, 5)
+                                                 / 1e3)
+    del model, qkv
+    torch.cuda.empty_cache()
+    return res
+
+
+def bench_readings(dev) -> Dict[str, float]:
+    """K5 on the kernel bench's operands at 577 tokens (real 577 in NP 640,
+    B=256): the whole call and its attention phase (K3 bf16's long
+    kernel); and K3 bf16's long kernel at its least token count, on the
+    bench's unpadded operands at 257."""
+    from protopformer_tpu_torch.cli.bench_kernels import (
+        H as BENCH_H, _time_ms, bench_inputs)
+
+    n = 577
+    x = bench_inputs(dev, tokens=n)
+    qkv, pol = x["qkv_pad"], x["policy_pad"]
+    name = "K3[bf16,bench,577 in 640]"
+    res = {name: _time_ms(_hold_k3(name, qkv, pol, BENCH_H, n), dev, 3, 20)}
+    name = "K5[bf16,bench,577 in 640]"
+    res[name] = _time_ms(_hold_k5(name, qkv, pol, BENCH_H, n), dev, 3, 20)
+    x = bench_inputs(dev, tokens=257)
+    name = "K3[bf16,bench,257]"
+    res[name] = _time_ms(_hold_k3(name, x["qkv"], x["policy"], BENCH_H),
+                         dev, 3, 20)
+    return res
+
+
+def short_readings(dev) -> Dict[str, float]:
+    """The routes at N <= 256 that share the select's code with the long
+    one, on seeded random operands: K1 in both modes and K2 on K1's exact
+    map at the ``SHORT_CASES``, and K5 on the kernel bench's operands at
+    197 and 256 tokens (NP 256, B=256) with its attention phase (K3's
+    call on the same operands) and its normalize (the call less that
+    phase)."""
+    from protopformer_tpu_torch.cli.bench_kernels import (
+        H as BENCH_H, _time_ms, bench_inputs)
+    from protopformer_tpu_torch.kernels import attention_core as ac
+
+    gen = torch.Generator().manual_seed(13)
+    res = {}
+    for n, c, h in SHORT_CASES:
+        qkv = torch.randn((B, n, 3 * c), generator=gen).to(dev,
+                                                          torch.bfloat16)
+        for exact in (False, True):
+            name = f"K1[{'exact' if exact else 'speed'},N={n},H={h}]"
+            res[name] = _time_ms(_hold_k1(name, qkv, h, exact), dev, 3, 20)
+        _, fmap, _, _ = ac.fused_attention_block_stats(qkv, h, 0.9, True)
+        name = f"K2[fp32,N={n},H={h}]"
+        res[name] = _time_ms(_hold_k2(name, fmap, True), dev, 3, 20)
+    for n in (197, 256):
+        x = bench_inputs(dev, tokens=n)
+        qkv, pol = x["qkv_pad"], x["policy_pad"]
+        at = f"bench,{n} in {qkv.shape[1]}"
+        name = f"K3[bf16,{at}]"
+        attention = res[name] = _time_ms(
+            _hold_k3(name, qkv, pol, BENCH_H, n), dev, 3, 20)
+        name = f"K5[bf16,{at}]"
+        res[name] = _time_ms(_hold_k5(name, qkv, pol, BENCH_H, n), dev, 3,
+                             20)
+        res[f"K5_normalize[{at}]"] = res[name] - attention
     return res
 
 

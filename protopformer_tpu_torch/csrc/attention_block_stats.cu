@@ -257,7 +257,7 @@ block_stats_kernel(const __nv_bfloat16* __restrict__ qkv, int N, int C, int H,
   }
   __syncthreads();
   const bool prefix16 = !exact;
-  const unsigned key = ppf::cluster_radix_select<true>(
+  const unsigned key = ppf::cluster_radix_select(
       acc, band, N, L.astride, prefix16, keep,
       prefix16 ? (0x3F800000u >> 16) : 0x3F800000u, radix);
   const float thr = ppf::threshold_from_key(static_cast<int>(key), prefix16);

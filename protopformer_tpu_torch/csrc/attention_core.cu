@@ -39,14 +39,19 @@
 // (1 + identity_weight, the row sum), so they go through a correctly
 // rounded reciprocal and FMA corrections (ppf::div_by_recip), which equal
 // div.rn and do not branch. Split over a cluster, the normalize takes
-// every real_n <= NP <= 640, as phase 1 does: above 512 real rows a
-// cluster of 8 CTAs with bands of up to 80 rows (73 at 577, 181 KB of
-// shared memory: one CTA an SM). At B=160, N=577 in fp32 K4 moves 429 MB
-// (qkv, out, the map) and its products are 164 GFLOP at H=12: 2.44 ms on
-// the CUDA cores bounds it; the normalize's round trip of the 213 MB map is
-// 0.13 ms at the memory rate, no longer L2-resident. The TPU kernel kept
-// the map in VMEM between the phases; fusing them would mean rewriting K3's
-// attention inside K4 for ~15 us of traffic at N=197.
+// every real_n <= NP <= 640, as phase 1 does: above 256 real rows with
+// K2's long select (map_stats.cu; common.cuh, cluster_radix_select_long),
+// above 512 in a cluster of 16 CTAs with bands of up to 40 rows (37 at
+// 577, ~114 KB of shared memory: two CTAs an SM; measured 0.541 -> 0.437
+// ms at 577, B=160, and 1.08 -> 0.72 ms at real 577 in NP 640, B=256, on
+// an H100 at 700 W, PERF.md). At B=160, N=577 in fp32
+// K4 moves 429 MB (qkv, out, the map) and its products are 164 GFLOP at
+// H=12: 2.44 ms on the CUDA cores bounds it; the normalize's round trip of
+// the 213 MB map is 0.13 ms at the memory rate, no longer L2-resident. In
+// bf16 above 256 tokens phase 1 is K3's bf16 long kernel (stored logits,
+// K and V read once a head). The TPU kernel kept the map in VMEM between
+// the phases; fusing them would mean rewriting K3's attention inside K4
+// for ~15 us of traffic at N=197.
 #include "common.cuh"
 
 extern "C" int ppf_attention_mean(const void* qkv, const void* policy, int B,
@@ -68,7 +73,8 @@ __device__ __forceinline__ float blend(float v, bool diag, int lo, float iw,
 
 // kOneStep: real_n <= ppf::kRowStep (cluster_radix_select).
 template <bool kOneStep>
-__global__ void __launch_bounds__(ppf::kMapThreads, ppf::kMapCtasPerSm)
+__global__ void __launch_bounds__(ppf::kMapThreads,
+                                   ppf::map_ctas_per_sm(kOneStep))
 normalize_kernel(float* __restrict__ map, int NP, int real_n, int keep,
                  float iw, float one_plus_iw) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -132,6 +138,7 @@ normalize_kernel(float* __restrict__ map, int NP, int real_n, int keep,
         dst[j] = ppf::div_by_recip(row[j], denom, r_denom);
     }
   }
+  if constexpr (!kOneStep) ppf::cluster_wait();
 }
 
 // The normalize kernel for real_n real tokens.
@@ -176,6 +183,7 @@ extern "C" int ppf_attention_core(const void* qkv, const void* policy, int B,
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)cfg.dynamicSmemBytes);
+  if (e == cudaSuccess) e = ppf::allow_map_clusters(kernel, (int)cfg.gridDim.x);
   if (e != cudaSuccess) return e;
   e = cudaLaunchKernelEx(&cfg, kernel, static_cast<float*>(map), NP, real_n,
                          keep, identity_weight, one_plus_iw);
@@ -198,7 +206,13 @@ extern "C" int ppf_attention_core_active_clusters(int real_n, int NP) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)cfg.dynamicSmemBytes);
+  if (e == cudaSuccess) e = ppf::allow_map_clusters(kernel, (int)cfg.gridDim.x);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   return e == cudaSuccess ? clusters : -static_cast<int>(e);
+}
+
+// ppf_map_stats_select_route for the normalize's select above 256 tokens.
+extern "C" int ppf_attention_core_select_route(int* out, int reset) {
+  return ppf::read_select_route(out, reset != 0);
 }

@@ -53,17 +53,35 @@
 //    tests/test_torch_gpu.py). Measured (cli.time_long_kernels --against
 //    parent, an H100 at 700 W, B=160, the model's own operands; PERF.md):
 //    13.19 -> 8.07 ms at 577, 0.901 -> 0.547 ms at 257.
-//  * bf16 (bf16k::mean_long_kernel): the tensor-core tiles above over
-//    chunks of 128 keys, two warps a 16-row tile, each on half of every
-//    chunk; three passes a head (the row maximum, the sum of the
-//    exponentials, then the probabilities, the head mean and P V, with
-//    that chunk's K and V in two buffers), recomputing S from the chunk
-//    each pass; the halves' maxima and sums meet in shared memory, their
-//    P V at the end of the head; the band's accumulator in shared memory
-//    (222 KB at 640: one block an SM). The softmax arithmetic of every
-//    probability over three passes, not the tensor cores, bounds it: as
-//    K4's attention phase at 577 (B=160, H=12, an H100 at 700 W) it read
-//    9.5 ms with one warp a tile and 6.9 ms with two (8 an SM).
+//  * bf16 (bf16k::mean_long_kernel; K4's and K5's attention phase above
+//    256 tokens): K1's long design (attention_block_stats.cu) with K3's
+//    numerics. 48 query rows a block in 3 tiles of 16, four warps a tile
+//    (384 threads), no cluster: 13 blocks a sample at 577, the last with
+//    one row. Bound at B=160, NP=577, H=12: bytes, 780 MB (qkv, the policy,
+//    out, the fp32 map) = 0.233 ms. Pass 1 computes each logit once
+//    (mma.sync m16n8k16 from ldmatrix, fp32 accumulate, times the scale,
+//    unrounded; each warp 2 key tiles of a 128-key chunk) and stores it in
+//    fp32, with the row maxima. The softmax then runs over the stored
+//    logits: each warp 4 rows, a lane 4 columns of each 128, each row in
+//    registers from its load to its store (e = exp(s - m) * policy with
+//    the identity escape, the row sum, p = (e + eps/real_n) / (sum +
+//    1e-6) by the row's reciprocal, ppf::div_by_recip), p back in place,
+//    and the head mean in registers (80 a thread). P V reads the stored
+//    probabilities, rounds them to bf16 as P's fragments (pack_p's
+//    rounding) and multiplies by V, each warp 16 head-dim columns, so no
+//    two warps' sums meet; key tiles at or past real_n (zero V rows) are
+//    skipped. K and V are each copied once a head through a ring of 2
+//    chunk buffers filled by cp.async one chunk ahead; the head's Q rows
+//    come with its first K chunk. Every probability takes one exp. The
+//    row maximum is final before any exp (no online rescaling, which
+//    would move entries by an ulp that K4/K5's order statistic
+//    magnifies). ~165 KB of shared memory at 577: one block an SM; what
+//    holds it above the bound is the softmax's instruction rate and each
+//    block streaming all of a head's K and V from L2. Measured
+//    (cli.time_long_kernels --against parent, an H100 at 700 W, the
+//    models' operands; PERF.md): 6.13 -> 3.35 ms at 577 on K4's operands
+//    (B=160, H=12), 2.56 -> 1.51 ms on K5's bench operands (B=256, real
+//    577 in NP 640, H=3).
 #include "common.cuh"
 
 namespace {
@@ -220,236 +238,333 @@ mean_kernel(const __nv_bfloat16* __restrict__ qkv,
   }
 }
 
-// The long kernel (NP >= ppf::kLongMinTokens): two warps a 16-row tile,
-// each on one half of every chunk of kLongTiles key tiles. Its shared
-// memory: the policy and the band's accumulator over the NP columns rounded
-// up to 16, one buffer each for a chunk of K and of V, the halves' P V of
-// each tile, and their row maxima or sums.
-constexpr int kLongTiles = 8;
-constexpr int kLongChunk = 16 * kLongTiles;
-constexpr int kLongThreads = 2 * kThreads;
+// The long kernel (NP >= ppf::kLongMinTokens): kLongRows query rows a
+// block in kLongTiles 16-row tiles, kLongWarps warps a tile, no cluster.
+// Pass 1 computes each fp32 logit of the block's rows once and stores it;
+// the softmax runs over the stored values, each warp its kLongRowsPerWarp
+// rows, with the head mean in registers; P V reads the stored
+// probabilities. K, then V, stream through a ring of kLongStages chunk
+// buffers, each filled by cp.async one chunk ahead, and the head's 48 Q
+// rows come with its first K chunk.
+constexpr int kLongTiles = 3;
+constexpr int kLongWarps = 4;
+constexpr int kLongRows = 16 * kLongTiles;
+constexpr int kLongThreads = 32 * kLongWarps * kLongTiles;
+constexpr int kLongNW = kLongThreads / 32;
+constexpr int kLongRowsPerWarp = kLongRows / kLongNW;
+constexpr int kLongChunk = 32 * kLongWarps;  // keys a chunk: 2 key tiles a warp
+constexpr int kLongStages = 2;
 
+// Steps of 128 columns (4 a lane) a softmax row takes at NP tokens: the
+// kernel is built for 3, 4 and 5 (NP up to 384, 512 and 640; 3 also below
+// 257 tokens, as cli.time_long_kernels's copy runs it there).
+inline int long_steps(int NP) {
+  const int st = (NP + kLongChunk - 1) / kLongChunk;
+  return st < 3 ? 3 : st;
+}
+
+// Its shared memory: the policy, each warp's row maxima of its tile, the
+// block's Q rows, the ring, and the block's fp32 logits (then
+// probabilities) over the 32-key blocks that hold real keys (pass 1 writes
+// whole blocks), at a stride of 8 mod 32 words past them: a half warp's
+// float2 accesses (4 rows x 8 words) fall on 32 distinct banks.
 struct LongLayout {
-  int np, astride, kstride;
-  size_t pol, acc, k, v, xchg, red, total;
+  int nk, lstride, kstride;
+  size_t pol, red, q, ring, lg, total;
   __host__ __device__ LongLayout(int NP, int hd) {
-    np = ppf::round_up(NP, 16);
-    astride = np + 8;
+    nk = ppf::round_up(NP, 16);
+    lstride = ppf::round_up(NP, 32) + 8;
     kstride = ppf::kv_stride(hd);
     pol = 0;
-    acc = ppf::align16(pol + (size_t)ppf::round_up(NP, kLongChunk) *
+    red = ppf::align16(pol + (size_t)ppf::round_up(NP, kLongChunk) *
                                  sizeof(float));
-    k = ppf::align16(acc + (size_t)16 * kTiles * astride * sizeof(float));
-    v = ppf::align16(k + (size_t)kLongChunk * kstride * sizeof(__nv_bfloat16));
-    xchg = ppf::align16(v + (size_t)kLongChunk * kstride *
+    q = ppf::align16(red + (size_t)kLongNW * 16 * sizeof(float));
+    ring = ppf::align16(q + (size_t)kLongRows * kstride *
                                 sizeof(__nv_bfloat16));
-    red = xchg + (size_t)kTiles * 32 * 32 * sizeof(float);
-    total = ppf::align16(red + (size_t)2 * kTiles * 16 * sizeof(float));
+    lg = ppf::align16(ring + (size_t)kLongStages * kLongChunk * kstride *
+                                 sizeof(__nv_bfloat16));
+    total = ppf::align16(lg + (size_t)kLongRows * lstride * sizeof(float));
   }
 };
 
-__global__ void __launch_bounds__(kLongThreads)
+// rows kLongRows * blockIdx.x on of sample blockIdx.y; ST = long_steps(NP)
+template <int ST>
+__global__ void __launch_bounds__(kLongThreads, 1)
 mean_long_kernel(const __nv_bfloat16* __restrict__ qkv,
                  const float* __restrict__ policy, int NP, int C, int H,
                  int real_n, float scale, float eps_over_n,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ map_out) {
-  constexpr int KT = kLongTiles / 2;  // key tiles of a chunk a warp takes
   extern __shared__ __align__(16) unsigned char smem[];
   const int hd = C / H;
   const int hk = (hd + 15) / 16;
   const int C3 = 3 * C;
   const LongLayout L(NP, hd);
   float* pol = reinterpret_cast<float*>(smem + L.pol);
-  float* acc = reinterpret_cast<float*>(smem + L.acc);
-  __nv_bfloat16* kbuf = reinterpret_cast<__nv_bfloat16*>(smem + L.k);
-  __nv_bfloat16* vbuf = reinterpret_cast<__nv_bfloat16*>(smem + L.v);
-  float* xchg = reinterpret_cast<float*>(smem + L.xchg);
   float* red = reinterpret_cast<float*>(smem + L.red);
+  __nv_bfloat16* qbuf = reinterpret_cast<__nv_bfloat16*>(smem + L.q);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem + L.ring);
+  float* lg = reinterpret_cast<float*>(smem + L.lg);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int tw = warp % kTiles;    // the warp's row tile
-  const int half = warp / kTiles;  // the half of each chunk it takes
+  const int tw = warp / kLongWarps;  // the warp's row tile
+  const int w = warp % kLongWarps;   // its 2 key tiles of a chunk, and its
+                                     // 16 columns of the head dim in P V
   const int b = blockIdx.y;
-  const int r0 = 16 * (blockIdx.x * kTiles + tw);  // this warp's first row
-  const bool active = r0 < NP;
-  // this warp's keys of a chunk: rows ch .. ch + 16 KT - 1 of the buffers
-  const int ch = 16 * KT * half;
-  const int kofs = ch * L.kstride;
-  // the halves' values of this tile's rows g and g + 8
-  float* red_mine = red + (half * kTiles + tw) * 16;
-  const float* red_lo = red + tw * 16;
-  const float* red_hi = red + (kTiles + tw) * 16;
+  const int row0 = kLongRows * blockIdx.x;
+  const int rows = min(kLongRows, NP - row0);  // rows of the block < NP
+  const int r0 = row0 + 16 * tw;               // the tile's first row
+  const bool active = 16 * tw < rows;
+  const bool pv = active && w < hk;
   const __nv_bfloat16* qkv_b = qkv + (size_t)b * NP * C3;
   const float rH = 1.0f / (float)H;
   const float neg_inf = __uint_as_float(0xff800000u);
+  const int nc = (NP + kLongChunk - 1) / kLongChunk;      // K chunks a head
+  const int nv = (real_n + kLongChunk - 1) / kLongChunk;  // V chunks a head
+  // softmax rows a warp holds at once: two, but one at 5 steps, where two
+  // rows' 40 values beside the head mean's 80 would spill
+  constexpr int RG = ST >= 5 ? 1 : 2;
+  float* ltile = lg + 16 * tw * L.lstride;
+  // ldmatrix's row and column of this lane in a 16 x 16 tile
+  const int lrow = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int lcol = (lane >> 4) * 8;
 
   load_policy(policy ? policy + (size_t)b * NP : nullptr, NP,
               ppf::round_up(NP, kLongChunk), pol);
-  for (int e = threadIdx.x; e < 16 * kTiles * L.astride / 4; e += blockDim.x)
-    reinterpret_cast<float4*>(acc)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // the head mean of rows warp + kLongNW k, columns 4 lane + 128 st .. + 3
+  float4 acc[kLongRowsPerWarp][ST];
+#pragma unroll
+  for (int k = 0; k < kLongRowsPerWarp; ++k)
+#pragma unroll
+    for (int st = 0; st < ST; ++st) acc[k][st] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  // starts the copy of keys k0 .. k0 + kLongChunk - 1 of the head slice at
-  // column `col` into `dst`, rows >= valid zeros; arrive() waits for the
-  // copies and publishes them
-  auto copy_chunk = [&](__nv_bfloat16* dst, int col, int k0, int valid) {
-    ppf::load_head_async(qkv_b + (size_t)k0 * C3, C3, col, hd, valid - k0,
-                         kLongChunk, 16 * hk, dst, L.kstride);
+  // the stream of chunks: each head's K chunks (rows >= NP zeros), with the
+  // first of them the head's Q rows, then its V chunks (rows >= real_n
+  // zeros). fetch() copies the next one, (ih, ic), into stage ist;
+  // arrive() waits for the oldest, in stage cst, publishes it, and refills
+  // the stage every warp is done with
+  const size_t chunk = (size_t)kLongChunk * L.kstride;
+  const ppf::CopySteps cs = ppf::copy_steps<__nv_bfloat16>(16 * hk);
+  int ih = 0, ic = 0, ist = 0, cst = 0;
+  auto fetch = [&]() {
+    if (ih < H) {
+      if (ic == 0)
+        ppf::load_rows_async(qkv_b + (size_t)row0 * C3, C3, ih * hd, hd,
+                             NP - row0, kLongRows, qbuf, L.kstride, cs);
+      const bool isk = ic < nc;
+      const int k0 = (isk ? ic : ic - nc) * kLongChunk;
+      ppf::load_rows_async(qkv_b + (size_t)k0 * C3, C3,
+                           (isk ? C : 2 * C) + ih * hd, hd,
+                           (isk ? NP : real_n) - k0, kLongChunk,
+                           ring + ist * chunk, L.kstride, cs);
+    }
+    if (++ic == nc + nv) {
+      ic = 0;
+      ++ih;
+    }
+    ist = ist + 1 == kLongStages ? 0 : ist + 1;
+    ppf::cp_async_commit();
   };
   auto arrive = [&]() {
-    ppf::cp_async_wait_all();
+    ppf::cp_async_wait<kLongStages - 2>();
     __syncthreads();
-  };
-  // publishes each quad's value of rows g and g + 8 for the other half
-  auto share = [&](const float (&v)[2]) {
-    if (active && t == 0) {
-      red_mine[g] = v[0];
-      red_mine[g + 8] = v[1];
-    }
-    __syncthreads();
-  };
-  // the warp's half of the chunk's fp32 logits times the scale, columns
-  // >= NP -inf; element e of an n-tile is row g + 8 (e >> 1), column
-  // k0 + ch + 8n + 2t + (e & 1)
-  uint32_t qa[4][4];
-  auto logits = [&](float (&S)[2 * KT][4], int k0) {
-    ppf::warp_qk<KT>(S, qa, kbuf + kofs, L.kstride, hk);
-#pragma unroll
-    for (int n = 0; n < 2 * KT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        S[n][e] = __fmul_rn(S[n][e], scale);
-        if (k0 + ch + 8 * n + 2 * t + (e & 1) >= NP) S[n][e] = neg_inf;
-      }
-  };
-  // e = exp(s - m) * policy (0 at the pads, whose policy is 0 as well)
-  auto exps = [&](float (&S)[2 * KT][4], int k0, const float (&m)[2]) {
-#pragma unroll
-    for (int n = 0; n < 2 * KT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + ch + 8 * n + 2 * t + (e & 1);
-        const int row = r0 + g + 8 * (e >> 1);
-        S[n][e] = __fmul_rn(expf(__fsub_rn(S[n][e], m[e >> 1])),
-                            attn_policy(pol, col, row));
-      }
+    fetch();
+    const __nv_bfloat16* buf = ring + cst * chunk;
+    cst = cst + 1 == kLongStages ? 0 : cst + 1;
+    return buf;
   };
 
+  for (int k = 0; k < kLongStages - 1; ++k) fetch();
   for (int h = 0; h < H; ++h) {
-    const int kcol = C + h * hd;
-    if (active)
-      ppf::load_q_frags(qa, qkv_b + (size_t)r0 * C3 + h * hd, C3, NP - r0, hd);
-    float m[2] = {neg_inf, neg_inf};
-    for (int k0 = 0; k0 < NP; k0 += kLongChunk) {
-      __syncthreads();  // every warp is done with the buffers
-      copy_chunk(kbuf, kcol, k0, NP);
-      arrive();
-      if (active) {
-        float S[2 * KT][4];
-        logits(S, k0);
+    // pass 1: each warp its 2 key tiles of every chunk. The logits, fp32
+    // dots times the scale (columns >= NP -inf), into the tile's fp32 rows,
+    // and the row maxima
+    uint32_t qa[4][4];
+    float mx[2] = {neg_inf, neg_inf};
+    for (int c = 0; c < nc; ++c) {
+      const __nv_bfloat16* kb = arrive();  // the first also brings Q
+      if (!active) continue;
+      if (c == 0) {
 #pragma unroll
-        for (int n = 0; n < 2 * KT; ++n)
+        for (int kk = 0; kk < 4; ++kk)
+          if (kk < hk)
+            ppf::ldmatrix_x4(qa[kk], qbuf + (16 * tw + lrow) * L.kstride +
+                                         16 * kk + lcol);
+      }
+      const int k0 = c * kLongChunk + 32 * w;
+      if (k0 >= NP) continue;  // key tiles of pads only: never read
+      float S[4][4];
+      ppf::warp_qk<2>(S, qa, kb + 32 * w * L.kstride, L.kstride, hk);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], S[n][e]);
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int col = k0 + 8 * n + 2 * t;
+          float x = __fmul_rn(S[n][2 * r], scale);
+          float y = __fmul_rn(S[n][2 * r + 1], scale);
+          if (col >= NP) x = neg_inf;
+          if (col + 1 >= NP) y = neg_inf;
+          mx[r] = fmaxf(mx[r], fmaxf(x, y));
+          *reinterpret_cast<float2*>(ltile + (g + 8 * r) * L.lstride + col) =
+              make_float2(x, y);
+        }
+    }
+    if (active) {
+      mx[0] = ppf::quad_max(mx[0]);
+      mx[1] = ppf::quad_max(mx[1]);
+      if (t == 0) {
+        red[warp * 16 + g] = mx[0];
+        red[warp * 16 + g + 8] = mx[1];
       }
     }
-    m[0] = ppf::quad_max(m[0]);
-    m[1] = ppf::quad_max(m[1]);
-    share(m);
-    m[0] = fmaxf(red_lo[g], red_hi[g]);
-    m[1] = fmaxf(red_lo[g + 8], red_hi[g + 8]);
-    float sum[2] = {0.f, 0.f};
-    for (int k0 = 0; k0 < NP; k0 += kLongChunk) {
-      __syncthreads();
-      copy_chunk(kbuf, kcol, k0, NP);
-      arrive();
-      if (active) {
-        float S[2 * KT][4];
-        logits(S, k0);
-        exps(S, k0, m);
+    __syncthreads();  // every logit and row maximum of the block stored
+    // pass 2: the softmax of each warp's rows, RG at a time, a lane 4
+    // columns of each 128, each row held in registers from its load to its
+    // store: e = exp(s - m) * policy (the identity escape on the diagonal;
+    // 0 past NP, where s is -inf and the policy 0) and its row sum (each
+    // lane's values in column order, then the warp's lanes); p = (e +
+    // eps/real_n) / (sum + 1e-6), the division from the row's reciprocal
+    // (ppf::div_by_recip), 0 past NP, over the logits in place; the head
+    // mean in registers. Rows past the block's (the last block's) skip.
 #pragma unroll
-        for (int n = 0; n < 2 * KT; ++n)
+    for (int k2 = 0; k2 < kLongRowsPerWarp; k2 += RG) {
+      float4 x[RG][ST];
+      float sum[RG];
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            sum[e >> 1] = __fadd_rn(sum[e >> 1], S[n][e]);
+      for (int kk = 0; kk < RG; ++kk) {
+        sum[kk] = 0.f;
+        const int r = warp + kLongNW * (k2 + kk);
+        if (r >= rows) continue;
+        const float* prow = lg + r * L.lstride + 4 * lane;
+#pragma unroll
+        for (int st = 0; st < ST; ++st)
+          if (4 * lane + 128 * st < L.nk)
+            x[kk][st] = *reinterpret_cast<const float4*>(prow + 128 * st);
       }
-    }
-    // each half's sum in column order, then the first half's plus the
-    // second's
-    sum[0] = ppf::quad_sum(sum[0]);
-    sum[1] = ppf::quad_sum(sum[1]);
-    share(sum);
-    float denom[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      denom[i] = __fadd_rn(
-          __fadd_rn(red_lo[g + 8 * i], red_hi[g + 8 * i]), 1e-6f);
-    float O[8][4];
+      for (int kk = 0; kk < RG; ++kk) {
+        const int r = warp + kLongNW * (k2 + kk);
+        if (r >= rows) continue;
+        const int i = row0 + r;
+        const float* rm = red + (r >> 4) * kLongWarps * 16 + (r & 15);
+        float m = rm[0];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+        for (int q = 1; q < kLongWarps; ++q) m = fmaxf(m, rm[16 * q]);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) O[n][e] = 0.f;
-    for (int k0 = 0; k0 < NP; k0 += kLongChunk) {
-      __syncthreads();
-      copy_chunk(kbuf, kcol, k0, NP);
-      copy_chunk(vbuf, 2 * C + h * hd, k0, real_n);
-      arrive();
-      if (active) {
-        float S[2 * KT][4];
-        logits(S, k0);
-        exps(S, k0, m);
-        float* arow = acc + (16 * tw + g) * L.astride + k0 + ch + 2 * t;
+        for (int st = 0; st < ST; ++st) {
+          const int c0 = 4 * lane + 128 * st;
+          if (c0 < L.nk) {
+            const float4 pw = *reinterpret_cast<const float4*>(pol + c0);
+            float* v = reinterpret_cast<float*>(&x[kk][st]);
+            const float pp[4] = {pw.x, pw.y, pw.z, pw.w};
 #pragma unroll
-        for (int n = 0; n < 2 * KT; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            S[n][e] = __fdiv_rn(__fadd_rn(S[n][e], eps_over_n), denom[e >> 1]);
-            if (k0 + ch + 8 * n + 2 * t + (e & 1) >= NP) S[n][e] = 0.f;
-          }
-          if (k0 + ch + 8 * n < L.np) {  // the last chunk may pass the band
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              float2* a = reinterpret_cast<float2*>(
-                  arow + 8 * half * L.astride + 8 * n);
-              float2 v = *a;
-              v.x = __fadd_rn(v.x, __fmul_rn(S[n][2 * half], rH));
-              v.y = __fadd_rn(v.y, __fmul_rn(S[n][2 * half + 1], rH));
-              *a = v;
+            for (int j = 0; j < 4; ++j) {
+              const float wgt =
+                  c0 + j == i ? __fadd_rn(pp[j], __fsub_rn(1.f, pp[j])) : pp[j];
+              v[j] = __fmul_rn(expf(__fsub_rn(v[j], m)), wgt);
+              sum[kk] = __fadd_rn(sum[kk], v[j]);
             }
           }
         }
-        uint32_t pa[KT][4];
-        ppf::pack_p<KT>(pa, S);  // probabilities rounded to bf16 for P V
-        ppf::warp_pv_add<KT>(O, pa, vbuf + kofs, L.kstride, hk);
+      }
+#pragma unroll
+      for (int kk = 0; kk < RG; ++kk) {
+        const int r = warp + kLongNW * (k2 + kk);
+        if (r >= rows) continue;
+        const float denom = __fadd_rn(ppf::warp_sum(sum[kk]), 1e-6f);
+        const float rcp = __frcp_rn(denom);
+        float* prow = lg + r * L.lstride + 4 * lane;
+#pragma unroll
+        for (int st = 0; st < ST; ++st) {
+          const int c0 = 4 * lane + 128 * st;
+          if (c0 < L.nk) {
+            float* v = reinterpret_cast<float*>(&x[kk][st]);
+            float* a = reinterpret_cast<float*>(&acc[k2 + kk][st]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              float p = ppf::div_by_recip(__fadd_rn(v[j], eps_over_n), denom,
+                                          rcp);
+              if (c0 + j >= NP) p = 0.f;
+              a[j] = __fadd_rn(a[j], __fmul_rn(p, rH));
+              v[j] = p;
+            }
+            *reinterpret_cast<float4*>(prow + 128 * st) = x[kk][st];
+          }
+        }
       }
     }
-    // O = the first half's P V plus the second's; the first warp stores it
-    float* x = xchg + tw * 32 * 32 + lane;
-    if (active && half == 1) {
+    // pass 3: O = P V over the chunks of V, in key order, with P rounded to
+    // bf16 (nearest even) as P V's operand; each warp the head dim's
+    // columns 16 w .. 16 w + 15, so no two warps' sums meet. Key tiles at
+    // or past real_n (zero V rows) are skipped
+    float O[2][4];
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < 2; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) x[(4 * n + e) * 32] = O[n][e];
+      for (int e = 0; e < 4; ++e) O[n][e] = 0.f;
+    for (int c = 0; c < nv; ++c) {
+      const __nv_bfloat16* vb = arrive();  // its barrier also publishes P
+      if (!pv) continue;
+#pragma unroll
+      for (int j = 0; j < kLongChunk / 16; ++j) {
+        const int kc = c * kLongChunk + 16 * j;
+        if (kc >= real_n) break;
+        const float* pr = ltile + g * L.lstride + kc + 2 * t;
+        const float2 p0 = *reinterpret_cast<const float2*>(pr);
+        const float2 p1 = *reinterpret_cast<const float2*>(pr + 8 * L.lstride);
+        const float2 p2 = *reinterpret_cast<const float2*>(pr + 8);
+        const float2 p3 =
+            *reinterpret_cast<const float2*>(pr + 8 * L.lstride + 8);
+        const uint32_t pa[4] = {
+            ppf::pack_bf16(p0.x, p0.y), ppf::pack_bf16(p1.x, p1.y),
+            ppf::pack_bf16(p2.x, p2.y), ppf::pack_bf16(p3.x, p3.y)};
+        uint32_t bv[4];
+        ppf::ldmatrix_x4_trans(
+            bv, vb + (16 * j + lrow) * L.kstride + 16 * w + lcol);
+        ppf::mma_bf16(O[0], pa, bv[0], bv[1]);
+        ppf::mma_bf16(O[1], pa, bv[2], bv[3]);
+      }
     }
-    __syncthreads();
-    if (active && half == 0) {
+    if (pv) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < 2; ++n) {
+        const int col = 16 * w + 8 * n + 2 * t;
+        if (col < hd) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          O[n][e] = __fadd_rn(O[n][e], x[(4 * n + e) * 32]);
-      ppf::store_o(out + ((size_t)b * NP + r0) * C + h * hd, C, O, NP - r0,
-                   hd);
+          for (int half = 0; half < 2; ++half) {
+            const int row = g + 8 * half;
+            if (row < NP - r0)
+              *reinterpret_cast<__nv_bfloat162*>(
+                  out + ((size_t)b * NP + r0 + row) * C + h * hd + col) =
+                  __floats2bfloat162_rn(O[n][2 * half], O[n][2 * half + 1]);
+          }
+        }
+      }
     }
   }
-  __syncthreads();  // both warps of a tile updated its accumulator rows
-  // each warp writes 8 of its tile's rows
-  for (int r = 8 * half; r < 8 * half + 8; ++r) {
-    const int i = r0 + r;
-    if (i >= NP) break;
-    const float* src = acc + (16 * tw + r) * L.astride;
+
+  // the head mean, zero outside the real block: each warp stages its rows
+  // in the logits' space, then writes them row by row
+  __syncthreads();  // every warp is done with the last head's P
+#pragma unroll
+  for (int k = 0; k < kLongRowsPerWarp; ++k) {
+    const int r = warp + kLongNW * k;
+    if (r >= rows) continue;
+    float* prow = lg + r * L.lstride + 4 * lane;
+#pragma unroll
+    for (int st = 0; st < ST; ++st)
+      if (4 * lane + 128 * st < L.nk)
+        *reinterpret_cast<float4*>(prow + 128 * st) = acc[k][st];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < kLongRowsPerWarp; ++k) {
+    const int r = warp + kLongNW * k;
+    if (r >= rows) continue;
+    const int i = row0 + r;
+    const float* src = lg + r * L.lstride;
     float* dst = map_out + ((size_t)b * NP + i) * NP;
     for (int j = lane; j < NP; j += ppf::kWarp) {
       const float real = (i < real_n && j < real_n) ? 1.f : 0.f;
@@ -458,36 +573,63 @@ mean_long_kernel(const __nv_bfloat16* __restrict__ qkv,
   }
 }
 
+bool long_tokens(int NP) { return NP >= ppf::kLongMinTokens; }
+
 size_t smem_bytes(int NP, int hd) {
-  return NP >= ppf::kLongMinTokens ? LongLayout(NP, hd).total
-                                   : Layout(NP, hd).total;
+  return long_tokens(NP) ? LongLayout(NP, hd).total : Layout(NP, hd).total;
 }
+
+// Runs the statements given with `kernel` the bf16 kernel for NP tokens
+// and `threads` its block size; returns cudaErrorInvalidValue where none
+// takes NP.
+#define PPF_DISPATCH_BF16(NP, ...)                                         \
+  if (long_tokens(NP)) {                                                   \
+    constexpr int threads = kLongThreads;                                  \
+    switch (long_steps(NP)) {                                              \
+      case 3: { auto kernel = mean_long_kernel<3>; __VA_ARGS__ } break;    \
+      case 4: { auto kernel = mean_long_kernel<4>; __VA_ARGS__ } break;    \
+      case 5: { auto kernel = mean_long_kernel<5>; __VA_ARGS__ } break;    \
+      default: return cudaErrorInvalidValue;                               \
+    }                                                                      \
+  } else {                                                                 \
+    constexpr int threads = kThreads;                                      \
+    PPF_DISPATCH_KT(NP, {                                                  \
+      auto kernel = mean_kernel<KT>;                                       \
+      __VA_ARGS__                                                          \
+    });                                                                    \
+  }
 
 cudaError_t launch(const void* qkv, const float* policy, int B, int NP, int C,
                    int H, int real_n, float scale, float eps_over_n, void* out,
                    float* map, cudaStream_t stream) {
   const size_t smem = smem_bytes(NP, C / H);
-  const dim3 grid(((NP + 15) / 16 + kTiles - 1) / kTiles, B);
-  if (NP >= ppf::kLongMinTokens) {
+  const dim3 grid = long_tokens(NP)
+                        ? dim3((NP + kLongRows - 1) / kLongRows, B)
+                        : dim3(((NP + 15) / 16 + kTiles - 1) / kTiles, B);
+  PPF_DISPATCH_BF16(NP, {
     cudaError_t err = cudaFuncSetAttribute(
-        mean_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    mean_long_kernel<<<grid, kLongThreads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(qkv), policy, NP, C, H, real_n,
-        scale, eps_over_n, static_cast<__nv_bfloat16*>(out), map);
-    return cudaGetLastError();
-  }
-  PPF_DISPATCH_KT(NP, {
-    cudaError_t err = cudaFuncSetAttribute(
-        mean_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    mean_kernel<KT><<<grid, kThreads, smem, stream>>>(
+    kernel<<<grid, threads, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(qkv), policy, NP, C, H, real_n,
         scale, eps_over_n, static_cast<__nv_bfloat16*>(out), map);
   });
   return cudaGetLastError();
+}
+
+// Blocks of the kernel for NP tokens an SM holds at once.
+int resident_blocks(int NP, int hd) {
+  const size_t smem = smem_bytes(NP, hd);
+  int blocks = 0;
+  PPF_DISPATCH_BF16(NP, {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                          threads, smem);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+  });
+  return blocks;
 }
 
 }  // namespace bf16k
@@ -1070,4 +1212,10 @@ extern "C" int ppf_attention_mean_smem_bytes(int NP, int hd, int is_bf16) {
 extern "C" int ppf_attention_mean_f32_resident_blocks(int NP, int hd) {
   if (NP > ppf::kMaxTokens) return -static_cast<int>(cudaErrorInvalidValue);
   return f32k::resident_blocks(NP, hd);
+}
+
+// The same for the bf16 kernel.
+extern "C" int ppf_attention_mean_bf16_resident_blocks(int NP, int hd) {
+  if (NP > ppf::kMaxTokens) return -static_cast<int>(cudaErrorInvalidValue);
+  return bf16k::resident_blocks(NP, hd);
 }

@@ -75,7 +75,7 @@ __device__ __forceinline__ float threshold_from_key(int lo, bool prefix16) {
 }
 
 // The most tokens a kernel here takes: a sample's fp32 map band of
-// ceil(640 / kMaxClusterSize) = 80 rows of 640 values fits one CTA's
+// ceil(640 / kMaxMapClusterSize) = 40 rows of 640 values fits one CTA's
 // shared memory (map_band_smem), and the long attention kernels' bands too.
 constexpr int kMaxTokens = 640;
 
@@ -148,11 +148,17 @@ __device__ __forceinline__ void warp_pick_digit(const int (&c)[8], int k,
   }
 }
 
-// The largest cluster a launch here takes, the portable maximum: a sample
-// of up to 256 rows over CTAs of 64 rows (K1's four 16-row tiles, or
-// kMapBandRows) takes 1-4 CTAs, of up to 512 rows 5-8, and above that 8
-// CTAs whose bands grow to 73 rows at 577 and 80 at 640.
+// The largest portable cluster (K1's own launch up to 256 tokens; the map
+// select up to 512 rows): a sample of up to 256 rows over CTAs of 64 rows
+// (K1's four 16-row tiles, or kMapBandRows) takes 1-4 CTAs, of up to 512
+// rows 5-8.
 constexpr int kMaxClusterSize = 8;
+
+// The map select's cluster above 512 rows: 16 CTAs, a non-portable size
+// that Hopper takes (cudaFuncAttributeNonPortableClusterSizeAllowed), so
+// that a band holds at most 40 rows (37 at 577: ~86 KB of fp32, two CTAs
+// an SM).
+constexpr int kMaxMapClusterSize = 16;
 
 // Copies of the counting histogram, one per lane group of lane % 16.
 constexpr int kHistCopies = 16;
@@ -160,9 +166,10 @@ constexpr int kHistCopies = 16;
 // The most counts one copy of the histogram takes in a pass over a band of
 // `rows` rows of `cols` columns: lanes l and l + 16 of each warp count into
 // copy l % 16, two of the row's ceil(cols / 32) values a lane each. At the
-// largest band, 80 rows of 640, that is 3,200: far from the 65,535 that a
-// 16-bit counter holds before it carries into its neighbour. Each launcher
-// checks its band against it (hist_counts_fit).
+// largest band, 64 rows of 512, that is 2,048: far from the 65,535 that a
+// 16-bit counter holds before it carries into its neighbour (the count
+// that the load makes, by 16-byte chunks, is at most the band's 32,768
+// values). Each launcher checks its band against it (hist_counts_fit).
 __host__ __device__ constexpr int hist_copy_counts(int rows, int cols) {
   return rows * 2 * ((cols + kWarp - 1) / kWarp);
 }
@@ -171,59 +178,341 @@ __host__ __device__ constexpr bool hist_counts_fit(int rows, int cols) {
   return hist_copy_counts(rows, cols) <= 0xFFFF;
 }
 
-static_assert(hist_counts_fit(kMaxTokens / kMaxClusterSize, kMaxTokens),
+static_assert(hist_counts_fit(kMaxTokens / kMaxMapClusterSize + 1,
+                              kMaxTokens) &&
+                  hist_counts_fit(512 / kMaxClusterSize, 512),
               "a band of the largest map overflows the 16-bit counters");
 
 // Shared ints the select takes: per pass the CTA's 256 digit counts (4
-// passes at most), the picked digit and the count above it (2, padded to
-// 4), and the counting scratch of kHistCopies copies of 256 16-bit
-// counters, two digits a word.
+// passes at most; above 256 columns the cluster's), the picked digit and
+// the count above it (sel[0] and sel[1], padded to 4), and the counting
+// scratch of kHistCopies copies of 256 16-bit counters, two digits a word.
 __host__ __device__ constexpr int radix_smem_ints() {
   return 4 * 256 + 4 + 128 * kHistCopies;
 }
 
+// The select's key of a value: the fp32 bit pattern, or its high 16 bits
+// in prefix16 mode; a value whose sign bit is set (-0.0) has key 0, since
+// the JAX kernels bisect signed keys and never count it.
+__device__ __forceinline__ unsigned select_key(float v, bool prefix16) {
+  unsigned key = __float_as_uint(v);
+  key = (key >> 31) ? 0u : key;
+  return prefix16 ? key >> 16 : key;
+}
+
+// Adds 1 to digit `digit` of the calling lane's histogram copy if
+// `counted` (0 otherwise: every lane adds, no branch splits the warp).
+__device__ __forceinline__ void count_digit(unsigned* mine, unsigned digit,
+                                            bool counted) {
+  atomicAdd(mine + (digit >> 1) * kHistCopies,
+            static_cast<unsigned>(counted) << ((digit & 1) << 4));
+}
+
+// The calling lane's histogram copy in the select's scratch.
+__device__ __forceinline__ unsigned* hist_copy(int* smem) {
+  return reinterpret_cast<unsigned*>(smem + 4 * 256 + 4) +
+         ((threadIdx.x & 31) & (kHistCopies - 1));
+}
+
+// Sums the histogram copies into counts[0 .. 255], zeroing the copies:
+// thread t sums digits 2p, 2p + 1 (p = t / 2) over copies 8h .. 8h + 7
+// (h = t % 2), rotated so that a warp's reads fall on 32 banks; the
+// partner t ^ 1 holds the other 8 copies. Every thread calls it after a
+// barrier.
+__device__ __forceinline__ void sum_hist_copies(unsigned* scratch,
+                                                int* counts) {
+  for (int t = threadIdx.x; t < 256; t += blockDim.x) {
+    const int p = t >> 1, h = t & 1;
+    unsigned lo = 0, hi16 = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      unsigned* w = scratch + p * kHistCopies + 8 * h + ((i + (p >> 1)) & 7);
+      const unsigned x = *w;
+      *w = 0u;
+      lo += x & 0xffffu;
+      hi16 += x >> 16;
+    }
+    lo += __shfl_xor_sync(0xffffffffu, lo, 1);
+    hi16 += __shfl_xor_sync(0xffffffffu, hi16, 1);
+    counts[t] = static_cast<int>(h ? hi16 : lo);
+  }
+}
+
+// Ends a pass of the select of up to 4 CTAs once each has counted its keys
+// into the histogram copies: the CTA sums its copies into its counts for
+// the pass; after the cluster barrier one warp sums every CTA's counts
+// through distributed shared memory and picks the digit that holds the
+// k-th largest key (sel[0]) and the count above it (sel[1]).
+__device__ __forceinline__ void radix_pass_end(cg::cluster_group& cluster,
+                                               int pass, int k, int* smem) {
+  const int nranks = static_cast<int>(cluster.num_blocks());
+  const int lane = threadIdx.x & 31;
+  int* sel = smem + 4 * 256;
+  int* counts = smem + pass * 256;
+  __syncthreads();
+  sum_hist_copies(reinterpret_cast<unsigned*>(sel + 4), counts);
+  cluster.sync();
+  if (threadIdx.x < kWarp) {
+    // lane l sums digits 248 - 8l .. 255 - 8l of every CTA's counts, the
+    // remote reads in flight at once
+    int c[8] = {0, 0, 0, 0, 0, 0, 0, 0};  // c[u]: digit 255 - 8l - u
+    int4 part[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i < nranks) {
+        const int4* src = reinterpret_cast<const int4*>(
+            cluster.map_shared_rank(counts, i) + 248 - 8 * lane);
+        part[i][0] = src[0];
+        part[i][1] = src[1];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i < nranks) {
+        c[7] += part[i][0].x; c[6] += part[i][0].y;
+        c[5] += part[i][0].z; c[4] += part[i][0].w;
+        c[3] += part[i][1].x; c[2] += part[i][1].y;
+        c[1] += part[i][1].z; c[0] += part[i][1].w;
+      }
+    }
+    warp_pick_digit(c, k, sel);
+  }
+  __syncthreads();
+}
+
+// Counts, for the pass whose digit lies at `shift`, the keys of the
+// calling warp's rows of a band (a at row stride `stride`, `rows` x `cols`)
+// that match the digits above it (`prefix`; every key in pass 0), by that
+// digit; each warp's rows in steps of kRowStep columns.
+template <bool kOneStep>
+__device__ __forceinline__ void count_band(const float* a, int rows,
+                                           int cols, int stride,
+                                           bool prefix16, int pass, int shift,
+                                           unsigned prefix, unsigned* mine) {
+  const int lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  // counts this lane's values of row r's step from column c0 by digit
+  auto count = [&](int r, int c0) {
+    float v[8];  // the step's values of this lane, loaded together
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int c = c0 + lane + kWarp * u;
+      v[u] = c < cols ? a[r * stride + c] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const unsigned key = select_key(v[u], prefix16);
+      const bool counted = c0 + lane + kWarp * u < cols &&
+                           (pass == 0 || (key >> (shift + 8)) == prefix);
+      count_digit(mine, (key >> shift) & 255u, counted);
+    }
+  };
+  for (int r = threadIdx.x >> 5; r < rows; r += nw) {
+    if (kOneStep) {
+      count(r, 0);
+    } else {
+      for (int c0 = 0; c0 < cols; c0 += kRowStep) count(r, c0);
+    }
+  }
+}
+
 // min(hi, keep-th largest key) over the non-negative fp32 values that the
 // CTAs of the calling cluster hold in shared memory, each `rows` x `cols`
-// (cols <= kMaxTokens, hist_counts_fit) at row stride `stride`. The key is the fp32 bit pattern, or
-// its high 16 bits in prefix16 mode; a value whose sign bit is set (-0.0)
-// has key 0, since the JAX kernels bisect signed keys and never count it.
-// Digit by digit from the top, 8 bits a pass (2 passes on 16-bit keys, 4 on
-// 32-bit ones): each CTA counts its keys that match the digits chosen so
-// far by their next digit, and one warp of each CTA sums the cluster's
-// counts through distributed shared memory and picks the digit. Every CTA
-// returns the same key. This is the value a bisection returns from
-// [0, hi], for any keys, since both find the largest v <= hi with
-// count(key >= v) >= keep; the keep-th largest key is never above the
-// largest, so hi at the top of the key space gives the bisection from
-// [0, max] of the JAX kernels.
+// (cols <= kRowStep, at most 4 CTAs, hist_counts_fit) at row stride
+// `stride`; select_key's keys. Digit by digit from the top, 8 bits a pass
+// (2 passes on 16-bit keys, 4 on 32-bit ones): each CTA counts its keys
+// that match the digits chosen so far by their next digit, and one warp of
+// each CTA sums the cluster's counts through distributed shared memory and
+// picks the digit. Every CTA returns the same key. This is the value a
+// bisection returns from [0, hi], for any keys, since both find the
+// largest v <= hi with count(key >= v) >= keep; the keep-th largest key is
+// never above the largest, so hi at the top of the key space gives the
+// bisection from [0, max] of the JAX kernels.
 //
 // The keys of a map share their top digits, so one histogram would take
 // 32 lanes' atomics on a few counters. Lane l counts into copy l % 16 at
 // word (digit / 2) * 16 + l % 16: at most two lanes of a warp share a bank.
-// The CTA then sums the copies into its counts for the pass (each thread
-// two digits over 8 copies, zeroing what it read) before the cluster
-// barrier. `smem` (radix_smem_ints ints, shared, 16-byte aligned) is zeroed
-// by the caller before a barrier that precedes the call, which also
-// publishes `a`. Called by every thread of every CTA. kOneStep: cols <=
-// kRowStep and at most 4 CTAs (the kernels' code up to 256 tokens).
-template <bool kOneStep>
+// The CTA then sums the copies into its counts for the pass before the
+// cluster barrier (radix_pass_end). `smem` (radix_smem_ints ints, shared,
+// 16-byte aligned) is zeroed by the caller before a barrier that precedes
+// the call, which also publishes `a`. Called by every thread of every CTA.
+// Up to 256 tokens (K1's own launch, K2, K4/K5's normalize); above,
+// cluster_map_select's long path.
 __device__ __forceinline__ unsigned cluster_radix_select(
     const float* a, int rows, int cols, int stride, bool prefix16, int keep,
     unsigned hi, int* smem) {
   cg::cluster_group cluster = cg::this_cluster();
-  const int nranks = static_cast<int>(cluster.num_blocks());
-  const int lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
   int* sel = smem + 4 * 256;
-  unsigned* scratch = reinterpret_cast<unsigned*>(sel + 4);
-  unsigned* mine = scratch + (lane & (kHistCopies - 1));
+  unsigned* mine = hist_copy(smem);
   const int bits = prefix16 ? 16 : 32;
   unsigned prefix = 0;
   int k = keep;
   for (int pass = 0; pass < bits / 8; ++pass) {
     const int shift = bits - 8 * (pass + 1);
-    // counts this lane's values of row r's step from column c0 by digit
-    auto count = [&](int r, int c0) {
+    count_band<true>(a, rows, cols, stride, prefix16, pass, shift, prefix,
+                     mine);
+    radix_pass_end(cluster, pass, k, smem);
+    prefix = (prefix << 8) | static_cast<unsigned>(sel[0]);
+    k -= sel[1];
+  }
+  cluster.sync();  // no CTA leaves while another still reads its counts
+  return min(prefix, hi);
+}
+
+// The select above 256 columns (cluster_radix_select_long) keeps, after
+// the select's ints: kSelectCtl control ints (the CTA's list length, the
+// lists' total; padded to 16 bytes), each CTA's compact list of the keys
+// that share the top 16 bits chosen (kSelectListCap keys), then the
+// cluster's lists copied (select_gather_cap(cols) keys; before they
+// arrive, the space holds the CTA's own counts of a pass). The listed keys
+// share their top 16 bits, so a list holds the low 16 bits of each. The
+// copy takes 7,168 keys above 512 columns and 3,072 below; either way
+// three CTAs an SM fit at 257 tokens and two at 577. The models' maps at
+// 577 tokens put up to ~4,700 keys there (seeded random weights, K1's
+// exact map; chip_smoke.py prints the largest total of each run,
+// select_route).
+constexpr int kSelectCtl = 4;
+constexpr int kSelectListCap = 1024;
+
+__host__ __device__ constexpr int select_gather_cap(int cols) {
+  return cols > 512 ? 7168 : 3072;
+}
+
+// The route record of the select above 256 columns, one per translation
+// unit (K2's launches, K4/K5's normalize): the largest lists' total and
+// the largest CTA list a cluster met, and the clusters whose lists
+// overflowed, so that they ran the last two passes over their bands.
+// Rank 0 of each cluster (one sample) adds to it once a launch.
+static __device__ int g_select_route[3];
+
+// Copies the route record of this translation unit into out[0..2], and
+// zeroes it where `reset`.
+static inline cudaError_t read_select_route(int* out, bool reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_select_route, sizeof(int) * 3);
+  if (e == cudaSuccess && reset) {
+    const int zero[3] = {0, 0, 0};
+    e = cudaMemcpyToSymbol(g_select_route, zero, sizeof(zero));
+  }
+  return e;
+}
+
+// The cluster barrier split in two (PTX barrier.cluster): a thread
+// arrives once it no longer reads another CTA's shared memory, and waits
+// before its CTA may exit, so that work between the two overlaps the
+// barrier.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// The digit of the k-th largest key from the CTA's 256 counts of a pass,
+// read by one warp (lane l: digits 255 - 8l - u), into sel[0] and sel[1].
+__device__ __forceinline__ void warp_pick_from(const int* counts, int k,
+                                               int* sel) {
+  const int lane = threadIdx.x & 31;
+  const int4 lo = *reinterpret_cast<const int4*>(counts + 248 - 8 * lane);
+  const int4 hi = *reinterpret_cast<const int4*>(counts + 252 - 8 * lane);
+  const int c[8] = {hi.w, hi.z, hi.y, hi.x, lo.w, lo.z, lo.y, lo.x};
+  warp_pick_digit(c, k, sel);
+}
+
+// v added to the int at `p` in the shared memory of the cluster's CTA
+// `rank` (p an address in the caller's own shared memory), fire and
+// forget: a later cluster barrier makes it visible there.
+__device__ __forceinline__ void cluster_red_add(int* p, int rank, int v) {
+  const uint32_t local = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("red.shared::cluster.add.u32 [%0], %1;\n" ::"r"(remote),
+               "r"(v) : "memory");
+}
+
+// radix_pass_end for up to kMaxMapClusterSize CTAs, with no read of
+// another CTA's memory: the CTA sums its histogram copies, then adds each
+// non-zero count into the totals of the pass (totals[0 .. 255], zero
+// before) of every CTA of the cluster, itself included; after the cluster
+// barrier each CTA's totals are the cluster's counts, and one warp picks
+// the digit from them. `first`: the call completes the barrier that the
+// CTAs arrived at once their totals were zeroed (cluster_map_select), so
+// that no count lands before the zeros.
+__device__ __forceinline__ void radix_pass_end_long(
+    cg::cluster_group& cluster, int k, int* smem, int* local, int* totals,
+    bool first = false) {
+  const int nranks = static_cast<int>(cluster.num_blocks());
+  int* sel = smem + 4 * 256;
+  __syncthreads();
+  sum_hist_copies(reinterpret_cast<unsigned*>(sel + 4), local);
+  __syncthreads();
+  if (first) cluster_wait();
+  for (int t = threadIdx.x; t < 256; t += blockDim.x) {
+    const int c = local[t];
+    if (c != 0)
+      for (int q = 0; q < nranks; ++q) cluster_red_add(totals + t, q, c);
+  }
+  cluster.sync();
+  if (threadIdx.x < kWarp) warp_pick_from(totals, k, sel);
+  __syncthreads();
+}
+
+// cluster_radix_select for cluster_map_select above 256 columns (bands of
+// up to 64 rows in clusters of up to kMaxMapClusterSize CTAs), with the
+// same result. Pass 0's digits were counted as the band arrived
+// (load_band<true>), and each cluster pass pushes the CTA's counts into
+// every CTA's totals before its barrier, so that none reads another CTA's
+// memory after it (radix_pass_end_long). On 32-bit keys, once the top 16
+// bits are chosen, each CTA writes its keys that still match them into
+// its compact list; after one cluster barrier every CTA copies the
+// cluster's lists into its own shared memory and runs the last two passes
+// over the copy, with no cluster barrier: every CTA counts the same keys
+// and picks the same digits. Where a list or the copy would overflow (a
+// flat map, or one of few distinct values), the cluster runs passes 2 and
+// 3 over its bands instead. `ctl` (kSelectCtl ints) is zeroed with the
+// select's ints. Returns after its arrival on the cluster barrier: the
+// caller calls cluster_wait() before its CTA exits.
+__device__ __forceinline__ unsigned cluster_radix_select_long(
+    const float* a, int rows, int cols, int stride, bool prefix16, int keep,
+    unsigned hi, int* smem, int* ctl, unsigned short* list,
+    unsigned short* gathered) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nranks = static_cast<int>(cluster.num_blocks());
+  const int lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  const int gather_cap = select_gather_cap(cols);
+  int* sel = smem + 4 * 256;
+  unsigned* mine = hist_copy(smem);
+  // the CTA's own counts of a pass, in the space of the copied lists
+  // (free until the last passes); the cluster's in counts[pass]
+  int* local = reinterpret_cast<int*>(gathered);
+  const int bits = prefix16 ? 16 : 32;
+  unsigned prefix = 0;
+  int k = keep;
+  auto next = [&]() {
+    prefix = (prefix << 8) | static_cast<unsigned>(sel[0]);
+    k -= sel[1];
+  };
+  // a pass over the bands, ended over the cluster
+  auto band_pass = [&](int pass) {
+    if (pass > 0)
+      count_band<false>(a, rows, cols, stride, prefix16, pass,
+                        bits - 8 * (pass + 1), prefix, mine);
+    radix_pass_end_long(cluster, k, smem, local, smem + pass * 256,
+                        pass == 0);
+    next();
+  };
+  band_pass(0);
+  band_pass(1);
+  if (prefix16) {
+    cluster_arrive();
+    return min(prefix, hi);
+  }
+  // the low 16 bits of the CTA's keys whose top 16 bits are `prefix`, in
+  // its list; their count in ctl[0]
+  for (int r = threadIdx.x >> 5; r < rows; r += nw) {
+    for (int c0 = 0; c0 < cols; c0 += kRowStep) {
       float v[8];  // the step's values of this lane, loaded together
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
@@ -232,78 +521,83 @@ __device__ __forceinline__ unsigned cluster_radix_select(
       }
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
-        unsigned key = __float_as_uint(v[u]);
-        key = (key >> 31) ? 0u : key;
-        if (prefix16) key >>= 16;
-        // every entry adds, 0 where it is not counted: no branch splits
-        // the warp
-        const bool counted = c0 + lane + kWarp * u < cols &&
-                             (pass == 0 || (key >> (shift + 8)) == prefix);
-        const unsigned digit = (key >> shift) & 255u;
-        atomicAdd(mine + (digit >> 1) * kHistCopies,
-                  static_cast<unsigned>(counted) << ((digit & 1) << 4));
-      }
-    };
-    for (int r = threadIdx.x >> 5; r < rows; r += nw) {
-      if (kOneStep) {
-        count(r, 0);
-      } else {
-        for (int c0 = 0; c0 < cols; c0 += kRowStep) count(r, c0);
-      }
-    }
-    __syncthreads();
-    // thread t sums digits 2p, 2p + 1 (p = t / 2) over copies 8h .. 8h + 7
-    // (h = t % 2), rotated so that a warp's reads fall on 32 banks; its
-    // partner t ^ 1 holds the other 8 copies
-    int* counts = smem + pass * 256;
-    for (int t = threadIdx.x; t < 256; t += blockDim.x) {
-      const int p = t >> 1, h = t & 1;
-      unsigned lo = 0, hi16 = 0;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        unsigned* w = scratch + p * kHistCopies + 8 * h + ((i + (p >> 1)) & 7);
-        const unsigned x = *w;
-        *w = 0u;
-        lo += x & 0xffffu;
-        hi16 += x >> 16;
-      }
-      lo += __shfl_xor_sync(0xffffffffu, lo, 1);
-      hi16 += __shfl_xor_sync(0xffffffffu, hi16, 1);
-      counts[t] = static_cast<int>(h ? hi16 : lo);
-    }
-    cluster.sync();
-    if (threadIdx.x < kWarp) {
-      // lane l sums digits 248 - 8l .. 255 - 8l of every CTA's counts,
-      // the remote reads of four CTAs in flight at once
-      int c[8] = {0, 0, 0, 0, 0, 0, 0, 0};  // c[u]: digit 255 - 8l - u
-      for (int q0 = 0; q0 < (kOneStep ? 1 : nranks); q0 += 4) {
-        int4 part[4][2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (q0 + i < nranks) {
-            const int4* src = reinterpret_cast<const int4*>(
-                cluster.map_shared_rank(counts, q0 + i) + 248 - 8 * lane);
-            part[i][0] = src[0];
-            part[i][1] = src[1];
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (q0 + i < nranks) {
-            c[7] += part[i][0].x; c[6] += part[i][0].y;
-            c[5] += part[i][0].z; c[4] += part[i][0].w;
-            c[3] += part[i][1].x; c[2] += part[i][1].y;
-            c[1] += part[i][1].z; c[0] += part[i][1].w;
-          }
+        const unsigned key = select_key(v[u], false);
+        if (c0 + lane + kWarp * u < cols && (key >> 16) == prefix) {
+          const int pos = atomicAdd(ctl, 1);
+          if (pos < kSelectListCap)
+            list[pos] = static_cast<unsigned short>(key);
         }
       }
-      warp_pick_digit(c, k, sel);
     }
-    __syncthreads();
-    prefix = (prefix << 8) | static_cast<unsigned>(sel[0]);
-    k -= sel[1];
   }
-  cluster.sync();  // no CTA leaves while another still reads its counts
+  __syncthreads();
+  cluster.sync();  // every CTA's list written
+  // ctl[1]: the lists' total, or -1 where one overflows; offs: where each
+  // CTA's list starts in the copy, in pass 3's counts (left zero where
+  // the lists overflow, for pass 3 over the bands)
+  int* offs = smem + 3 * 256;
+  if (threadIdx.x < kWarp) {
+    const int n = lane < nranks ? *cluster.map_shared_rank(ctl, lane) : 0;
+    int incl = n;
+#pragma unroll
+    for (int o = 1; o < kWarp; o <<= 1) {
+      const int x = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += x;
+    }
+    const int sum = __shfl_sync(0xffffffffu, incl, kWarp - 1);
+    const int most = __reduce_max_sync(0xffffffffu, n);
+    const bool over = most > kSelectListCap || sum > gather_cap;
+    if (!over && lane <= nranks) offs[lane] = incl - n;
+    if (lane == 0) {
+      ctl[1] = over ? -1 : sum;
+      if (cluster.block_rank() == 0) {
+        atomicMax(g_select_route, sum);
+        atomicMax(g_select_route + 1, most);
+        if (over) atomicAdd(g_select_route + 2, 1);
+      }
+    }
+  }
+  __syncthreads();
+  const int total = ctl[1];
+  if (total < 0) {
+    band_pass(2);
+    band_pass(3);
+    cluster_arrive();
+    return min(prefix, hi);
+  }
+  // copy the lists: warp w those of CTAs w, w + 8, ..., a lane's keys
+  // loaded together
+  for (int q = threadIdx.x >> 5; q < nranks; q += nw) {
+    const unsigned short* src = cluster.map_shared_rank(list, q);
+    unsigned short* dst = gathered + offs[q];
+    const int n = offs[q + 1] - offs[q];
+    for (int i0 = lane; i0 < n; i0 += 8 * kWarp) {
+      unsigned short key[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (i0 + kWarp * j < n) key[j] = src[i0 + kWarp * j];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (i0 + kWarp * j < n) dst[i0 + kWarp * j] = key[j];
+    }
+  }
+  cluster_arrive();  // no more reads of another CTA's memory
+  __syncthreads();
+  const unsigned top = prefix << 16;
+  for (int pass = 2; pass < 4; ++pass) {
+    const int sh = 32 - 8 * (pass + 1);
+    for (int e = threadIdx.x; e < total; e += blockDim.x) {
+      const unsigned key = top | gathered[e];
+      count_digit(mine, (key >> sh) & 255u, (key >> (sh + 8)) == prefix);
+    }
+    __syncthreads();
+    int* counts = smem + pass * 256;
+    sum_hist_copies(reinterpret_cast<unsigned*>(sel + 4), counts);
+    __syncthreads();
+    if (threadIdx.x < kWarp) warp_pick_from(counts, k, sel);
+    __syncthreads();
+    next();
+  }
   return min(prefix, hi);
 }
 
@@ -340,17 +634,29 @@ inline cudaLaunchConfig_t cluster_launch_config(int cs, int B, int threads,
 // SM holds at once: as many as the shared memory of ~50-row bands of 197
 // fp32 allows, so that more of B=160's clusters of 4 run in the first round
 // (the kernels' __launch_bounds__ cap their registers to fit). Above 512
-// rows the bands grow instead (73 rows of 577 fp32 are 181 KB: one CTA an
-// SM).
+// rows the cluster grows to kMaxMapClusterSize CTAs instead (37 rows of 577
+// fp32 are ~86 KB: two CTAs an SM).
 constexpr int kMapBandRows = 64;
 constexpr int kMapThreads = 256;
 constexpr int kMapCtasPerSm = 4;
 
+// The CTAs an SM holds at once above kRowStep columns (bands of 52-64 rows
+// up to 512 rows: 3 CTAs of ~75 KB at 257; 2 of ~114 KB at 577): a
+// register cap of 85 a thread.
+constexpr int kMapCtasPerSmLong = 3;
+
+// The __launch_bounds__ CTA count of a map kernel (kOneStep: up to
+// kRowStep columns).
+__host__ __device__ constexpr int map_ctas_per_sm(bool one_step) {
+  return one_step ? kMapCtasPerSm : kMapCtasPerSmLong;
+}
+
 // CTAs per sample: 1 up to 64 rows, 4 at 197 or 256 rows (bands of 49-64
-// rows), 5 at 257, and kMaxClusterSize (8) from 449 rows on.
+// rows), 5 at 257, 8 from 449 to 512 rows, and kMaxMapClusterSize (16)
+// above 512 rows (bands of 33-40 rows).
 __host__ __device__ inline int map_cluster_size(int rows) {
-  const int cs = (rows + kMapBandRows - 1) / kMapBandRows;
-  return cs < kMaxClusterSize ? cs : kMaxClusterSize;
+  if (rows > kMaxClusterSize * kMapBandRows) return kMaxMapClusterSize;
+  return (rows + kMapBandRows - 1) / kMapBandRows;
 }
 
 // Rows of the largest band of a map of `rows` rows.
@@ -359,9 +665,22 @@ __host__ __device__ inline int map_band_rows(int rows) {
   return (rows + cs - 1) / cs;
 }
 
-// Where the band starts in shared memory: after the select's ints.
-__host__ __device__ inline size_t map_band_offset() {
+// Where the band starts in shared memory: after the select's ints and,
+// above kRowStep columns, the compact key list (cluster_radix_select_long).
+__host__ __device__ inline size_t map_list_offset() {
   return align16(radix_smem_ints() * sizeof(int));
+}
+
+__host__ __device__ inline size_t map_gather_offset() {
+  return map_list_offset() + kSelectCtl * sizeof(int) +
+         kSelectListCap * sizeof(unsigned short);
+}
+
+__host__ __device__ inline size_t map_band_offset(int cols) {
+  return cols > kRowStep ? map_gather_offset() +
+                               select_gather_cap(cols) *
+                                   sizeof(unsigned short)
+                         : map_list_offset();
 }
 
 // Row stride of a band in shared memory for rows of `cols` values at global
@@ -377,8 +696,19 @@ __host__ __device__ inline int band_stride(int cols, int stride) {
 __host__ __device__ inline size_t map_band_smem(int rows, int cols,
                                                 int stride) {
   const size_t band = map_band_rows(rows);
-  return map_band_offset() +
+  return map_band_offset(cols) +
          (3 + band * band_stride(cols, stride)) * sizeof(float);
+}
+
+// Lets a kernel take clusters of `cs` CTAs where that is above the portable
+// 8 (map_cluster_size above 512 rows); called before its launch and its
+// occupancy queries.
+template <typename K>
+inline cudaError_t allow_map_clusters(K kernel, int cs) {
+  return cs > kMaxClusterSize
+             ? cudaFuncSetAttribute(
+                   kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)
+             : cudaSuccess;
 }
 
 __device__ __forceinline__ void widen16(const float* p, float (&v)[4]) {
@@ -406,11 +736,14 @@ __device__ __forceinline__ void widen16(const __nv_bfloat16* p, float (&v)[8]) {
 // dstride) are one range, so a row that does not start on 16 bytes (197
 // fp32 values are 788 bytes) costs nothing. `dst` lies at a float index
 // congruent mod 4 to src's element index, and dstride to stride, so that an
-// aligned chunk lands on 16 bytes.
-template <typename T>
+// aligned chunk lands on 16 bytes. kCount: each value is also counted by
+// its select key's top digit into the lane's histogram copy `mine` (the
+// select's pass 0) between its load and its store.
+template <bool kCount, typename T>
 __device__ __forceinline__ void load_band(float* dst, int dstride,
                                           const T* src, int rows, int cols,
-                                          int stride) {
+                                          int stride, bool prefix16,
+                                          unsigned* mine) {
   constexpr int V = 16 / sizeof(T);  // values in a chunk
   constexpr int U = 4;               // chunks a thread has in flight
   if (stride == cols) {
@@ -442,6 +775,17 @@ __device__ __forceinline__ void load_band(float* dst, int dstride,
         }
       }
     }
+    if (kCount) {
+      const int top = prefix16 ? 8 : 24;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const int c = c0[u] + j;
+          count_digit(mine, select_key(v[u][j], prefix16) >> top,
+                      c >= 0 && c < cols);
+        }
+    }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float* q = dst + r[u] * dstride + c0[u];
@@ -472,14 +816,14 @@ struct MapBand {
 // The keep-th largest key, at most `hi` (cluster_radix_select; 0 takes the
 // top of the key space), of one sample's real `rows` x `cols` map of T at
 // row stride `stride` (rows, cols <= kMaxTokens), split over the calling
-// cluster of
-// map_cluster_size(rows) CTAs (blockIdx.x the rank): each CTA loads a band
-// of whole rows, rows * rank / cs up to the next, into `smem`
+// cluster of map_cluster_size(rows) CTAs (blockIdx.x the rank): each CTA
+// loads a band of whole rows, rows * rank / cs up to the next, into `smem`
 // (map_band_smem bytes) as fp32, pad columns left out, and the cluster
-// selects over the bands.
-// The rows are whole, so each CTA's epilogue on `band` needs no cluster
-// traffic. Called by every thread of every CTA. kOneStep: cols <= kRowStep
-// (cluster_radix_select).
+// selects over the bands. The rows are whole, so each CTA's epilogue on
+// `band` needs no cluster traffic. Called by every thread of every CTA.
+// kOneStep: cols <= kRowStep, the select of cluster_radix_select; above,
+// cluster_radix_select_long, after which the caller calls cluster_wait()
+// before its CTA exits.
 template <bool kOneStep, typename T>
 __device__ __forceinline__ unsigned cluster_map_select(
     const T* map, int rows, int cols, int stride, bool prefix16, int keep,
@@ -492,15 +836,33 @@ __device__ __forceinline__ unsigned cluster_map_select(
   const T* src = map + (size_t)band.row0 * stride;
   const int pad = static_cast<int>(
       (reinterpret_cast<uintptr_t>(src) / sizeof(T)) & 3);
-  float* a = reinterpret_cast<float*>(smem + map_band_offset()) + pad;
+  float* a = reinterpret_cast<float*>(smem + map_band_offset(cols)) + pad;
   band.a = a;
   band.stride = band_stride(cols, stride);
   zero_radix_smem(radix);
-  load_band(a, band.stride, src, band.rows, cols, stride);
-  __syncthreads();  // publishes the band and the zeroed counts
   if (hi == 0) hi = prefix16 ? 0xFFFFu : 0xFFFFFFFFu;
-  return cluster_radix_select<kOneStep>(a, band.rows, cols, band.stride,
-                                       prefix16, keep, hi, radix);
+  if constexpr (kOneStep) {
+    load_band<false>(a, band.stride, src, band.rows, cols, stride, prefix16,
+                     nullptr);
+    __syncthreads();  // publishes the band and the zeroed counts
+    return cluster_radix_select(a, band.rows, cols, band.stride, prefix16,
+                                keep, hi, radix);
+  } else {
+    int* ctl = reinterpret_cast<int*>(smem + map_list_offset());
+    if (threadIdx.x < kSelectCtl) ctl[threadIdx.x] = 0;
+    __syncthreads();  // the zeroed counts, before the load counts into them
+    // the cluster's counts of a pass are added into every CTA's zeroed
+    // totals: no CTA adds before every CTA has zeroed them (the wait is
+    // in the select's first pass end, behind the load)
+    cluster_arrive();
+    load_band<true>(a, band.stride, src, band.rows, cols, stride, prefix16,
+                    hist_copy(radix));
+    // the select's first barrier publishes the band and pass 0's counts
+    return cluster_radix_select_long(
+        a, band.rows, cols, band.stride, prefix16, keep, hi, radix,
+        ctl, reinterpret_cast<unsigned short*>(ctl + kSelectCtl),
+        reinterpret_cast<unsigned short*>(smem + map_gather_offset()));
+  }
 }
 
 // --- asynchronous copies and tensor-core fragments ---------------------------

@@ -22,12 +22,34 @@
 // not fit the card at once (chip_smoke.py prints how many do), so the
 // launch runs in two rounds.
 //
-// Tokens: N <= kMaxTokens (640). Up to 512 rows a CTA holds at most 64
-// (5 CTAs at N=257); above that the cluster stays at the portable 8 CTAs
-// and the bands grow: 73 rows of 577 fp32 values at N=577 (DeiT-B/16 at
-// 384), 181 KB of shared memory, one CTA an SM, so 160 clusters of 8 run
-// in rounds of as many as the card's GPCs hold. Bound there: bytes, 213 MB
-// (the 1.33 MB fp32 map of each of 160 samples read once) = 0.064 ms.
+// Tokens: N <= kMaxTokens (640). Up to 256 tokens the select is the one
+// above (cluster_radix_select). Above 256 tokens (cluster_radix_select_long):
+//  * up to 512 rows a CTA holds at most 64 (5 CTAs at N=257, 8 from 449);
+//    above 512 a cluster of 16 CTAs (a non-portable size the H100 takes),
+//    bands of 37 rows at N=577 (DeiT-B/16 at 384): ~114 KB of shared
+//    memory, two CTAs an SM. Bound there: bytes, 213 MB (the 1.33 MB fp32
+//    map of each of 160 samples read once) = 0.064 ms.
+//  * Pass 0 counts each value's top digit as the band is loaded; at the
+//    end of each cluster pass each CTA adds its non-zero counts into every
+//    CTA's totals (red.shared::cluster) before the barrier, so that no CTA
+//    waits on a read of another's memory after it.
+//  * On fp32 keys, after the top 16 bits, each CTA lists its keys that
+//    still match them; after one cluster barrier every CTA copies the
+//    cluster's lists (up to ~4,700 keys of a seeded model's map at 577, of
+//    the 7,168 the copy takes at 16 bits a key, the prefix left out) and
+//    runs the last two passes over the copy with no cluster barrier.
+//    Lists that would overflow send the cluster to passes 2 and 3 over its
+//    bands (ppf_map_stats_select_route counts them).
+//  * The final cluster barrier is split: a CTA arrives when it no longer
+//    reads another's memory and waits only before it exits, behind its
+//    row sums.
+// What holds it above the bound: each round of ~14 resident clusters
+// loads its maps, then runs its passes while the memory idles; the
+// cluster barriers of the first two passes remain. Measured
+// (cli.time_long_kernels --against parent, an H100 at 700 W, B=160, the
+// model's maps; PERF.md): 0.574 -> 0.357 ms at 577, 0.126 -> 0.086 ms at
+// 257; as K1's select at 577 0.347 -> 0.251 ms (bf16 map) and 0.556 ->
+// 0.351 ms (fp32).
 // Above 256 tokens the same launch is also K1's select, on the map K1's
 // heads kernel stored (attention_block_stats.cu).
 #include "common.cuh"
@@ -36,7 +58,8 @@ namespace {
 
 // kOneStep: N <= ppf::kRowStep (cluster_radix_select).
 template <typename T, bool kOneStep>
-__global__ void __launch_bounds__(ppf::kMapThreads, ppf::kMapCtasPerSm)
+__global__ void __launch_bounds__(ppf::kMapThreads,
+                                   ppf::map_ctas_per_sm(kOneStep))
 map_stats_kernel(const T* __restrict__ map, int N, int keep, bool prefix16,
                  unsigned hi, float* __restrict__ t_out,
                  float* __restrict__ s_out) {
@@ -49,6 +72,7 @@ map_stats_kernel(const T* __restrict__ map, int N, int keep, bool prefix16,
   if (blockIdx.x == 0 && threadIdx.x == 0) t_out[b] = t;
   ppf::block_masked_row_sums<kOneStep>(band.a, band.rows, N, band.stride, t,
                                        s_out + (size_t)b * N + band.row0);
+  if constexpr (!kOneStep) ppf::cluster_wait();
 }
 
 // The kernel for maps of T at N tokens.
@@ -71,6 +95,8 @@ cudaError_t launch(const void* map, int B, int N, int keep, bool prefix16,
   const auto kernel = kernel_for<T>(N);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = ppf::allow_map_clusters(kernel, ppf::map_cluster_size(N));
   if (err != cudaSuccess) return err;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(map), N, keep,
                            prefix16, hi, static_cast<float*>(t_out),
@@ -89,6 +115,8 @@ int active_clusters(int N) {
   const auto kernel = kernel_for<T>(N);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = ppf::allow_map_clusters(kernel, ppf::map_cluster_size(N));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   return err == cudaSuccess ? clusters : -static_cast<int>(err);
@@ -129,4 +157,14 @@ extern "C" int ppf_map_stats_cluster_size(int N) {
 extern "C" int ppf_map_stats_active_clusters(int N, int map_is_bf16) {
   return map_is_bf16 ? active_clusters<__nv_bfloat16>(N)
                      : active_clusters<float>(N);
+}
+
+// The route record of this file's select above 256 tokens (K2, and K1's
+// select) since the last reset, into out[0..2]: the largest lists' total
+// (against ppf::select_gather_cap), the largest CTA list (against
+// ppf::kSelectListCap), and the samples whose lists overflowed, which took
+// the passes over the bands. Zeroes it where `reset`; returns the
+// cudaError_t.
+extern "C" int ppf_map_stats_select_route(int* out, int reset) {
+  return ppf::read_select_route(out, reset != 0);
 }

@@ -9,7 +9,8 @@ covers the 384 presets' 577 and the 640 the JAX package pads them to; a
 wrapper raises ``ValueError`` above it. Up to 256 tokens K1 and K3 keep a
 head's keys in shared memory and registers; from 257 on their long kernels
 stream them through shared memory in chunks, and the selects of K1, K2 and
-K4/K5's normalize split one sample over a cluster of up to 8 CTAs. Bounds
+K4/K5's normalize split one sample over a cluster of up to 16 CTAs (a
+non-portable size above 512 rows). Bounds
 at B=160, N=577, H=12, hd=64 on an H100 (bytes at 3.35 TB/s, operations
 at 989 TFLOP/s bf16 or 67 TFLOP/s fp32): K1 674 MB (speed) / 780 MB
 (exact), 0.201 / 0.233 ms; K2 213 MB, 0.064 ms; K3 fp32 164 GFLOP,

@@ -41,6 +41,7 @@ _SIGNATURES = {
                       _VOIDP],
     "ppf_map_stats_cluster_size": [_INT],
     "ppf_map_stats_active_clusters": [_INT, _INT],
+    "ppf_map_stats_select_route": [_VOIDP, _INT],
     "ppf_attention_block_stats": [_VOIDP, _INT, _INT, _INT, _INT, _INT, _INT,
                                   _FLOAT, _FLOAT, _VOIDP, _VOIDP, _VOIDP,
                                   _VOIDP, _VOIDP],
@@ -52,11 +53,13 @@ _SIGNATURES = {
                            _FLOAT, _FLOAT, _VOIDP, _VOIDP, _VOIDP],
     "ppf_attention_mean_smem_bytes": [_INT, _INT, _INT],
     "ppf_attention_mean_f32_resident_blocks": [_INT, _INT],
+    "ppf_attention_mean_bf16_resident_blocks": [_INT, _INT],
     "ppf_attention_core": [_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT, _INT,
                            _INT, _FLOAT, _FLOAT, _FLOAT, _FLOAT, _VOIDP,
                            _VOIDP, _VOIDP],
     "ppf_attention_core_cluster_size": [_INT],
     "ppf_attention_core_active_clusters": [_INT, _INT],
+    "ppf_attention_core_select_route": [_VOIDP, _INT],
 }
 
 # shared memory one block may use on Hopper (sm_90), bytes

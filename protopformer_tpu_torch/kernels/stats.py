@@ -11,14 +11,15 @@ plain PyTorch version of the same steps. Any other device raises.
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Dict, Tuple
 
 import torch
 
 from protopformer_tpu_torch.kernels import _build
 
-# tokens a map may have: one sample's fp32 map over a cluster of at most 8
-# CTAs, each holding its band of 80 rows of 640 in shared memory
+# tokens a map may have: one sample's fp32 map over a cluster of at most 16
+# CTAs, each holding its band of 40 rows of 640 in shared memory
 # (``csrc/common.cuh``, ``kMaxTokens``); the 384 presets have 577 tokens
 MAX_N = 640
 
@@ -114,6 +115,27 @@ def map_stats_cuda(fmap: torch.Tensor, keep: int, prefix16: bool
 
 
 map_stats_cuda.launches = 0
+
+
+def select_route(tokens: int, launches: str = "map_stats",
+                 reset: bool = True) -> Dict[str, int]:
+    """The route record of the cluster select above 256 tokens since its
+    last reset, for K2's launches (``"map_stats"``: K2 and K1's select) or
+    K4/K5's normalize (``"core"``), read against the caps of maps of
+    ``tokens`` rows: ``lists`` is the largest total of a sample's compact
+    key lists against ``lists_cap``, ``cta_list`` the
+    largest CTA list against ``cta_cap``, and ``band_passes`` the samples
+    whose lists overflowed, which ran the last two passes over their
+    bands. Waits for the card's work first."""
+    lib = _build.library()
+    torch.cuda.synchronize()
+    fn = {"map_stats": lib.ppf_map_stats_select_route,
+          "core": lib.ppf_attention_core_select_route}[launches]
+    out = (ctypes.c_int * 3)()
+    _build.check_launch(f"{launches} select_route",
+                        fn(ctypes.addressof(out), int(reset)))
+    return {"lists": out[0], "lists_cap": 7168 if tokens > 512 else 3072,
+            "cta_list": out[1], "cta_cap": 1024, "band_passes": out[2]}
 
 
 def fused_map_stats(

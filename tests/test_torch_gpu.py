@@ -151,8 +151,8 @@ def test_block_stats_long_select_caps_the_threshold_at_one(rng, cuda, exact):
 @pytest.mark.parametrize("B", [1, 3, 8])
 @pytest.mark.parametrize("exact", [True, False])
 # one CTA a sample at 17 and 24 tokens, a cluster of 2 at 82 and 4 at 197
-# (bands of 49-50 rows) and 256 (64 rows), 5 at 257 (51-52 rows), and 8 at
-# 577 (72-73 rows) and 640 (80 rows)
+# (bands of 49-50 rows) and 256 (64 rows), 5 at 257 (51-52 rows), and 16
+# at 577 (36-37 rows) and 640 (40 rows)
 @pytest.mark.parametrize("N", [17, 24, 82, 197, 256, 257, 577, 640])
 def test_map_stats_kernel_matches_plain(rng, cuda, exact, N, B):
     maps = _prob_maps(rng, B, N).to(cuda)
@@ -325,6 +325,197 @@ def test_core_padded_kernel_matches_plain(rng, cuda, dtype, N, NP, C, H):
     before = kernels.launch_counts()["fused_attention_core_padded"]
     out, fmap = ac.fused_attention_core_padded(qkv, pol, H, N)
     assert kernels.launch_counts()["fused_attention_core_padded"] == before + 1
+    p_out, p_map = ac.core_padded_plain(qkv, pol, H, N)
+    _check_core(qkv, pol, H, N, out, fmap, p_out, p_map)
+
+
+# --- the long bf16 attention (bf16k::mean_long_kernel) -----------------------
+
+def _mean_bf16_null_policy(qkv, H, real_n):
+    """K3's bf16 launch with a null policy (K4's ones_policy), straight
+    through the library: (out, map)."""
+    from protopformer_tpu_torch.kernels import _build
+
+    B, NP, C3 = qkv.shape
+    C = C3 // 3
+    out = torch.empty((B, NP, C), dtype=qkv.dtype, device=qkv.device)
+    fmap = torch.empty((B, NP, NP), dtype=torch.float32, device=qkv.device)
+    code = _build.library().ppf_attention_mean(
+        qkv.data_ptr(), None, B, NP, C, H, real_n, 1, (C // H) ** -0.5,
+        1e-6 / real_n, out.data_ptr(), fmap.data_ptr(),
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check_launch("attention_mean", code)
+    return out, fmap
+
+
+@pytest.mark.parametrize("N,NP,C,H,policy", [
+    # deit_tiny_patch2_32 (257: a last block of 17 rows), a ragged last
+    # chunk (301), DeiT-B/16@384's 577 (a last block of one row) at 3 and 12
+    # heads, real 577 in NP 640 (K5's bench operands) and the limit, 640;
+    # each with the policy of zeros and the null one (K4's ones policy)
+    (257, 257, 192, 3, "zeros"),
+    (257, 257, 768, 12, "null"),
+    (301, 301, 768, 12, "null"),
+    (301, 301, 192, 3, "zeros"),
+    (577, 577, 192, 3, "null"),
+    (577, 577, 768, 12, "zeros"),
+    (577, 577, 768, 12, "null"),
+    (577, 640, 768, 12, "zeros"),
+    (577, 640, 192, 3, "null"),
+    (640, 640, 192, 3, "zeros"),
+    (640, 640, 768, 12, "null"),
+])
+def test_mean_long_bf16_kernel_matches_plain(rng, cuda, N, NP, C, H, policy):
+    """The long bf16 attention against ``mean_padded_plain``: out within
+    1e-2, the map within 1e-6 and 0 outside the real block. Row 5's query
+    is zero in every head, so all of its logits are equal."""
+    qkv, pol = _qkv_policy(rng, 3, N, NP, C)
+    qkv[:, 5, :C] = 0.0
+    qkv = qkv.to(cuda, torch.bfloat16)
+    pol = pol.to(cuda)
+    if policy == "null":
+        pol = torch.ones_like(pol)
+        pol[:, N:] = 0.0
+        out, fmap = _mean_bf16_null_policy(qkv, H, N)
+        # the null policy is all ones, the pads' columns included
+        p_out, p_map = ac.mean_padded_plain(qkv, torch.ones_like(pol), H, N)
+    else:
+        out, fmap = ac.fused_attention_mean_padded(qkv, pol, H, real_n=N)
+        p_out, p_map = ac.mean_padded_plain(qkv, pol, H, N)
+    torch.cuda.synchronize()
+    assert _max_err(out[:, :N], p_out[:, :N]) <= 1e-2
+    assert _max_err(fmap, p_map) <= 1e-6
+    assert float(fmap[:, N:].abs().sum()) == 0.0
+    assert float(fmap[:, :, N:].abs().sum()) == 0.0
+    # the equal logits of row 5: the row's map entries equal where the
+    # policy is (1 off the diagonal in every head)
+    row = fmap[:, 5, :N]
+    keep = pol[:, :N] > 0
+    keep[:, 5] = False
+    for b in range(row.shape[0]):
+        vals = row[b][keep[b]]
+        assert float(vals.max() - vals.min()) <= 1e-7
+
+
+# --- the map select above 256 tokens -------------------------------------------
+
+_CLUSTER_SIZES = [(17, 1), (100, 2), (150, 3), (197, 4), (257, 5), (350, 6),
+                  (400, 7), (449, 8), (512, 8), (513, 16), (577, 16),
+                  (640, 16)]
+
+
+@pytest.mark.parametrize("N,cs", _CLUSTER_SIZES)
+def test_map_stats_takes_every_cluster_size(rng, cuda, N, cs):
+    """Each cluster size the band sizing picks (``map_cluster_size``: 1-8
+    CTAs of at most 64 rows up to 512 rows, 16 above), with its clusters
+    resident on the card: t bit-equal to the plain version, s within
+    1e-6, in both key widths."""
+    from protopformer_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    assert lib.ppf_map_stats_cluster_size(N) == cs
+    assert lib.ppf_attention_core_cluster_size(N) == cs
+    for bf16 in (0, 1):
+        assert lib.ppf_map_stats_active_clusters(N, bf16) > 0
+    assert lib.ppf_attention_core_active_clusters(N, N) > 0
+    maps = _prob_maps(rng, 3, N).to(cuda)
+    for exact, m in ((True, maps), (False, maps.bfloat16())):
+        t, s = stats.fused_map_stats(m, 0.9, exact_discard=exact)
+        want_t, want_s = stats.fused_map_stats(m.cpu(), 0.9,
+                                               exact_discard=exact)
+        assert torch.equal(t.cpu(), want_t)
+        assert _max_err(s.cpu(), want_s) <= 1e-6
+
+
+def _select_maps(rng, B, N, kind):
+    """(B, N, N) fp32 maps for the select: probabilities with a row and a
+    run of -0.0 ("signed zeros"), or maps on which the compact lists at
+    the top 16 bits overflow: values within 1 % of 1/N ("narrow"), every
+    key tied ("flat") or 5 distinct values ("few")."""
+    if kind == "flat":
+        return torch.full((B, N, N), 1.0 / N)
+    if kind == "narrow":
+        return torch.from_numpy(
+            (1.0 + 0.01 * rng.uniform(size=(B, N, N))).astype(np.float32) / N)
+    if kind == "few":
+        return torch.from_numpy(
+            rng.integers(1, 6, size=(B, N, N)).astype(np.float32) / N)
+    maps = _prob_maps(rng, B, N)
+    maps[:, 7, :] = -0.0
+    maps.view(B, -1)[:, 3 * N:3 * N + N * N // 3] = -0.0
+    return maps
+
+
+@pytest.mark.parametrize("N", [449, 512, 513, 577, 640])
+@pytest.mark.parametrize("kind", ["signed zeros", "narrow", "flat", "few"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_map_select_long_matches_plain(rng, cuda, N, kind, dtype):
+    """The select above 256 tokens (bands of 57-64 rows in clusters of 8
+    up to 512 rows, of 33-40 in clusters of 16 above; the last two passes
+    over the compact key list, or over the band where the list
+    overflows) against ``map_stats_plain`` at keep = 1, 10 % of the
+    entries, and every entry: t bit-equal (its sign bit too) in both key
+    widths, s within 1e-6. Where every key shares its top 16 bits with a
+    fifth of the map or more ("flat", "few"), the lists overflow at every
+    keep and the route record shows each sample on the band passes."""
+    maps = _select_maps(rng, 3, N, kind).to(dtype)
+    on_card = maps.to(cuda)
+    for keep in (1, N * N - int(N * N * 0.9), N * N):
+        for prefix16 in (False, True):
+            stats.select_route(N)  # zeroes the route record
+            t, s = stats.map_stats_cuda(on_card, keep, prefix16)
+            want_t, want_s = stats.map_stats_plain(maps, keep, prefix16)
+            route = stats.select_route(N)
+            assert torch.equal(t.cpu().view(torch.int32),
+                               want_t.view(torch.int32))
+            assert _max_err(s.cpu(), want_s) <= 1e-6
+            if kind in ("flat", "few"):
+                assert route["band_passes"] == (0 if prefix16 else 3)
+            if kind == "flat" and not prefix16:
+                assert torch.equal(want_t, maps.float()[:, 0, 0])
+
+
+@pytest.mark.parametrize("N", [513, 577, 640])
+@pytest.mark.parametrize("exact", [True, False])
+def test_block_stats_select_caps_the_threshold_at_one_in_16_ctas(rng, cuda,
+                                                                 N, exact):
+    """K1's select above 512 tokens (a cluster of 16) capped at the key of
+    1.0, as ``test_block_stats_long_select_caps_the_threshold_at_one``
+    holds it at 257."""
+    B, C, H = 2, 320, 10
+    hd = C // H
+    qkv = (0.05 * rng.normal(size=(B, N, 3 * C))).astype(np.float32)
+    qkv[:, 5, 0:C:hd] = 20.0
+    qkv[:, 9, C:2 * C:hd] = 20.0
+    qkv = torch.from_numpy(qkv).to(cuda, torch.bfloat16)
+    E = N * N
+    ratio = 1.0 - 0.5 / E  # keep = 1
+    out, fmap, t, s = ac.fused_attention_block_stats(qkv, H, ratio, exact)
+    _, p_map, p_t, _ = ac.block_stats_plain(qkv, H, 1, exact)
+    torch.cuda.synchronize()
+    assert float(fmap[:, 5, 9].float().min()) >= 1.0
+    if exact:
+        assert float(fmap.max()) > 1.0  # the cap binds
+    assert torch.equal(t.float(), torch.ones_like(t, dtype=torch.float32))
+    assert torch.equal(t, p_t.to(t.dtype))
+    assert _max_err(s, stats.masked_row_sums(fmap.float(), t.float())) <= 1e-6
+    assert _max_err(fmap, p_map) <= _bf16_ulp(p_map)
+
+
+@pytest.mark.parametrize("dtype,N,NP,C,H", [
+    (torch.bfloat16, 449, 449, 192, 3),
+    (torch.bfloat16, 513, 513, 192, 3),
+    (torch.float32, 513, 513, 192, 3),
+    (torch.bfloat16, 640, 640, 192, 3),
+    (torch.bfloat16, 577, 640, 768, 12),
+])
+def test_core_normalize_above_512_rows_matches_plain(rng, cuda, dtype, N, NP,
+                                                     C, H):
+    """K4/K5 whose normalize takes a cluster of 8 (449) or 16 (513 and
+    up), held as ``test_core_padded_kernel_matches_plain`` holds K5."""
+    qkv, pol = _qkv_policy(rng, 4, N, NP, C)
+    qkv, pol = qkv.to(cuda, dtype), pol.to(cuda)
+    out, fmap = ac.fused_attention_core_padded(qkv, pol, H, N)
     p_out, p_map = ac.core_padded_plain(qkv, pol, H, N)
     _check_core(qkv, pol, H, N, out, fmap, p_out, p_map)
 

@@ -29,6 +29,7 @@ agree (the test's docstring says why).
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import jax
@@ -312,3 +313,63 @@ def test_time_long_kernels_copies_the_package_with_the_parents_kernels(
             assert (copy / rel).read_bytes() == path.read_bytes(), rel
     with pytest.raises(RuntimeError, match="no kernel sources"):
         tl.make_parent(tmp_path / "missing")
+
+
+def test_time_long_kernels_thresh_and_bench_readings(monkeypatch):
+    """The readings ``--against parent`` takes beside the serving ones,
+    rehearsed on the CPU at B=2 (the plain versions, the host clock):
+    the bf16 exact ``masked_forward_thresh`` of ``deit_tiny_patch2_32``
+    (its img/s, K4 and K4's attention phase on the first K4 call's
+    operands), K5 on the kernel bench's operands at 577 tokens and K3 on
+    them at 257, each case held against its plain version before it is
+    timed."""
+    from protopformer_tpu_torch.cli import bench_kernels
+    from protopformer_tpu_torch.cli import time_long_kernels as tl
+    from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
+    from protopformer_tpu_torch.models import construct_ppnet
+
+    monkeypatch.setattr(tl, "B", 2)
+    small = bench_kernels.bench_inputs
+    monkeypatch.setattr(bench_kernels, "bench_inputs",
+                        lambda dev, tokens: small(dev, batch=2, tokens=tokens))
+    cfg = backbone_preset("deit_tiny_patch2_32")
+    ppnet = PPNetConfig()
+    state_dict = construct_ppnet(
+        cfg, ppnet, torch.float32,
+        generator=torch.Generator().manual_seed(10)).state_dict()
+    cpu = torch.device("cpu")
+    got = tl.thresh_readings(cfg, ppnet, state_dict, cpu)
+    got.update(tl.bench_readings(cpu))
+    assert set(got) == {"K3[bf16,thresh,N=257,H=3]", "K4[bf16,thresh,N=257,H=3]",
+                        "img_per_sec[thresh_bf16_exact]",
+                        "K3[bf16,bench,577 in 640]",
+                        "K5[bf16,bench,577 in 640]",
+                        "K3[bf16,bench,257]"}
+    assert all(v > 0 for v in got.values())
+
+
+def test_time_long_kernels_short_readings(monkeypatch):
+    """The readings ``--against parent`` takes at N <= 256, rehearsed on
+    the CPU at B=2 (the plain versions, the host clock): K1 in both modes
+    and K2 on K1's exact map at each of ``SHORT_CASES``, and K5 with its
+    attention phase and its normalize on the kernel bench's operands at
+    197 and 256 tokens, each case held against its plain version before it
+    is timed."""
+    from protopformer_tpu_torch.cli import bench_kernels
+    from protopformer_tpu_torch.cli import time_long_kernels as tl
+
+    monkeypatch.setattr(tl, "B", 2)
+    small = bench_kernels.bench_inputs
+    monkeypatch.setattr(bench_kernels, "bench_inputs",
+                        lambda dev, tokens: small(dev, batch=2, tokens=tokens))
+    got = tl.short_readings(torch.device("cpu"))
+    want = set()
+    for n, _c, h in tl.SHORT_CASES:
+        want |= {f"K1[speed,N={n},H={h}]", f"K1[exact,N={n},H={h}]",
+                 f"K2[fp32,N={n},H={h}]"}
+    for at in ("bench,197 in 256", "bench,256 in 256"):
+        want |= {f"K3[bf16,{at}]", f"K5[bf16,{at}]", f"K5_normalize[{at}]"}
+    assert set(got) == want
+    # the normalize is a difference of two host-clock times
+    assert all(v > 0 for k, v in got.items() if "normalize" not in k)
+    assert all(math.isfinite(v) for v in got.values())

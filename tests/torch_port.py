@@ -5,7 +5,18 @@ Importing it also runs PyTorch's CPU ops on one thread. The suite runs
 under pytest-xdist with several workers per machine; PyTorch's default of
 one OpenMP thread per core then oversubscribes the cores, and its thread
 barriers stall whenever another worker holds a core (a 0.8 s test was
-measured at 24 s that way). One thread costs these small shapes little."""
+measured at 24 s that way). One thread costs these small shapes little.
+
+Importing it also makes JAX's CPU client run each computation inline on
+the calling thread (``jax_cpu_enable_async_dispatch`` off). An eager call
+of a Pallas kernel in TPU interpret mode runs the kernel body as host
+callbacks that dispatch JAX ops of their own; under async dispatch the
+calling thread goes on to dispatch the next op, and the two can wait on
+each other for good (the exact case of ``test_models.py``'s
+``test_deit_masked_forward_fused_block_stats`` hung so about once in ten
+runs on a loaded 8-core CPU). The setting is process-wide and every
+xdist worker imports this module while it collects, before its first
+computation, so it holds for each test the worker runs."""
 
 import dataclasses
 import math
@@ -23,6 +34,7 @@ from protopformer_tpu_torch.models import deit as t_deit
 from protopformer_tpu_torch.models import layers as t_layers
 
 torch.set_num_threads(1)
+jax.config.update("jax_cpu_enable_async_dispatch", False)
 
 # the kernel gates keep the port's own default ("auto": the kernel-on
 # structure); every other field takes the JAX config's value
