@@ -120,6 +120,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
      K4/K5's normalize phase at 577 and 640 with its bound (the map's
      round trip); then deit_tiny_patch2_32 (257 tokens, 3 heads) in the
      three modes as DeiT-B/16@384;
+  4h. past 640 tokens, the routes above the kernels' old limit:
+     DeiT-Tiny/16 at 448 px (785 tokens, the CUB preset's head, seeded
+     weights, B=160) served in the three modes as in 4g (bf16: K1 x 11 at
+     N=785, its heads kernel's accumulator in device memory, and K3 x 1 at
+     N=82; fp32: K3 x 12, on its global route, and K2 x 11 at N=785), fp32
+     card vs CPU on 2 images (logits within 1e-4, the same top-81), the
+     bf16 readings recorded; masked_forward_thresh at 448 (K4 x 11 at 785),
+     bf16 exact's selection recorded against both CPU forwards beside
+     bf16_witness's 160-image readings; the kernel bench at real 785 in NP
+     896 (K5); DeiT-Tiny/16 at 512 px (1,025 tokens, the map select's
+     bands read in place) in bf16 speed and fp32; each kernel held against
+     its plain version on the path's own operands as in 4g;
+  4i. the data layer feeding the trainer: a seeded CUB-200-2011 tree of
+     JPEGs at the dataset's sizes written under build/ (200 classes, 3
+     train and 1 test image each, with images.txt,
+     image_class_labels.txt, train_test_split.txt and
+     bounding_boxes.txt), build_dataset_index("CUB2011U"), main_train.py's
+     train transform at 224 (RandAugment rand-m9-mstd0.5-inc1,
+     RandomErasing 0.25) through the native decoder where it builds, else
+     PIL, HostDataLoader at B=128 with 8 workers (the loader alone timed
+     over an epoch), train_one_epoch of the DeiT-Tiny/16@224 CUB-preset
+     PPNet in bf16 over 3 epochs at the preset's full LR, one step with
+     MixupCutmix (main_train.py's cutmix), K2 x 11 a step, the mean loss
+     of the last epoch below the first's; one loader-fed step profiled
+     (idle share); evaluate over the eval loader (K1 x 11 + K3 x 1 a
+     batch, the last padded); prints the loader's img/s, the fed train
+     step's img/s and idle share, and whether the native path ran;
   5. the card against the CPU: fp32 parity on 2 images (logits within
      1e-4, the same top-81 tokens), and bf16 speed and bf16 exact against
      the CPU's fp32 forward (at least 74 of the top-81 tokens kept, none
@@ -801,6 +828,17 @@ THRESH_LAUNCHES = {"fused_attention_block_stats": 0, "fused_map_stats": 0,
                    "fused_attention_core_padded": 0}
 
 
+def preset_config(preset: str, **overrides):
+    """``backbone_preset`` of ``preset``; "name@size" is the preset ``name``
+    at ``img_size`` size (DeiT-Tiny/16 at 448 px: 785 tokens)."""
+    from protopformer_tpu_torch.core.config import backbone_preset
+
+    name, _, size = preset.partition("@")
+    if size:
+        overrides["img_size"] = int(size)
+    return backbone_preset(name, **overrides)
+
+
 def backbone_from(state_dict, backbone_cfg, dtype, device):
     """The PPNet state dict's ``features.*`` in a DeiTBackbone."""
     from protopformer_tpu_torch.models import DeiTBackbone
@@ -814,7 +852,8 @@ def backbone_from(state_dict, backbone_cfg, dtype, device):
 
 def thresh(dev: torch.device, state_dict, rng: np.random.Generator,
            preset: str = "deit_tiny_patch16_224", tag: str = "thresh",
-           hold_bf16_selection: bool = True) -> tuple:
+           hold_bf16_selection: bool = True,
+           hold_fp32_selection: bool = True) -> tuple:
     """masked_forward_thresh of ``preset`` at full depth and B=160, bf16
     exact and fp32, each with the launch counters (K4 on blocks 0-10, K3 on
     block 11, per forward), then on the first 2 images against the CPU:
@@ -822,18 +861,19 @@ def thresh(dev: torch.device, state_dict, rng: np.random.Generator,
     1e-4); against the CPU's bf16 and fp32 forwards, bf16 exact keeps x
     within serving's bf16 bound (rtol 2e-2 plus 2e-2 * max|ref|) and
     cls_token_attn within serving's selection contract against the fp32
-    forward, and against the bf16 one where ``hold_bf16_selection``. Else
-    the bf16-against-bf16 reading is recorded beside the CPU's own bf16
-    against its fp32 and ``bf16_witness``'s readings over all B images.
+    forward where ``hold_fp32_selection``, and against the bf16 one where
+    ``hold_bf16_selection``. Else the bf16-against-bf16 reading is
+    recorded beside the CPU's own bf16 against its fp32 and
+    ``bf16_witness``'s readings over all B images.
     Returns ({path: {"launches": ...}}, {path: the arguments of its first
     K4 call}), the paths named ``tag``_bf16_exact and ``tag``_fp32."""
     from protopformer_tpu_torch import kernels
-    from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
+    from protopformer_tpu_torch.core.config import PPNetConfig
     from protopformer_tpu_torch.models import layers
     from protopformer_tpu_torch.serving import no_tf32
 
     reserve = PPNetConfig().reserve_layer_nums
-    backbone = backbone_preset(preset)
+    backbone = preset_config(preset)
     P, size, width = backbone.num_patches, backbone.img_size, backbone.embed_dim
     results, k4_args = {}, {}
 
@@ -916,6 +956,7 @@ def thresh(dev: torch.device, state_dict, rng: np.random.Generator,
         log(f"{tag} bf16 exact vs {ref}: top-81 overlap {overlap}, lowest "
             f"rank dropped {worst_drop}")
         require((ref == "cpu bf16" and not hold_bf16_selection)
+                or (ref == "cpu fp32" and not hold_fp32_selection)
                 or (min(overlap) >= 74
                     and all(r is None or r >= 64 for r in worst_drop)),
                 f"{tag} bf16 exact selection against the {ref} forward: "
@@ -1295,12 +1336,16 @@ def step_contract(cpu: dict, card: dict, replay: dict) -> dict:
 SB_PROBE_IMAGES = {"deit_small_patch16_224": PROBE_IMAGES,
                    "deit_base_patch16_224": 160 * 10,
                    "deit_base_patch16_384": 160 * 4,
-                   "deit_tiny_patch2_32": PROBE_IMAGES}
+                   "deit_tiny_patch2_32": PROBE_IMAGES,
+                   "deit_tiny_patch16_224@448": 160 * 4,
+                   "deit_tiny_patch16_224@512": 160 * 4}
 # the path and record tag of each preset served at width
 WIDTH_TAGS = {"deit_small_patch16_224": "deit_s",
               "deit_base_patch16_224": "deit_b",
               "deit_base_patch16_384": "deit_b384",
-              "deit_tiny_patch2_32": "deit_t_p2"}
+              "deit_tiny_patch2_32": "deit_t_p2",
+              "deit_tiny_patch16_224@448": "deit_t448",
+              "deit_tiny_patch16_224@512": "deit_t512"}
 OFF_PROBE_IMAGES = PROBE_IMAGES
 UNPRUNED_B = 32
 NO_LAUNCHES = {name: 0 for name in expected_launches("fp32_parity", 0)}
@@ -1524,7 +1569,8 @@ def k2_record(fmap: torch.Tensor, exact: bool) -> dict:
 
 def serve_width(dev: torch.device, preset: str, modes: tuple,
                 rng: np.random.Generator, hold_vs_fp32: bool) -> tuple:
-    """A DeiT PPNet of ``preset`` (WIDTH_TAGS) at the CUB preset (seeded
+    """A DeiT PPNet of ``preset`` (WIDTH_TAGS; ``preset_config``'s names)
+    at the CUB preset (seeded
     weights) served at B=160 in ``modes``: per mode one chunk with the
     launch counters, a throughput probe and a profile of one chunk; the
     kernels against their plain versions on the model's own qkv and maps
@@ -1538,17 +1584,17 @@ def serve_width(dev: torch.device, preset: str, modes: tuple,
     move with one ulp). Returns ({path: {"launches", "img_per_sec"}},
     {record name: partial record}, state dict, images)."""
     from protopformer_tpu_torch import kernels
-    from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
+    from protopformer_tpu_torch.core.config import PPNetConfig
     from protopformer_tpu_torch.models import construct_ppnet, deit, layers
     from protopformer_tpu_torch.serving import ServingEngine
 
     tag = WIDTH_TAGS[preset]
     ppnet = PPNetConfig()
     configs = {
-        "bf16_speed": (backbone_preset(preset, rollout_exact_discard=False),
+        "bf16_speed": (preset_config(preset, rollout_exact_discard=False),
                        torch.bfloat16),
-        "bf16_exact": (backbone_preset(preset), torch.bfloat16),
-        "fp32_parity": (backbone_preset(preset), torch.float32),
+        "bf16_exact": (preset_config(preset), torch.bfloat16),
+        "fp32_parity": (preset_config(preset), torch.float32),
     }
     heads = configs["fp32_parity"][0].num_heads
     size = configs["fp32_parity"][0].img_size
@@ -1916,6 +1962,23 @@ def k3_bf16_long_reading(qkv: torch.Tensor, pol, heads: int,
             "max_abs_err": errs}))
 
 
+def thresh_records(k4_args: dict, n: int) -> dict:
+    """Each K4 on its thresh forward's own qkv (``core_record``), and K3's
+    bf16 long kernel on the bf16 one's (``k3_bf16_long_reading``)."""
+    records = {}
+    for path, (args, _) in k4_args.items():
+        qkv, pol, heads, ratio, identity_weight = args
+        require((ratio, identity_weight) == (DISCARD, 0.2),
+                f"{path}: K4 called with discard {ratio}, identity weight "
+                f"{identity_weight}")
+        dtype = "bf16" if qkv.dtype == torch.bfloat16 else "fp32"
+        name = f"fused_attention_core[{dtype},N={n},H={heads}]"
+        records[name] = core_record(name, qkv.clone(), pol, n, heads)
+        if dtype == "bf16":
+            k3_bf16_long_reading(qkv, pol, heads, n)
+    return records
+
+
 def long_phase(dev: torch.device, rng: np.random.Generator) -> tuple:
     """Phase 4g (see the module docstring). Returns ({path: {...}},
     {record name: partial record})."""
@@ -1938,16 +2001,7 @@ def long_phase(dev: torch.device, rng: np.random.Generator) -> tuple:
                           "deit_b384_thresh", hold_bf16_selection=False)
     paths.update(thr)
     del weights
-    for path, (args, _) in k4_args.items():
-        qkv, pol, heads, ratio, identity_weight = args
-        require((ratio, identity_weight) == (DISCARD, 0.2),
-                f"{path}: K4 called with discard {ratio}, identity weight "
-                f"{identity_weight}")
-        dtype = "bf16" if qkv.dtype == torch.bfloat16 else "fp32"
-        name = f"fused_attention_core[{dtype},N={LONG_N},H={heads}]"
-        records[name] = core_record(name, qkv.clone(), pol, LONG_N, heads)
-        if dtype == "bf16":
-            k3_bf16_long_reading(qkv, pol, heads, LONG_N)
+    records.update(thresh_records(k4_args, LONG_N))
     del k4_args
     log(f"deit_b384 thresh: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1967,6 +2021,265 @@ def long_phase(dev: torch.device, rng: np.random.Generator) -> tuple:
     records.update(recs)
     log(f"deit_t_p2 serving: {time.perf_counter() - t0:.1f} s")
     return paths, records
+
+
+# --- phase 4h: past 640 tokens (DeiT-Tiny/16 at 448 and 512 px) ---------------
+
+T448_N = 785  # DeiT-Tiny/16 at 448 px: CLS + 28 x 28 patches
+
+
+def past_640_phase(dev: torch.device, rng: np.random.Generator) -> tuple:
+    """Phase 4h (see the module docstring). Returns ({path: {...}},
+    {record name: partial record})."""
+    from protopformer_tpu_torch.cli.bench_kernels import bench_inputs
+
+    paths, records = {}, {}
+    n = T448_N
+    t0 = time.perf_counter()
+    served, recs, weights, _ = serve_width(
+        dev, "deit_tiny_patch16_224@448",
+        ("bf16_speed", "bf16_exact", "fp32_parity"), rng, hold_vs_fp32=False)
+    paths.update(served)
+    records.update(recs)
+    log(f"deit_t448 serving: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    # serving's selection contract was set on 2 images at 197 tokens: at
+    # 785 bf16 exact's selection is recorded against both CPU forwards,
+    # beside bf16_witness's 160-image readings (kernels and their plain
+    # versions on the card)
+    thr, k4_args = thresh(dev, weights, rng, "deit_tiny_patch16_224@448",
+                          "deit_t448_thresh", hold_bf16_selection=False,
+                          hold_fp32_selection=False)
+    paths.update(thr)
+    del weights
+    records.update(thresh_records(k4_args, n))
+    del k4_args
+    log(f"deit_t448 thresh: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    # the kernel bench at 785 tokens: K5 on real 785 in NP 896
+    paths.update(bench(dev, n, f"bench_{n}"))
+    x = bench_inputs(dev, tokens=n)
+    name = f"fused_attention_core_padded[bf16,bench,N={n}]"
+    records[name] = core_record(name, x["qkv_pad"], x["policy_pad"], n, H)
+    k3_bf16_long_reading(x["qkv_pad"], x["policy_pad"], H, n)
+    del x
+    log(f"bench at {n}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    # 1,025 tokens: the map select's bands no longer fit shared memory
+    served, recs, _, _ = serve_width(dev, "deit_tiny_patch16_224@512",
+                                     ("bf16_speed", "fp32_parity"), rng,
+                                     hold_vs_fp32=False)
+    paths.update(served)
+    records.update(recs)
+    log(f"deit_t512 serving: {time.perf_counter() - t0:.1f} s")
+    return paths, records
+
+
+# --- phase 4i: the data layer feeding the trainer ------------------------------
+
+DATA_CLASSES = 200  # CUB-200-2011's classes
+DATA_TRAIN_PER_CLASS = 3  # images a class: 600 train images, 4 steps of 128
+DATA_TEST_PER_CLASS = 1  # 200 eval images: batches of 128 and 72 (+ pads)
+DATA_WORKERS = 8
+DATA_EPOCHS = 3
+# CUB-200-2011's own image sizes: the longer side 500 px
+DATA_SIZES = ((500, 375), (375, 500), (500, 333), (500, 500))
+
+
+def write_cub_tree(root: Path, seed: int) -> None:
+    """A CUB-200-2011 tree of seeded JPEGs at the dataset's sizes: per class
+    a base colour under noise (a pattern a model can learn in a few steps),
+    with images.txt, image_class_labels.txt, train_test_split.txt and
+    bounding_boxes.txt as the stock metadata has them."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    base = root / "CUB_200_2011"
+    colours = rng.integers(30, 226, size=(DATA_CLASSES, 3))
+    per_class = DATA_TRAIN_PER_CLASS + DATA_TEST_PER_CLASS
+    lines = {"images": [], "labels": [], "split": [], "boxes": []}
+    for c in range(DATA_CLASSES):
+        folder = f"{c + 1:03d}.Class_{c + 1}"
+        (base / "images" / folder).mkdir(parents=True, exist_ok=True)
+        for k in range(per_class):
+            i = c * per_class + k + 1
+            w, h = DATA_SIZES[i % len(DATA_SIZES)]
+            noise = rng.normal(0.0, 40.0, size=(h // 4, w // 4, 3))
+            img = np.clip(colours[c] + np.kron(noise, np.ones((4, 4, 1))),
+                          0, 255).astype(np.uint8)
+            name = f"{folder}/Class_{c + 1}_{k}.jpg"
+            Image.fromarray(img).save(base / "images" / name, quality=90)
+            lines["images"].append(f"{i} {name}")
+            lines["labels"].append(f"{i} {c + 1}")
+            lines["split"].append(f"{i} {int(k < DATA_TRAIN_PER_CLASS)}")
+            lines["boxes"].append(f"{i} {w * 0.1:.1f} {h * 0.1:.1f} "
+                                  f"{w * 0.8:.1f} {h * 0.8:.1f}")
+    for fname, key in (("images.txt", "images"),
+                       ("image_class_labels.txt", "labels"),
+                       ("train_test_split.txt", "split"),
+                       ("bounding_boxes.txt", "boxes")):
+        (base / fname).write_text("\n".join(lines[key]) + "\n")
+
+
+def data_phase(dev: torch.device) -> dict:
+    """Phase 4i (see the module docstring). Returns {path: {"launches",
+    "img_per_sec"}}."""
+    import shutil
+    import tempfile
+
+    from protopformer_tpu_torch import kernels, train
+    from protopformer_tpu_torch.core.config import (
+        ExperimentConfig,
+        PPNetConfig,
+        backbone_preset,
+    )
+    from protopformer_tpu_torch.data import (
+        HostDataLoader,
+        MixupCutmix,
+        build_dataset_index,
+        build_eval_transform,
+        build_train_transform,
+        native,
+    )
+
+    results = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="cub_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        write_cub_tree(tmp, seed=21)
+        log(f"data: wrote {DATA_CLASSES} classes x "
+            f"{DATA_TRAIN_PER_CLASS + DATA_TEST_PER_CLASS} JPEGs in "
+            f"{time.perf_counter() - t0:.1f} s")
+        # main_train.py's data flags: CUB2011U (the raw tree), the train
+        # transform at 224 with RandAugment rand-m9-mstd0.5-inc1 and
+        # RandomErasing 0.25 (colour jitter off under auto-augment)
+        cfg = ExperimentConfig()
+        train_index = build_dataset_index("CUB2011U", str(tmp), train=True)
+        eval_index = build_dataset_index("CUB2011U", str(tmp), train=False)
+        require(len(train_index) == DATA_CLASSES * DATA_TRAIN_PER_CLASS
+                and len(eval_index) == DATA_CLASSES * DATA_TEST_PER_CLASS
+                and train_index.num_classes == 200,
+                "data: the CUB index does not match the tree")
+        args = (224, cfg.data.color_jitter, cfg.data.aa, cfg.data.reprob)
+        use_native = native.is_available()
+        path_tf = (native.build_native_train_transform(*args) if use_native
+                   else None)
+        eval_path_tf = (native.build_native_eval_transform(224) if use_native
+                        else None)
+        log(f"data: native image pipeline available: {use_native} "
+            f"({native.library_path()}); the train path runs "
+            f"{'the native decoder' if use_native else 'PIL'}")
+        train_loader = HostDataLoader(
+            train_index, build_train_transform(*args), TRAIN_B, shuffle=True,
+            seed=cfg.train.seed, drop_last=True, num_workers=DATA_WORKERS,
+            path_transform=path_tf)
+        eval_loader = HostDataLoader(
+            eval_index, build_eval_transform(224), TRAIN_B, shuffle=False,
+            seed=cfg.train.seed, num_workers=DATA_WORKERS,
+            path_transform=eval_path_tf)
+        # the loader alone: one epoch of decode + augment + batch
+        t0 = time.perf_counter()
+        batches = list(train_loader)
+        loader_s = time.perf_counter() - t0
+        shapes = {tuple(b["image"].shape) for b in batches}
+        require(shapes == {(TRAIN_B, 224, 224, 3)}
+                and all(np.isfinite(b["image"]).all() for b in batches),
+                f"data: train batches of shapes {shapes}")
+        loader_ips = len(batches) * TRAIN_B / loader_s
+        log(f"data: the train loader alone, {len(batches)} batches of "
+            f"{TRAIN_B} with {DATA_WORKERS} workers: {loader_ips:.1f} img/s "
+            "(host)")
+
+        ppnet = PPNetConfig()
+        backbone = backbone_preset("deit_tiny_patch16_224")
+        state, plain_step = train_setup(backbone, ppnet, torch.bfloat16, dev,
+                                        seed=22)
+        mix_step = train.make_train_step(
+            state.model, ppnet, cfg.optim, device=dev,
+            mixup=MixupCutmix(mixup_alpha=cfg.data.mixup,
+                              cutmix_alpha=cfg.data.cutmix,
+                              prob=cfg.data.mixup_prob,
+                              switch_prob=cfg.data.mixup_switch_prob,
+                              num_classes=ppnet.num_classes))
+        # the preset's first full-LR epoch (after its 5 warm-up epochs)
+        state.step = 5 * TRAIN_STEPS_PER_EPOCH
+        mix_at = state.step + 1
+        losses, mixed = [], []
+
+        def step(st, batch, gen, gate):
+            use_mix = st.step == mix_at
+            st, metrics = (mix_step if use_mix else plain_step)(
+                st, batch, gen, gate)
+            losses.append(metrics["loss"])
+            mixed.append(use_mix)
+            return st, metrics
+
+        gen = torch.Generator(dev).manual_seed(3)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for epoch in range(DATA_EPOCHS):
+            state, stats, _ = train.train_one_epoch(
+                step, state, train_loader, epoch, gen, cfg)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = kernels.launch_counts()
+        losses = torch.stack(losses).tolist()
+        steps = len(losses)
+        per_epoch = steps // DATA_EPOCHS
+        first = sum(losses[:per_epoch]) / per_epoch
+        last = sum(losses[-per_epoch:]) / per_epoch
+        step_ips = steps * TRAIN_B / train_s
+        log(f"data: train_one_epoch x {DATA_EPOCHS} from the loader, bf16, "
+            f"B={TRAIN_B}: {steps} steps in {train_s:.2f} s, "
+            f"{step_ips:.1f} img/s (loader included); losses "
+            f"{json.dumps(losses)}; step {mixed.index(True)} with "
+            f"MixupCutmix (cutmix {cfg.data.cutmix}); mean loss of the "
+            f"first epoch {first!r}, of the last {last!r}")
+        require(sum(mixed) == 1, "data: the mixup step did not run once")
+        want = {k: v * steps for k, v in TRAIN_LAUNCHES.items()}
+        require(train_launches == want,
+                f"data: the train steps launched {train_launches}, not {want}")
+        require(all(math.isfinite(v) for v in losses) and last < first,
+                "data: the mean loss did not fall over the epochs")
+        # the step fed from the loader: its time and the device's idle
+        # share over two steps whose batches come from the loader
+        feed = iter(train_loader)
+
+        def loader_step():
+            return plain_step(state, next(feed), gen, 1.0)[1]
+
+        prof = profile_chunk(loader_step, reps=1)
+        for _ in feed:  # the epoch's remaining batches
+            pass
+        log(f"data: one loader-fed train step, profile {json.dumps(prof)}")
+        results["data_train"] = {"img_per_sec": step_ips,
+                                 "launches": train_launches}
+        # evaluate over the eval loader: the serving forward's kernels a
+        # batch (K1 x 11, K3 x 1), the last batch padded and masked
+        eval_step = train.make_eval_step(device=dev)
+        kernels.reset_launch_counts()
+        res = train.evaluate(eval_step, state.model, eval_loader)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        want = expected_launches("bf16_exact", len(eval_loader))
+        log(f"data: evaluate over {len(eval_index)} images in "
+            f"{len(eval_loader)} batches {json.dumps(res)}; launches "
+            f"{json.dumps(launches)}")
+        require(launches == want, f"data: evaluate expected launches {want}")
+        require(all(math.isfinite(v) for v in res.values())
+                and 0.0 <= res["acc1"] <= res["acc5"] <= 100.0,
+                "data: evaluate out of range")
+        results["data_eval"] = {"launches": launches}
+        log("data: " + json.dumps({
+            "loader_img_per_sec": loader_ips,
+            "train_step_img_per_sec": step_ips,
+            "train_step_idle_share": prof["idle_share"],
+            "native_path_ran": use_native,
+            "mean_loss_first_epoch": first, "mean_loss_last_epoch": last}))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return results
 
 
 # --- main ----------------------------------------------------------------------
@@ -2039,6 +2352,15 @@ def main() -> int:
     paths.update(long)
     records.update(long_records)
     log(f"token counts above 256: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    past, past_records = past_640_phase(dev, rng)
+    paths.update(past)
+    records.update(past_records)
+    log(f"token counts past 640: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fed = data_phase(dev)
+    paths.update(fed)
+    log(f"data layer: {time.perf_counter() - t0:.1f} s")
 
     # launches of each record's kernel on the paths that run it
     per_record_mode = {
@@ -2084,6 +2406,22 @@ def main() -> int:
         "fused_attention_mean_padded[fp32,N=257,H=3]": [
             "deit_t_p2_fp32_parity"],
         "fused_map_stats[fp32,H=3,N=257 map]": ["deit_t_p2_fp32_parity"],
+        "fused_attention_block_stats[speed,H=3,N=785]": [
+            "deit_t448_bf16_speed"],
+        "fused_attention_block_stats[exact,H=3,N=785]": [
+            "deit_t448_bf16_exact"],
+        "fused_attention_mean_padded[fp32,N=785,H=3]": [
+            "deit_t448_fp32_parity"],
+        "fused_map_stats[fp32,H=3,N=785 map]": ["deit_t448_fp32_parity"],
+        "fused_attention_core[bf16,N=785,H=3]": [
+            "deit_t448_thresh_bf16_exact"],
+        "fused_attention_core[fp32,N=785,H=3]": ["deit_t448_thresh_fp32"],
+        "fused_attention_core_padded[bf16,bench,N=785]": ["bench_785"],
+        "fused_attention_block_stats[speed,H=3,N=1025]": [
+            "deit_t512_bf16_speed"],
+        "fused_attention_mean_padded[fp32,N=1025,H=3]": [
+            "deit_t512_fp32_parity"],
+        "fused_map_stats[fp32,H=3,N=1025 map]": ["deit_t512_fp32_parity"],
     }
     line = []
     for name, rec in records.items():
@@ -2105,7 +2443,7 @@ def main() -> int:
                                           **wide, **long}.items()
          if "img_per_sec" in r}))
     log("train img/s (B=128): " + json.dumps(
-        {m: r["img_per_sec"] for m, r in trained.items()
+        {m: r["img_per_sec"] for m, r in {**trained, **fed}.items()
          if "img_per_sec" in r}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)

@@ -37,7 +37,7 @@
 // to it within one bf16 ulp of its largest entry, with at most 1e-4 of
 // its entries (or one row) differing, not bit for bit.
 //
-// Tokens: N <= 640. Up to 256 the kernel above keeps a head's K (then V)
+// Tokens: any N. Up to 256 the kernel above keeps a head's K (then V)
 // for every key in shared memory and a row's logits in registers. From 257
 // on neither fits: at N=577, H=12 (DeiT-B/16 at 384) a band's fp32
 // accumulator is ~200 KB and a row's 37 key tiles would take 296
@@ -68,6 +68,17 @@
 //  * K and V stream through a ring of 2 chunk buffers filled by cp.async
 //    one chunk ahead (one barrier a chunk); a thread's copies step by the
 //    block's threads from offsets computed once (ppf::copy_steps).
+//  * Past what a CTA's shared memory holds (long_route): from ~660
+//    tokens the band's fp32 accumulator moves to a scratch buffer in
+//    global memory (its rows L2-resident while the CTA runs; 155 KB a CTA
+//    at 785 tokens), and from ~2,000 tokens the CTA takes one row tile (16
+//    rows, 4 warps), so that its bf16 logits still fit (up to ~6,000
+//    tokens). Above 640 columns passes 2 and 3 loop over a row's steps,
+//    each writing its values back in place, instead of holding the row in
+//    registers: the same operations in the same order, so the same map.
+//    Every row maximum is final before any exp (no online rescaling, which
+//    would move entries by an ulp that the threshold magnifies). A simple
+//    route, not yet tuned (PERF.md has its time against its bound).
 // A row sum adds each lane's values in column order, then the warp's
 // lanes; P V sums its 16-key products in key order. Measured
 // (cli.time_long_kernels --against parent, an H100 at 700 W, B=160, the
@@ -270,43 +281,65 @@ block_stats_kernel(const __nv_bfloat16* __restrict__ qkv, int N, int C, int H,
 // --- N >= ppf::kLongMinTokens: two launches -----------------------------------
 
 // block_stats_long_kernel computes a sample's attention, head mean and
-// stored map in CTAs of kLongTiles row tiles, one CTA per band, no cluster;
+// stored map in CTAs of TILES row tiles, one CTA per band, no cluster;
 // K2's cluster kernel (map_stats.cu) then selects the stored map's
 // threshold, capped at bits(1.0), and sums its masked rows.
-constexpr int kLongTiles = 3;  // 16-row tiles a CTA
 constexpr int kLongWarps = 4;  // warps a row tile
-constexpr int kLongRows = 16 * kLongTiles;
-constexpr int kLongThreads = 32 * kLongWarps * kLongTiles;
 constexpr int kLongChunk = 32 * kLongWarps;  // keys a chunk: 2 key tiles a warp
 constexpr int kLongStages = 2;  // chunk buffers in the ring
-constexpr int kLongRowsPerWarp = kLongRows * 32 / kLongThreads;
+constexpr int kLongRowsPerWarp = 4;  // a tile's 16 rows over its 4 warps
+// steps of 128 columns that passes 2 and 3 hold in registers: rows of up
+// to 640 columns; longer rows loop over their steps in shared memory (a
+// kernel of its own, so that the register route's code stays as it was)
+constexpr int kLongRegSteps = 5;
 
-// The long kernel's shared memory: the band's fp32 accumulator over the
-// columns of the key tiles that hold real keys (nk), and its bf16 logits
-// (then exponentials, then probabilities) over those of the warps' 32-key
-// blocks that do (pass 1 writes whole blocks), each at a stride 8 past it
-// (the logits' then 4 or 20 mod 32 words: a quad's rows, and ldmatrix's 8,
-// on distinct banks); the ring of K or V chunks; each warp's row maxima of
-// its tile.
+// The long kernel's shared memory at `tiles` row tiles a CTA: the band's
+// fp32 accumulator over the columns of the key tiles that hold real keys
+// (nk; left out where `acc_smem` is false and the accumulator lies in
+// global memory), and its bf16 logits (then exponentials, then
+// probabilities) over those of the warps' 32-key blocks that do (pass 1
+// writes whole blocks), each at a stride 8 past it (the logits' then 4 or
+// 20 mod 32 words: a quad's rows, and ldmatrix's 8, on distinct banks);
+// the ring of K or V chunks; each warp's row maxima of its tile.
 struct LongLayout {
   int np, nk, astride, lstride, kstride;
   size_t acc, lg, ring, red, total;
-  __host__ __device__ LongLayout(int N, int hd) {
+  __host__ __device__ LongLayout(int N, int hd, int tiles, bool acc_smem) {
+    const int rows = 16 * tiles;
     np = ppf::round_up(N, kLongChunk);
     nk = ppf::round_up(N, 16);
     astride = nk + 8;
     lstride = ppf::round_up(N, 32) + 8;
     kstride = ppf::kv_stride(hd);
     acc = 0;
-    lg = ppf::align16(acc + (size_t)kLongRows * astride * sizeof(float));
-    ring = ppf::align16(lg + (size_t)kLongRows * lstride *
-                                 sizeof(__nv_bfloat16));
+    lg = ppf::align16(acc + (acc_smem ? (size_t)rows * astride * sizeof(float)
+                                      : 0));
+    ring = ppf::align16(lg + (size_t)rows * lstride * sizeof(__nv_bfloat16));
     red = ppf::align16(ring + (size_t)kLongStages * kLongChunk * kstride *
                                   sizeof(__nv_bfloat16));
-    total = ppf::align16(red + (size_t)kLongTiles * kLongWarps * 16 *
+    total = ppf::align16(red + (size_t)tiles * kLongWarps * 16 *
                                    sizeof(float));
   }
 };
+
+// The heads kernel's route at N tokens, chosen by what fits a block's
+// shared memory: 3 row tiles with the accumulator in shared memory (up to
+// ~660 tokens), 3 with it in global memory (up to ~2,000), then 1; rows in
+// registers in passes 2 and 3 up to 640 columns.
+struct LongRoute {
+  int tiles;
+  bool acc_smem;
+  bool reg_rows;
+};
+
+LongRoute long_route(int N, int hd) {
+  const bool reg = ppf::round_up(N, 16) <= 128 * kLongRegSteps;
+  if (LongLayout(N, hd, 3, true).total <= ppf::kMaxSmemPerBlock)
+    return {3, true, reg};
+  if (LongLayout(N, hd, 3, false).total <= ppf::kMaxSmemPerBlock)
+    return {3, false, reg};
+  return {1, false, reg};
+}
 
 __device__ __forceinline__ void unpack4_bf16(uint2 v, float (&x)[4]) {
   x[0] = __uint_as_float(v.x << 16);
@@ -316,20 +349,28 @@ __device__ __forceinline__ void unpack4_bf16(uint2 v, float (&x)[4]) {
 }
 
 // K1's heads for N >= ppf::kLongMinTokens (see the header): rows
-// kLongRows * blockIdx.x on of sample blockIdx.y. Pass 1 stores each
-// logit once, passes 2 and 3 run over the stored values, and only P V
-// reads the chunks of V.
-__global__ void __launch_bounds__(kLongThreads, 1)
+// kLongRows * blockIdx.x on of sample blockIdx.y, in TILES row tiles.
+// Pass 1 stores each logit once, passes 2 and 3 run over the stored
+// values, and only P V reads the chunks of V. acc_g: null, or the scratch
+// whose kLongRows x astride floats from CTA (blockIdx.y, blockIdx.x) on
+// hold its accumulator (long_route). kRegRows: passes 2 and 3 hold each
+// row in registers (up to 640 columns), else loop over its steps.
+template <int TILES, bool kRegRows>
+__global__ void __launch_bounds__(32 * kLongWarps * TILES, 1)
 block_stats_long_kernel(const __nv_bfloat16* __restrict__ qkv, int N, int C,
                         int H, bool exact, float scale_bf16,
                         float eps_over_n_bf16, __nv_bfloat16* __restrict__ out,
-                        void* __restrict__ map_out) {
+                        void* __restrict__ map_out, float* acc_g) {
+  constexpr int kLongRows = 16 * TILES;
+  constexpr int kLongThreads = 32 * kLongWarps * TILES;
   extern __shared__ __align__(16) unsigned char smem[];
   const int hd = C / H;
   const int hk = (hd + 15) / 16;
   const int C3 = 3 * C;
-  const LongLayout L(N, hd);
-  float* acc = reinterpret_cast<float*>(smem + L.acc);
+  const LongLayout L(N, hd, TILES, acc_g == nullptr);
+  float* acc = acc_g ? acc_g + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) *
+                                   kLongRows * L.astride
+                     : reinterpret_cast<float*>(smem + L.acc);
   __nv_bfloat16* lg = reinterpret_cast<__nv_bfloat16*>(smem + L.lg);
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem + L.ring);
   float* red = reinterpret_cast<float*>(smem + L.red);
@@ -439,7 +480,7 @@ block_stats_long_kernel(const __nv_bfloat16* __restrict__ qkv, int N, int C,
       ppf::load_q_frags(qn, qkv_b + (size_t)r0 * C3 + (h + 1) * hd, C3,
                         N - r0, hd);
     __syncthreads();  // every logit and row maximum of the band stored
-    // passes 2 and 3, each warp its kLongRowsPerWarp rows warp + 12 k side
+    // passes 2 and 3, each warp its kLongRowsPerWarp rows warp + kNW k side
     // by side (rows past the band's compute on what their buffers hold and
     // are never stored), a lane 4 columns of each 128, held in registers as
     // bf16 pairs from their load to their store: e = bf16 exp of the bf16
@@ -452,75 +493,109 @@ block_stats_long_kernel(const __nv_bfloat16* __restrict__ qkv, int N, int C,
     {
       constexpr int kRW = kLongRowsPerWarp;
       constexpr int kNW = kLongThreads / 32;
-      constexpr int kSteps = ppf::kMaxTokens / (4 * ppf::kWarp);
-      uint2 v[kRW][kSteps];
-      float sum[kRW];
-#pragma unroll
-      for (int k = 0; k < kRW; ++k) {
-        const int r = warp + kNW * k;
-        const __nv_bfloat16* prow = lg + r * L.lstride + 4 * lane;
-#pragma unroll
-        for (int st = 0; st < kSteps; ++st)
-          if (4 * lane + 128 * st < L.nk)
-            v[k][st] = *reinterpret_cast<const uint2*>(prow + 128 * st);
-      }
-#pragma unroll
-      for (int k = 0; k < kRW; ++k) {
-        const int r = warp + kNW * k;
+      const uint32_t eps2 = ppf::pack_bf16(eps_over_n_bf16, eps_over_n_bf16);
+      // the bf16 row maximum of row r's logits, packed twice
+      auto row_max2 = [&](int r) {
         const float* rm = red + (r >> 4) * kLongWarps * 16 + (r & 15);
         float m = rm[0];
 #pragma unroll
         for (int q = 1; q < kLongWarps; ++q) m = fmaxf(m, rm[16 * q]);
         m = ppf::bf16_round(__fmul_rn(ppf::bf16_round(m), scale_bf16));
-        const uint32_t m2 = ppf::pack_bf16(m, m);
-        sum[k] = 0.f;
+        return ppf::pack_bf16(m, m);
+      };
+      // e's four values of one step (bf16 pairs v): the bf16 exp of the
+      // bf16 difference from the maximum, rounded to bf16 in v and added
+      // to sum in column order
+      auto exp_step = [&](uint2& v, uint32_t m2, float& sum) {
+        float x[4];
+        unpack4_bf16(make_uint2(ppf::sub_bf16x2(v.x, m2),
+                                ppf::sub_bf16x2(v.y, m2)),
+                     x);
 #pragma unroll
-        for (int st = 0; st < kSteps; ++st) {
-          if (4 * lane + 128 * st < L.nk) {
-            float x[4];
-            unpack4_bf16(make_uint2(ppf::sub_bf16x2(v[k][st].x, m2),
-                                    ppf::sub_bf16x2(v[k][st].y, m2)),
-                         x);
+        for (int j = 0; j < 4; ++j) x[j] = expf(x[j]);
+        v.x = ppf::round2_bf16(x[0], x[1]);
+        v.y = ppf::round2_bf16(x[2], x[3]);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) x[j] = expf(x[j]);
-            v[k][st].x = ppf::round2_bf16(x[0], x[1]);
-            v[k][st].y = ppf::round2_bf16(x[2], x[3]);
+        for (int j = 0; j < 4; ++j) sum = __fadd_rn(sum, x[j]);
+      };
+      // p of one step from e (columns c0 .. c0 + 3, pads 0) stored over the
+      // logits at prow, and added to the head mean at arow
+      auto prob_step = [&](uint2 e, uint32_t inv2, int c0,
+                           __nv_bfloat16* prow, float* arow) {
+        uint2 pv;
+        pv.x = ppf::mul_bf16x2(ppf::add_bf16x2(e.x, eps2), inv2);
+        pv.y = ppf::mul_bf16x2(ppf::add_bf16x2(e.y, eps2), inv2);
+        if (c0 + 3 >= N) {  // pads 0
+          pv.x &= (c0 < N ? 0xffffu : 0u) | (c0 + 1 < N ? 0xffff0000u : 0u);
+          pv.y &= (c0 + 2 < N ? 0xffffu : 0u) |
+                  (c0 + 3 < N ? 0xffff0000u : 0u);
+        }
+        *reinterpret_cast<uint2*>(prow) = pv;
+        float x[4];
+        unpack4_bf16(pv, x);
+        float4 a = *reinterpret_cast<const float4*>(arow);
+        a.x = __fadd_rn(a.x, __fmul_rn(x[0], rH));
+        a.y = __fadd_rn(a.y, __fmul_rn(x[1], rH));
+        a.z = __fadd_rn(a.z, __fmul_rn(x[2], rH));
+        a.w = __fadd_rn(a.w, __fmul_rn(x[3], rH));
+        *reinterpret_cast<float4*>(arow) = a;
+      };
+      auto inv2_of = [&](float sum) {
+        const float inv = ppf::bf16_round(
+            __fdiv_rn(1.0f, __fadd_rn(ppf::warp_sum(sum), 1e-6f)));
+        return ppf::pack_bf16(inv, inv);
+      };
+      if constexpr (kRegRows) {
+        constexpr int kSteps = kLongRegSteps;
+        uint2 v[kRW][kSteps];
+        float sum[kRW];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) sum[k] = __fadd_rn(sum[k], x[j]);
+        for (int k = 0; k < kRW; ++k) {
+          const int r = warp + kNW * k;
+          const __nv_bfloat16* prow = lg + r * L.lstride + 4 * lane;
+#pragma unroll
+          for (int st = 0; st < kSteps; ++st)
+            if (4 * lane + 128 * st < L.nk)
+              v[k][st] = *reinterpret_cast<const uint2*>(prow + 128 * st);
+        }
+#pragma unroll
+        for (int k = 0; k < kRW; ++k) {
+          const uint32_t m2 = row_max2(warp + kNW * k);
+          sum[k] = 0.f;
+#pragma unroll
+          for (int st = 0; st < kSteps; ++st)
+            if (4 * lane + 128 * st < L.nk) exp_step(v[k][st], m2, sum[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < kRW; ++k) {
+          const int r = warp + kNW * k;
+          const uint32_t inv2 = inv2_of(sum[k]);
+          __nv_bfloat16* prow = lg + r * L.lstride + 4 * lane;
+          float* arow = acc + r * L.astride + 4 * lane;
+#pragma unroll
+          for (int st = 0; st < kSteps; ++st) {
+            const int c0 = 4 * lane + 128 * st;
+            if (c0 < L.nk)
+              prob_step(v[k][st], inv2, c0, prow + 128 * st, arow + 128 * st);
           }
         }
-      }
-      const uint32_t eps2 = ppf::pack_bf16(eps_over_n_bf16, eps_over_n_bf16);
-#pragma unroll
-      for (int k = 0; k < kRW; ++k) {
-        const int r = warp + kNW * k;
-        const float inv = ppf::bf16_round(
-            __fdiv_rn(1.0f, __fadd_rn(ppf::warp_sum(sum[k]), 1e-6f)));
-        const uint32_t inv2 = ppf::pack_bf16(inv, inv);
-        __nv_bfloat16* prow = lg + r * L.lstride + 4 * lane;
-        float* arow = acc + r * L.astride + 4 * lane;
-#pragma unroll
-        for (int st = 0; st < kSteps; ++st) {
-          const int c0 = 4 * lane + 128 * st;
-          if (c0 < L.nk) {
-            uint2 pv;
-            pv.x = ppf::mul_bf16x2(ppf::add_bf16x2(v[k][st].x, eps2), inv2);
-            pv.y = ppf::mul_bf16x2(ppf::add_bf16x2(v[k][st].y, eps2), inv2);
-            if (c0 + 3 >= N) {  // pads 0
-              pv.x &= (c0 < N ? 0xffffu : 0u) | (c0 + 1 < N ? 0xffff0000u : 0u);
-              pv.y &= (c0 + 2 < N ? 0xffffu : 0u) |
-                      (c0 + 3 < N ? 0xffff0000u : 0u);
-            }
-            *reinterpret_cast<uint2*>(prow + 128 * st) = pv;
-            float x[4];
-            unpack4_bf16(pv, x);
-            float4 a = *reinterpret_cast<const float4*>(arow + 128 * st);
-            a.x = __fadd_rn(a.x, __fmul_rn(x[0], rH));
-            a.y = __fadd_rn(a.y, __fmul_rn(x[1], rH));
-            a.z = __fadd_rn(a.z, __fmul_rn(x[2], rH));
-            a.w = __fadd_rn(a.w, __fmul_rn(x[3], rH));
-            *reinterpret_cast<float4*>(arow + 128 * st) = a;
+      } else {
+        // one row at a time: e written back over its logits, then p
+        for (int k = 0; k < kRW; ++k) {
+          const int r = warp + kNW * k;
+          const uint32_t m2 = row_max2(r);
+          __nv_bfloat16* prow = lg + r * L.lstride;
+          float* arow = acc + r * L.astride;
+          float sum = 0.f;
+          for (int c0 = 4 * lane; c0 < L.nk; c0 += 128) {
+            uint2 v = *reinterpret_cast<const uint2*>(prow + c0);
+            exp_step(v, m2, sum);
+            *reinterpret_cast<uint2*>(prow + c0) = v;
           }
+          const uint32_t inv2 = inv2_of(sum);
+          for (int c0 = 4 * lane; c0 < L.nk; c0 += 128)
+            prob_step(*reinterpret_cast<const uint2*>(prow + c0), inv2, c0,
+                      prow + c0, arow + c0);
         }
       }
     }
@@ -589,16 +664,30 @@ block_stats_long_kernel(const __nv_bfloat16* __restrict__ qkv, int N, int C,
 bool long_tokens(int N) { return N >= ppf::kLongMinTokens; }
 
 size_t smem_bytes(int N, int hd) {
-  return long_tokens(N) ? LongLayout(N, hd).total : Layout(N, hd).total;
+  if (!long_tokens(N)) return Layout(N, hd).total;
+  const LongRoute rt = long_route(N, hd);
+  return LongLayout(N, hd, rt.tiles, rt.acc_smem).total;
 }
 
-// Whether the launch at N tokens fits what the kernels take: N <= 640 and
-// a band whose counts fit the select's 16-bit counters (K2's band above
-// 256 tokens).
-bool takes(int N) {
-  const int rows =
-      long_tokens(N) ? ppf::map_band_rows(N) : 16 * kTilesPerCta;
-  return N <= ppf::kMaxTokens && ppf::hist_counts_fit(rows, N);
+// The heads kernel of a route, and its threads (one row tile only where
+// the rows are longer than the register route's).
+auto long_kernel(const LongRoute& rt) {
+  return rt.reg_rows ? block_stats_long_kernel<3, true>
+         : rt.tiles == 3 ? block_stats_long_kernel<3, false>
+                         : block_stats_long_kernel<1, false>;
+}
+
+int long_threads(const LongRoute& rt) { return 32 * kLongWarps * rt.tiles; }
+
+// Bytes of the scratch that holds the heads kernel's accumulators where
+// they lie in global memory (0 where they fit shared memory).
+size_t scratch_bytes(int B, int N, int hd) {
+  if (!long_tokens(N)) return 0;
+  const LongRoute rt = long_route(N, hd);
+  if (rt.acc_smem) return 0;
+  const int rows = 16 * rt.tiles;
+  return (size_t)B * ((N + rows - 1) / rows) * rows *
+         LongLayout(N, hd, rt.tiles, false).astride * sizeof(float);
 }
 
 // The cluster launch of B samples at N <= 256 tokens; `attr` must outlive
@@ -622,26 +711,31 @@ extern "C" int ppf_map_stats_active_clusters(int N, int map_is_bf16);
 // qkv: (B, N, 3C) bf16; out: (B, N, C) bf16; map: (B, N, N) fp32 (exact)
 // or bf16; t: (B,) fp32; s: (B, N) fp32. scale_bf16 / eps_over_n_bf16 are
 // hd**-0.5 and 1e-6/N rounded to bf16 by the caller. C / H is a multiple
-// of 8 and at most 64; N <= 640. One cluster launch up to 256 tokens, the
-// heads kernel and K2's cluster launch above; a refused launch returns its
-// cudaError_t.
+// of 8 and at most 64; any N whose heads kernel fits a block's shared
+// memory (ppf_attention_block_stats_smem_bytes). scratch:
+// ppf_attention_block_stats_scratch_bytes of device memory (null where
+// that is 0). One cluster launch up to 256 tokens, the heads kernel and
+// K2's cluster launch above; a refused launch returns its cudaError_t.
 extern "C" int ppf_attention_block_stats(const void* qkv, int B, int N, int C,
                                          int H, int keep, int exact,
                                          float scale_bf16, float eps_over_n_bf16,
                                          void* out, void* map, void* t, void* s,
-                                         void* stream) {
-  if (!takes(N)) return cudaErrorInvalidValue;
+                                         void* stream, void* scratch) {
   const size_t smem = smem_bytes(N, C / H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (long_tokens(N)) {
+    const LongRoute rt = long_route(N, C / H);
+    if (!rt.acc_smem && scratch == nullptr) return cudaErrorInvalidValue;
+    const auto kernel = long_kernel(rt);
     cudaError_t err = cudaFuncSetAttribute(
-        block_stats_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((N + kLongRows - 1) / kLongRows, B);
-    block_stats_long_kernel<<<grid, kLongThreads, smem, st>>>(
+    const int rows = 16 * rt.tiles;
+    const dim3 grid((N + rows - 1) / rows, B);
+    kernel<<<grid, long_threads(rt), smem, st>>>(
         static_cast<const __nv_bfloat16*>(qkv), N, C, H, exact != 0,
-        scale_bf16, eps_over_n_bf16, static_cast<__nv_bfloat16*>(out), map);
+        scale_bf16, eps_over_n_bf16, static_cast<__nv_bfloat16*>(out), map,
+        rt.acc_smem ? nullptr : static_cast<float*>(scratch));
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     // the key of 1.0: its fp32 pattern, or that pattern's high 16 bits
@@ -670,6 +764,13 @@ extern "C" int ppf_attention_block_stats_smem_bytes(int N, int hd) {
   return (int)smem_bytes(N, hd);
 }
 
+// Device memory the launch at B samples of N tokens needs for its scratch
+// (the heads kernel's accumulators where they leave shared memory).
+extern "C" long long ppf_attention_block_stats_scratch_bytes(int B, int N,
+                                                             int hd) {
+  return (long long)scratch_bytes(B, N, hd);
+}
+
 // CTAs per sample of the select's cluster launch at N tokens (K1's own up
 // to 256, K2's above).
 extern "C" int ppf_attention_block_stats_cluster_size(int N) {
@@ -679,7 +780,6 @@ extern "C" int ppf_attention_block_stats_cluster_size(int N) {
 // How many of those clusters the card can hold at once (negative: the
 // cudaError_t of the query).
 extern "C" int ppf_attention_block_stats_active_clusters(int N, int hd) {
-  if (!takes(N)) return -static_cast<int>(cudaErrorInvalidValue);
   if (long_tokens(N)) return ppf_map_stats_active_clusters(N, 0);
   const size_t smem = smem_bytes(N, hd);
   cudaLaunchAttribute attr[1];
@@ -700,15 +800,15 @@ extern "C" int ppf_attention_block_stats_active_clusters(int N, int hd) {
 // the cudaError_t of the query; 0 up to 256, where the cluster query
 // above applies).
 extern "C" int ppf_attention_block_stats_long_resident_ctas(int N, int hd) {
-  if (!takes(N)) return -static_cast<int>(cudaErrorInvalidValue);
   if (!long_tokens(N)) return 0;
   const size_t smem = smem_bytes(N, hd);
+  const LongRoute rt = long_route(N, hd);
+  const auto kernel = long_kernel(rt);
   int ctas = 0;
   cudaError_t err = cudaFuncSetAttribute(
-      block_stats_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &ctas, block_stats_long_kernel, kLongThreads, smem);
+        &ctas, kernel, long_threads(rt), smem);
   return err == cudaSuccess ? ctas : -static_cast<int>(err);
 }

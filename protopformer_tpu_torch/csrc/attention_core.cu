@@ -39,12 +39,15 @@
 // (1 + identity_weight, the row sum), so they go through a correctly
 // rounded reciprocal and FMA corrections (ppf::div_by_recip), which equal
 // div.rn and do not branch. Split over a cluster, the normalize takes
-// every real_n <= NP <= 640, as phase 1 does: above 256 real rows with
+// every real_n <= NP, as phase 1 does: above 256 real rows with
 // K2's long select (map_stats.cu; common.cuh, cluster_radix_select_long),
 // above 512 in a cluster of 16 CTAs with bands of up to 40 rows (37 at
 // 577, ~114 KB of shared memory: two CTAs an SM; measured 0.541 -> 0.437
 // ms at 577, B=160, and 1.08 -> 0.72 ms at real 577 in NP 640, B=256, on
-// an H100 at 700 W, PERF.md). At B=160, N=577 in fp32
+// an H100 at 700 W, PERF.md), and where a band of fp32 rows no longer fits
+// shared memory (from ~850 real rows) on the select's global route, which
+// reads each CTA's rows of the map in place and rewrites them there. At
+// B=160, N=577 in fp32
 // K4 moves 429 MB (qkv, out, the map) and its products are 164 GFLOP at
 // H=12: 2.44 ms on the CUDA cores bounds it; the normalize's round trip of
 // the 213 MB map is 0.13 ms at the memory rate, no longer L2-resident. In
@@ -57,7 +60,7 @@
 extern "C" int ppf_attention_mean(const void* qkv, const void* policy, int B,
                                   int NP, int C, int H, int real_n, int is_bf16,
                                   float scale, float eps_over_n, void* out,
-                                  void* map, void* stream);
+                                  void* map, void* stream, void* scratch);
 
 namespace {
 
@@ -71,16 +74,18 @@ __device__ __forceinline__ float blend(float v, bool diag, int lo, float iw,
                            r_opiw);
 }
 
-// kOneStep: real_n <= ppf::kRowStep (cluster_radix_select).
-template <bool kOneStep>
-__global__ void __launch_bounds__(ppf::kMapThreads,
-                                   ppf::map_ctas_per_sm(kOneStep))
+// kRoute: the select's route (ppf::map_route); on kMapGlobal the band is
+// the map's own rows, blended and normalized in place there.
+template <int kRoute>
+__global__ void __launch_bounds__(
+    ppf::kMapThreads, ppf::map_ctas_per_sm(kRoute == ppf::kMapOneStep))
 normalize_kernel(float* __restrict__ map, int NP, int real_n, int keep,
                  float iw, float one_plus_iw) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kOneStep = kRoute == ppf::kMapOneStep;
   float* m = map + (size_t)blockIdx.y * NP * NP;
-  ppf::MapBand band;
-  const int lo = static_cast<int>(ppf::cluster_map_select<kOneStep>(
+  ppf::map_band_t<kRoute, float> band;
+  const int lo = static_cast<int>(ppf::cluster_map_select<kRoute>(
       static_cast<const float*>(m), real_n, real_n, NP, false, keep, smem,
       band));
 
@@ -88,7 +93,9 @@ normalize_kernel(float* __restrict__ map, int NP, int real_n, int keep,
   // row once, 8 a step of ppf::kRowStep columns, sums them in column order,
   // the warp sums the lanes, and each entry is divided by the row sum. Up
   // to 256 columns the blended entries stay in registers; above, each step
-  // writes them back into the band in place.
+  // writes them back into the band in place (on the global route the band
+  // is the row itself, and each entry is rewritten by the lane that wrote
+  // it).
   const float r_opiw = __frcp_rn(one_plus_iw);
   const int lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
@@ -141,10 +148,13 @@ normalize_kernel(float* __restrict__ map, int NP, int real_n, int keep,
   if constexpr (!kOneStep) ppf::cluster_wait();
 }
 
-// The normalize kernel for real_n real tokens.
-auto normalize_for(int real_n) {
-  return real_n <= ppf::kRowStep ? normalize_kernel<true>
-                                 : normalize_kernel<false>;
+// The normalize kernel for real_n real tokens at row stride NP.
+auto normalize_for(int real_n, int NP) {
+  switch (ppf::map_route(real_n, real_n, NP)) {
+    case ppf::kMapOneStep: return normalize_kernel<ppf::kMapOneStep>;
+    case ppf::kMapLong: return normalize_kernel<ppf::kMapLong>;
+    default: return normalize_kernel<ppf::kMapGlobal>;
+  }
 }
 
 cudaLaunchConfig_t normalize_config(int B, int NP, int real_n,
@@ -152,7 +162,7 @@ cudaLaunchConfig_t normalize_config(int B, int NP, int real_n,
                                     cudaLaunchAttribute* attr) {
   return ppf::cluster_launch_config(ppf::map_cluster_size(real_n), B,
                                     ppf::kMapThreads,
-                                    ppf::map_band_smem(real_n, real_n, NP),
+                                    ppf::map_select_smem(real_n, real_n, NP),
                                     stream,
                                     attr);
 }
@@ -164,22 +174,25 @@ cudaLaunchConfig_t normalize_config(int B, int NP, int real_n,
 // in the qkv dtype; map: (B, NP, NP) fp32, the normalized rollout map.
 // scale = hd**-0.5, eps_over_n = 1e-6/real_n, one_plus_iw =
 // 1 + identity_weight, all as fp32; keep counts on real_n * real_n;
-// real_n <= NP <= 640. Returns the first failing launch's cudaError_t,
-// else 0.
+// real_n <= NP; scratch: ppf_attention_mean_scratch_bytes of phase 1 (null
+// where that is 0). Returns the first failing launch's cudaError_t, else 0.
 extern "C" int ppf_attention_core(const void* qkv, const void* policy, int B,
                                   int NP, int C, int H, int real_n, int keep,
                                   int is_bf16, float scale, float eps_over_n,
                                   float identity_weight, float one_plus_iw,
-                                  void* out, void* map, void* stream) {
-  if (!ppf::hist_counts_fit(ppf::map_band_rows(real_n), real_n))
+                                  void* out, void* map, void* stream,
+                                  void* scratch) {
+  if (ppf::map_route(real_n, real_n, NP) != ppf::kMapGlobal &&
+      !ppf::hist_counts_fit(ppf::map_band_rows(real_n), real_n))
     return cudaErrorInvalidValue;
   const int err = ppf_attention_mean(qkv, policy, B, NP, C, H, real_n, is_bf16,
-                                     scale, eps_over_n, out, map, stream);
+                                     scale, eps_over_n, out, map, stream,
+                                     scratch);
   if (err != 0) return err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = normalize_config(
       B, NP, real_n, static_cast<cudaStream_t>(stream), attr);
-  const auto kernel = normalize_for(real_n);
+  const auto kernel = normalize_for(real_n, NP);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)cfg.dynamicSmemBytes);
@@ -202,7 +215,7 @@ extern "C" int ppf_attention_core_active_clusters(int real_n, int NP) {
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = normalize_config(1, NP, real_n, nullptr, attr);
   int clusters = 0;
-  const auto kernel = normalize_for(real_n);
+  const auto kernel = normalize_for(real_n, NP);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)cfg.dynamicSmemBytes);

@@ -28,7 +28,7 @@
 //    operand. The band's accumulator stays in shared memory.
 // K and V are re-read from L2 by each row block of a sample.
 //
-// Tokens: NP <= 640. Both kernels above hold a head's K (then V) for every
+// Tokens: any NP. Both kernels above hold a head's K (then V) for every
 // key in shared memory, and the fp32 one its rows' head mean in registers:
 // at NP=577 that is ~254 KB and 19 columns a thread. From 257 on the long
 // kernels stream K and V through shared memory instead:
@@ -82,6 +82,22 @@
 //    models' operands; PERF.md): 6.13 -> 3.35 ms at 577 on K4's operands
 //    (B=160, H=12), 2.56 -> 1.51 ms on K5's bench operands (B=256, real
 //    577 in NP 640, H=3).
+// Above 640 tokens neither long kernel holds its rows' head mean in
+// registers, nor the fp32 one its P in shared memory (at NP = 1,152, P
+// alone would be 148 KB beside a 104 KB ring, and the head mean 144
+// registers a thread). There each takes its global route, a simple route
+// not yet tuned (PERF.md has its time against its bound):
+//  * the head mean accumulates in the output map itself, in global memory
+//    (zeroed by the block first, each entry updated by one lane in the
+//    same order: acc = acc + p * (1/H), head by head, so the map is the
+//    one the register route would give), and the entries outside the real
+//    block are zeroed at the end;
+//  * the softmax loops over a row's steps, writing e back in place, then p;
+//  * bf16: the block's fp32 logits stay in shared memory, in 3 row tiles
+//    (48 rows, up to ~900 tokens) or 1 (16 rows, up to ~2,900);
+//  * fp32: P lies in a scratch buffer in global memory (32 rows a block,
+//    L2-resident while the block runs), and the 8 warps' P V sums meet in
+//    shared memory.
 #include "common.cuh"
 
 namespace {
@@ -238,67 +254,79 @@ mean_kernel(const __nv_bfloat16* __restrict__ qkv,
   }
 }
 
-// The long kernel (NP >= ppf::kLongMinTokens): kLongRows query rows a
-// block in kLongTiles 16-row tiles, kLongWarps warps a tile, no cluster.
+// The long kernel (NP >= ppf::kLongMinTokens): 16 TILES query rows a
+// block in TILES 16-row tiles, kLongWarps warps a tile, no cluster.
 // Pass 1 computes each fp32 logit of the block's rows once and stores it;
 // the softmax runs over the stored values, each warp its kLongRowsPerWarp
-// rows, with the head mean in registers; P V reads the stored
-// probabilities. K, then V, stream through a ring of kLongStages chunk
-// buffers, each filled by cp.async one chunk ahead, and the head's 48 Q
-// rows come with its first K chunk.
-constexpr int kLongTiles = 3;
+// rows, with the head mean in registers (or in the map: the global
+// route); P V reads the stored probabilities. K, then V, stream through a
+// ring of kLongStages chunk buffers, each filled by cp.async one chunk
+// ahead, and the head's Q rows come with its first K chunk.
 constexpr int kLongWarps = 4;
-constexpr int kLongRows = 16 * kLongTiles;
-constexpr int kLongThreads = 32 * kLongWarps * kLongTiles;
-constexpr int kLongNW = kLongThreads / 32;
-constexpr int kLongRowsPerWarp = kLongRows / kLongNW;
+constexpr int kLongRowsPerWarp = 4;  // a tile's 16 rows over its 4 warps
 constexpr int kLongChunk = 32 * kLongWarps;  // keys a chunk: 2 key tiles a warp
 constexpr int kLongStages = 2;
 
 // Steps of 128 columns (4 a lane) a softmax row takes at NP tokens: the
-// kernel is built for 3, 4 and 5 (NP up to 384, 512 and 640; 3 also below
-// 257 tokens, as cli.time_long_kernels's copy runs it there).
+// register route is built for 3, 4 and 5 (NP up to 384, 512 and 640; 3
+// also below 257 tokens, as cli.time_long_kernels's copy runs it there).
 inline int long_steps(int NP) {
   const int st = (NP + kLongChunk - 1) / kLongChunk;
   return st < 3 ? 3 : st;
 }
 
-// Its shared memory: the policy, each warp's row maxima of its tile, the
-// block's Q rows, the ring, and the block's fp32 logits (then
-// probabilities) over the 32-key blocks that hold real keys (pass 1 writes
-// whole blocks), at a stride of 8 mod 32 words past them: a half warp's
-// float2 accesses (4 rows x 8 words) fall on 32 distinct banks.
+// Its shared memory at `tiles` row tiles: the policy, each warp's row
+// maxima of its tile, the block's Q rows, the ring, and the block's fp32
+// logits (then probabilities) over the 32-key blocks that hold real keys
+// (pass 1 writes whole blocks), at a stride of 8 mod 32 words past them: a
+// half warp's float2 accesses (4 rows x 8 words) fall on 32 distinct banks.
 struct LongLayout {
   int nk, lstride, kstride;
   size_t pol, red, q, ring, lg, total;
-  __host__ __device__ LongLayout(int NP, int hd) {
+  __host__ __device__ LongLayout(int NP, int hd, int tiles) {
+    const int rows = 16 * tiles;
     nk = ppf::round_up(NP, 16);
     lstride = ppf::round_up(NP, 32) + 8;
     kstride = ppf::kv_stride(hd);
     pol = 0;
     red = ppf::align16(pol + (size_t)ppf::round_up(NP, kLongChunk) *
                                  sizeof(float));
-    q = ppf::align16(red + (size_t)kLongNW * 16 * sizeof(float));
-    ring = ppf::align16(q + (size_t)kLongRows * kstride *
-                                sizeof(__nv_bfloat16));
+    q = ppf::align16(red + (size_t)rows / 4 * 16 * sizeof(float));
+    ring = ppf::align16(q + (size_t)rows * kstride * sizeof(__nv_bfloat16));
     lg = ppf::align16(ring + (size_t)kLongStages * kLongChunk * kstride *
                                  sizeof(__nv_bfloat16));
-    total = ppf::align16(lg + (size_t)kLongRows * lstride * sizeof(float));
+    total = ppf::align16(lg + (size_t)rows * lstride * sizeof(float));
   }
 };
 
-// rows kLongRows * blockIdx.x on of sample blockIdx.y; ST = long_steps(NP)
-template <int ST>
-__global__ void __launch_bounds__(kLongThreads, 1)
+// The long kernel's route at NP tokens: ST = long_steps(NP) up to 640
+// tokens (the head mean in registers, 3 row tiles), else ST = 0, the
+// global route, in 3 row tiles where their logits fit shared memory, else 1.
+struct LongRoute {
+  int st, tiles;
+};
+
+LongRoute long_route(int NP, int hd) {
+  const int st = long_steps(NP);
+  if (st <= 5) return {st, 3};
+  return {0, LongLayout(NP, hd, 3).total <= ppf::kMaxSmemPerBlock ? 3 : 1};
+}
+
+// rows kLongRows * blockIdx.x on of sample blockIdx.y; ST and TILES its
+// route (long_route)
+template <int ST, int TILES>
+__global__ void __launch_bounds__(32 * kLongWarps * TILES, 1)
 mean_long_kernel(const __nv_bfloat16* __restrict__ qkv,
                  const float* __restrict__ policy, int NP, int C, int H,
                  int real_n, float scale, float eps_over_n,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ map_out) {
+  constexpr int kLongRows = 16 * TILES;
+  constexpr int kLongNW = kLongWarps * TILES;
   extern __shared__ __align__(16) unsigned char smem[];
   const int hd = C / H;
   const int hk = (hd + 15) / 16;
   const int C3 = 3 * C;
-  const LongLayout L(NP, hd);
+  const LongLayout L(NP, hd, TILES);
   float* pol = reinterpret_cast<float*>(smem + L.pol);
   float* red = reinterpret_cast<float*>(smem + L.red);
   __nv_bfloat16* qbuf = reinterpret_cast<__nv_bfloat16*>(smem + L.q);
@@ -334,11 +362,26 @@ mean_long_kernel(const __nv_bfloat16* __restrict__ qkv,
   load_policy(policy ? policy + (size_t)b * NP : nullptr, NP,
               ppf::round_up(NP, kLongChunk), pol);
   // the head mean of rows warp + kLongNW k, columns 4 lane + 128 st .. + 3
-  float4 acc[kLongRowsPerWarp][ST];
+  // (the global route: in the map, each entry zeroed by the lane that
+  // updates it)
+  float4 acc[kLongRowsPerWarp][ST > 0 ? ST : 1];
+  if constexpr (ST > 0) {
 #pragma unroll
-  for (int k = 0; k < kLongRowsPerWarp; ++k)
+    for (int k = 0; k < kLongRowsPerWarp; ++k)
 #pragma unroll
-    for (int st = 0; st < ST; ++st) acc[k][st] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int st = 0; st < ST; ++st)
+        acc[k][st] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    for (int k = 0; k < kLongRowsPerWarp; ++k) {
+      const int r = warp + kLongNW * k;
+      if (r >= rows) continue;
+      float* mrow = map_out + ((size_t)b * NP + row0 + r) * NP;
+      for (int c0 = 4 * lane; c0 < NP; c0 += kLongChunk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c0 + j < NP) mrow[c0 + j] = 0.f;
+    }
+  }
 
   // the stream of chunks: each head's K chunks (rows >= NP zeros), with the
   // first of them the head's Q rows, then its V chunks (rows >= real_n
@@ -428,69 +471,117 @@ mean_long_kernel(const __nv_bfloat16* __restrict__ qkv,
     // eps/real_n) / (sum + 1e-6), the division from the row's reciprocal
     // (ppf::div_by_recip), 0 past NP, over the logits in place; the head
     // mean in registers. Rows past the block's (the last block's) skip.
-#pragma unroll
-    for (int k2 = 0; k2 < kLongRowsPerWarp; k2 += RG) {
-      float4 x[RG][ST];
-      float sum[RG];
-#pragma unroll
-      for (int kk = 0; kk < RG; ++kk) {
-        sum[kk] = 0.f;
-        const int r = warp + kLongNW * (k2 + kk);
-        if (r >= rows) continue;
-        const float* prow = lg + r * L.lstride + 4 * lane;
-#pragma unroll
-        for (int st = 0; st < ST; ++st)
-          if (4 * lane + 128 * st < L.nk)
-            x[kk][st] = *reinterpret_cast<const float4*>(prow + 128 * st);
-      }
-#pragma unroll
-      for (int kk = 0; kk < RG; ++kk) {
-        const int r = warp + kLongNW * (k2 + kk);
+    if constexpr (ST == 0) {
+      // one row at a time: e written back over its logits, then p, and
+      // the head mean in the map
+      for (int k = 0; k < kLongRowsPerWarp; ++k) {
+        const int r = warp + kLongNW * k;
         if (r >= rows) continue;
         const int i = row0 + r;
         const float* rm = red + (r >> 4) * kLongWarps * 16 + (r & 15);
         float m = rm[0];
 #pragma unroll
         for (int q = 1; q < kLongWarps; ++q) m = fmaxf(m, rm[16 * q]);
+        float* prow = lg + r * L.lstride;
+        float sum = 0.f;
+        for (int c0 = 4 * lane; c0 < L.nk; c0 += kLongChunk) {
+          float4 x = *reinterpret_cast<const float4*>(prow + c0);
+          const float4 pw = *reinterpret_cast<const float4*>(pol + c0);
+          float* v = reinterpret_cast<float*>(&x);
+          const float pp[4] = {pw.x, pw.y, pw.z, pw.w};
 #pragma unroll
-        for (int st = 0; st < ST; ++st) {
-          const int c0 = 4 * lane + 128 * st;
-          if (c0 < L.nk) {
-            const float4 pw = *reinterpret_cast<const float4*>(pol + c0);
-            float* v = reinterpret_cast<float*>(&x[kk][st]);
-            const float pp[4] = {pw.x, pw.y, pw.z, pw.w};
+          for (int j = 0; j < 4; ++j) {
+            const float wgt =
+                c0 + j == i ? __fadd_rn(pp[j], __fsub_rn(1.f, pp[j])) : pp[j];
+            v[j] = __fmul_rn(expf(__fsub_rn(v[j], m)), wgt);
+            sum = __fadd_rn(sum, v[j]);
+          }
+          *reinterpret_cast<float4*>(prow + c0) = x;
+        }
+        const float denom = __fadd_rn(ppf::warp_sum(sum), 1e-6f);
+        const float rcp = __frcp_rn(denom);
+        float* mrow = map_out + ((size_t)b * NP + i) * NP;
+        for (int c0 = 4 * lane; c0 < L.nk; c0 += kLongChunk) {
+          float4 x = *reinterpret_cast<const float4*>(prow + c0);
+          float* v = reinterpret_cast<float*>(&x);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const float wgt =
-                  c0 + j == i ? __fadd_rn(pp[j], __fsub_rn(1.f, pp[j])) : pp[j];
-              v[j] = __fmul_rn(expf(__fsub_rn(v[j], m)), wgt);
-              sum[kk] = __fadd_rn(sum[kk], v[j]);
+          for (int j = 0; j < 4; ++j) {
+            float p = ppf::div_by_recip(__fadd_rn(v[j], eps_over_n), denom,
+                                        rcp);
+            if (c0 + j >= NP)
+              p = 0.f;
+            else
+              mrow[c0 + j] = __fadd_rn(mrow[c0 + j], __fmul_rn(p, rH));
+            v[j] = p;
+          }
+          *reinterpret_cast<float4*>(prow + c0) = x;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int k2 = 0; k2 < kLongRowsPerWarp; k2 += RG) {
+        float4 x[RG][ST > 0 ? ST : 1];
+        float sum[RG];
+#pragma unroll
+        for (int kk = 0; kk < RG; ++kk) {
+          sum[kk] = 0.f;
+          const int r = warp + kLongNW * (k2 + kk);
+          if (r >= rows) continue;
+          const float* prow = lg + r * L.lstride + 4 * lane;
+#pragma unroll
+          for (int st = 0; st < ST; ++st)
+            if (4 * lane + 128 * st < L.nk)
+              x[kk][st] = *reinterpret_cast<const float4*>(prow + 128 * st);
+        }
+#pragma unroll
+        for (int kk = 0; kk < RG; ++kk) {
+          const int r = warp + kLongNW * (k2 + kk);
+          if (r >= rows) continue;
+          const int i = row0 + r;
+          const float* rm = red + (r >> 4) * kLongWarps * 16 + (r & 15);
+          float m = rm[0];
+#pragma unroll
+          for (int q = 1; q < kLongWarps; ++q) m = fmaxf(m, rm[16 * q]);
+#pragma unroll
+          for (int st = 0; st < ST; ++st) {
+            const int c0 = 4 * lane + 128 * st;
+            if (c0 < L.nk) {
+              const float4 pw = *reinterpret_cast<const float4*>(pol + c0);
+              float* v = reinterpret_cast<float*>(&x[kk][st]);
+              const float pp[4] = {pw.x, pw.y, pw.z, pw.w};
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const float wgt =
+                    c0 + j == i ? __fadd_rn(pp[j], __fsub_rn(1.f, pp[j])) : pp[j];
+                v[j] = __fmul_rn(expf(__fsub_rn(v[j], m)), wgt);
+                sum[kk] = __fadd_rn(sum[kk], v[j]);
+              }
             }
           }
         }
-      }
 #pragma unroll
-      for (int kk = 0; kk < RG; ++kk) {
-        const int r = warp + kLongNW * (k2 + kk);
-        if (r >= rows) continue;
-        const float denom = __fadd_rn(ppf::warp_sum(sum[kk]), 1e-6f);
-        const float rcp = __frcp_rn(denom);
-        float* prow = lg + r * L.lstride + 4 * lane;
+        for (int kk = 0; kk < RG; ++kk) {
+          const int r = warp + kLongNW * (k2 + kk);
+          if (r >= rows) continue;
+          const float denom = __fadd_rn(ppf::warp_sum(sum[kk]), 1e-6f);
+          const float rcp = __frcp_rn(denom);
+          float* prow = lg + r * L.lstride + 4 * lane;
 #pragma unroll
-        for (int st = 0; st < ST; ++st) {
-          const int c0 = 4 * lane + 128 * st;
-          if (c0 < L.nk) {
-            float* v = reinterpret_cast<float*>(&x[kk][st]);
-            float* a = reinterpret_cast<float*>(&acc[k2 + kk][st]);
+          for (int st = 0; st < ST; ++st) {
+            const int c0 = 4 * lane + 128 * st;
+            if (c0 < L.nk) {
+              float* v = reinterpret_cast<float*>(&x[kk][st]);
+              float* a = reinterpret_cast<float*>(&acc[k2 + kk][st]);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              float p = ppf::div_by_recip(__fadd_rn(v[j], eps_over_n), denom,
-                                          rcp);
-              if (c0 + j >= NP) p = 0.f;
-              a[j] = __fadd_rn(a[j], __fmul_rn(p, rH));
-              v[j] = p;
+              for (int j = 0; j < 4; ++j) {
+                float p = ppf::div_by_recip(__fadd_rn(v[j], eps_over_n), denom,
+                                            rcp);
+                if (c0 + j >= NP) p = 0.f;
+                a[j] = __fadd_rn(a[j], __fmul_rn(p, rH));
+                v[j] = p;
+              }
+              *reinterpret_cast<float4*>(prow + 128 * st) = x[kk][st];
             }
-            *reinterpret_cast<float4*>(prow + 128 * st) = x[kk][st];
           }
         }
       }
@@ -546,8 +637,20 @@ mean_long_kernel(const __nv_bfloat16* __restrict__ qkv,
   }
 
   // the head mean, zero outside the real block: each warp stages its rows
-  // in the logits' space, then writes them row by row
+  // in the logits' space, then writes them row by row (the global route:
+  // zeroes its rows' entries outside the real block in the map)
   __syncthreads();  // every warp is done with the last head's P
+  if constexpr (ST == 0) {
+    for (int k = 0; k < kLongRowsPerWarp; ++k) {
+      const int r = warp + kLongNW * k;
+      if (r >= rows) continue;
+      const int i = row0 + r;
+      float* mrow = map_out + ((size_t)b * NP + i) * NP;
+      for (int j = i < real_n ? real_n + lane : lane; j < NP; j += ppf::kWarp)
+        mrow[j] = 0.f;
+    }
+    return;
+  }
 #pragma unroll
   for (int k = 0; k < kLongRowsPerWarp; ++k) {
     const int r = warp + kLongNW * k;
@@ -576,19 +679,23 @@ mean_long_kernel(const __nv_bfloat16* __restrict__ qkv,
 bool long_tokens(int NP) { return NP >= ppf::kLongMinTokens; }
 
 size_t smem_bytes(int NP, int hd) {
-  return long_tokens(NP) ? LongLayout(NP, hd).total : Layout(NP, hd).total;
+  if (!long_tokens(NP)) return Layout(NP, hd).total;
+  return LongLayout(NP, hd, long_route(NP, hd).tiles).total;
 }
 
-// Runs the statements given with `kernel` the bf16 kernel for NP tokens
-// and `threads` its block size; returns cudaErrorInvalidValue where none
-// takes NP.
-#define PPF_DISPATCH_BF16(NP, ...)                                         \
+// Runs the statements given with `kernel` the bf16 kernel for NP tokens at
+// head dim HD and `threads` its block size; returns cudaErrorInvalidValue
+// where none takes NP.
+#define PPF_DISPATCH_BF16(NP, HD, ...)                                     \
   if (long_tokens(NP)) {                                                   \
-    constexpr int threads = kLongThreads;                                  \
-    switch (long_steps(NP)) {                                              \
-      case 3: { auto kernel = mean_long_kernel<3>; __VA_ARGS__ } break;    \
-      case 4: { auto kernel = mean_long_kernel<4>; __VA_ARGS__ } break;    \
-      case 5: { auto kernel = mean_long_kernel<5>; __VA_ARGS__ } break;    \
+    const LongRoute rt = long_route(NP, HD);                               \
+    const int threads = 32 * kLongWarps * rt.tiles;                        \
+    switch (10 * rt.st + rt.tiles) {                                       \
+      case 33: { auto kernel = mean_long_kernel<3, 3>; __VA_ARGS__ } break; \
+      case 43: { auto kernel = mean_long_kernel<4, 3>; __VA_ARGS__ } break; \
+      case 53: { auto kernel = mean_long_kernel<5, 3>; __VA_ARGS__ } break; \
+      case 3: { auto kernel = mean_long_kernel<0, 3>; __VA_ARGS__ } break;  \
+      case 1: { auto kernel = mean_long_kernel<0, 1>; __VA_ARGS__ } break;  \
       default: return cudaErrorInvalidValue;                               \
     }                                                                      \
   } else {                                                                 \
@@ -603,10 +710,11 @@ cudaError_t launch(const void* qkv, const float* policy, int B, int NP, int C,
                    int H, int real_n, float scale, float eps_over_n, void* out,
                    float* map, cudaStream_t stream) {
   const size_t smem = smem_bytes(NP, C / H);
+  const int long_rows = 16 * long_route(NP, C / H).tiles;
   const dim3 grid = long_tokens(NP)
-                        ? dim3((NP + kLongRows - 1) / kLongRows, B)
+                        ? dim3((NP + long_rows - 1) / long_rows, B)
                         : dim3(((NP + 15) / 16 + kTiles - 1) / kTiles, B);
-  PPF_DISPATCH_BF16(NP, {
+  PPF_DISPATCH_BF16(NP, C / H, {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -621,7 +729,7 @@ cudaError_t launch(const void* qkv, const float* policy, int B, int NP, int C,
 int resident_blocks(int NP, int hd) {
   const size_t smem = smem_bytes(NP, hd);
   int blocks = 0;
-  PPF_DISPATCH_BF16(NP, {
+  PPF_DISPATCH_BF16(NP, hd, {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err == cudaSuccess)
@@ -824,6 +932,7 @@ mean_kernel(const float* __restrict__ qkv, const float* __restrict__ policy,
 constexpr int kLongChunk = 128;
 constexpr int kLongStages = 3;
 constexpr int kLongMinCols = 384;  // CT = 12 at least (long_ct)
+constexpr int kLongMaxRegCols = 640;  // CT = 20 at most; above, the global route
 
 struct LongLayout {
   int cols, kstride, pstride;
@@ -831,6 +940,7 @@ struct LongLayout {
   __host__ __device__ LongLayout(int NP, int hd) {
     cols = ppf::round_up(NP, kLongChunk);
     if (cols < kLongMinCols) cols = kLongMinCols;
+    const bool global = cols > kLongMaxRegCols;
     // an odd multiple of 4 floats for hd a multiple of 8: the 16-byte rows
     // of 8 consecutive keys, or of 4 rows 4 apart, fall on distinct banks
     kstride = hd + 4;
@@ -841,25 +951,41 @@ struct LongLayout {
     ring = ppf::align16(q + (size_t)2 * kRows * kstride * sizeof(float));
     p = ppf::align16(ring + (size_t)kLongStages * kLongChunk * kstride *
                                 sizeof(float));
-    // P, whose space also takes the 8 warps' 32 x 64 sums of P V
-    const int pf = kRows * pstride > 8 * kRows * 64 ? kRows * pstride
-                                                    : 8 * kRows * 64;
+    // P, whose space also takes the 8 warps' 32 x 64 sums of P V (on the
+    // global route those sums only: P lies in global memory)
+    const int pf = !global && kRows * pstride > 8 * kRows * 64
+                       ? kRows * pstride
+                       : 8 * kRows * 64;
     total = ppf::align16(p + (size_t)pf * sizeof(float));
   }
 };
 
 // Accumulator columns of a lane (lane + 32 u, u < CT = cols / 32) at NP
-// tokens: the long kernel is built for CT = 12, 16 and 20 (cols = 384,
-// 512 and 640; 384 also below 385 tokens, as cli.time_long_kernels's copy
-// runs it at N <= 256).
-inline int long_ct(int NP) { return LongLayout(NP, 4).cols / 32; }
+// tokens: the long kernel's register route is built for CT = 12, 16 and
+// 20 (cols = 384, 512 and 640; 384 also below 385 tokens, as
+// cli.time_long_kernels's copy runs it at N <= 256); above 640 columns
+// its global route (CT = 0) holds no accumulator.
+inline int long_ct(int NP) {
+  const int cols = LongLayout(NP, 4).cols;
+  return cols > kLongMaxRegCols ? 0 : cols / 32;
+}
 
+// Bytes of the global route's P scratch: 32 x pstride floats a block.
+size_t long_scratch_bytes(int B, int NP, int hd) {
+  if (long_ct(NP) != 0) return 0;
+  return (size_t)B * ((NP + kRows - 1) / kRows) * kRows *
+         LongLayout(NP, hd).pstride * sizeof(float);
+}
+
+// CT = long_ct(NP); p_g: on the global route (CT = 0) the scratch whose
+// kRows x pstride floats from block (blockIdx.y, blockIdx.x) on hold P.
 template <int CT>
 __global__ void __launch_bounds__(kThreads, 1)
 mean_long_kernel(const float* __restrict__ qkv,
                  const float* __restrict__ policy, int NP, int C, int H,
                  int real_n, float scale, float eps_over_n,
-                 float* __restrict__ out, float* __restrict__ map_out) {
+                 float* __restrict__ out, float* __restrict__ map_out,
+                 float* p_g) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int hd = C / H;
   const int C3 = 3 * C;
@@ -868,7 +994,12 @@ mean_long_kernel(const float* __restrict__ qkv,
   float* red = reinterpret_cast<float*>(smem + L.red);
   float* qbuf = reinterpret_cast<float*>(smem + L.q);
   float* ring = reinterpret_cast<float*>(smem + L.ring);
-  float* P = reinterpret_cast<float*>(smem + L.p);
+  // P's space in shared memory, which also takes the 8 warps' P V sums;
+  // on the global route P itself lies in the scratch
+  float* Ps = reinterpret_cast<float*>(smem + L.p);
+  float* P = CT == 0 ? p_g + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) *
+                                 kRows * L.pstride
+                     : Ps;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -895,11 +1026,22 @@ mean_long_kernel(const float* __restrict__ qkv,
   const int o_c = 4 * (lane & 7);
 
   load_policy(policy ? policy + (size_t)b * NP : nullptr, NP, L.cols, pol);
-  float acc[4][CT];
+  // the head mean of rows srow .. srow + 3, columns lane + 32 u (the global
+  // route: in the map, each entry zeroed by the lane that updates it)
+  float acc[4][CT > 0 ? CT : 1];
+  if constexpr (CT > 0) {
 #pragma unroll
-  for (int rr = 0; rr < 4; ++rr)
+    for (int rr = 0; rr < 4; ++rr)
 #pragma unroll
-    for (int u = 0; u < CT; ++u) acc[rr][u] = 0.f;
+      for (int u = 0; u < CT; ++u) acc[rr][u] = 0.f;
+  } else {
+    for (int rr = 0; rr < 4; ++rr) {
+      const int i = row0 + srow + rr;
+      if (i >= NP) break;
+      float* dst = map_out + ((size_t)b * NP + i) * NP;
+      for (int c = lane; c < NP; c += ppf::kWarp) dst[c] = 0.f;
+    }
+  }
 
   // the stream of chunks: each head's K chunks, then its V chunks (rows
   // >= NP, or >= real_n for V, zeros); with the first K chunk the head's
@@ -1004,7 +1146,36 @@ mean_long_kernel(const float* __restrict__ qkv,
     // Every column is swept, with no branch: past NP s is -inf and the
     // policy 0, so e is 0 and adds nothing to the sum; p there is not 0,
     // but it meets zero V rows in P V and is never stored
-    if (row0 + srow < NP) {  // a warp of pad rows only (a band's last) skips
+    if constexpr (CT == 0) {
+      // one row at a time: e written back over its logits, then p, and
+      // the head mean in the map (rows past NP are never stored)
+      for (int rr = 0; rr < 4 && row0 + srow < NP; ++rr) {
+        float* prow = P + (srow + rr) * L.pstride + lane;
+        const float* rm = red + srow + rr;
+        const float m = fmaxf(fmaxf(rm[0], rm[kRows]),
+                              fmaxf(rm[2 * kRows], rm[3 * kRows]));
+        const int i = row0 + srow + rr;
+        float sum = 0.f;
+        for (int u = 0; u < L.cols / 32; ++u) {
+          const int c = lane + 32 * u;
+          const float pe = pol[c];
+          const float w = c == i ? __fadd_rn(pe, __fsub_rn(1.f, pe)) : pe;
+          const float e = __fmul_rn(expf(__fsub_rn(prow[32 * u], m)), w);
+          prow[32 * u] = e;
+          sum = __fadd_rn(sum, e);
+        }
+        const float denom = __fadd_rn(ppf::warp_sum(sum), 1e-6f);
+        const float rcp = __frcp_rn(denom);
+        float* dst = map_out + ((size_t)b * NP + i) * NP;
+        for (int u = 0; u < L.cols / 32; ++u) {
+          const int c = lane + 32 * u;
+          const float p = ppf::div_by_recip(__fadd_rn(prow[32 * u], eps_over_n),
+                                            denom, rcp);
+          if (i < NP && c < NP) dst[c] = __fadd_rn(dst[c], __fmul_rn(p, rH));
+          prow[32 * u] = p;
+        }
+      }
+    } else if (row0 + srow < NP) {  // a warp of pad rows only (a band's last) skips
 #pragma unroll
       for (int r2 = 0; r2 < 4; r2 += 2) {
         float x[2][CT], sum[2];
@@ -1074,7 +1245,7 @@ mean_long_kernel(const float* __restrict__ qkv,
     }
     // O = the 8 warps' sums in warp order, through P's space
     __syncthreads();  // every warp is done with P
-    float* part = P + kg * kRows * 64;
+    float* part = Ps + kg * kRows * 64;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       float* dst = part + (o_r + 4 * i) * 64 + o_c;
@@ -1088,11 +1259,11 @@ mean_long_kernel(const float* __restrict__ qkv,
       // thread t: row t / 8, columns 8 (t % 8) .. + 7
       const int r = threadIdx.x >> 3;
       const int c0 = 8 * (threadIdx.x & 7);
-      float4 a0 = *reinterpret_cast<const float4*>(P + r * 64 + c0);
-      float4 a1 = *reinterpret_cast<const float4*>(P + r * 64 + c0 + 4);
+      float4 a0 = *reinterpret_cast<const float4*>(Ps + r * 64 + c0);
+      float4 a1 = *reinterpret_cast<const float4*>(Ps + r * 64 + c0 + 4);
 #pragma unroll
       for (int g = 1; g < kThreads / 32; ++g) {
-        const float* src = P + g * kRows * 64 + r * 64 + c0;
+        const float* src = Ps + g * kRows * 64 + r * 64 + c0;
         const float4 b0 = *reinterpret_cast<const float4*>(src);
         const float4 b1 = *reinterpret_cast<const float4*>(src + 4);
         a0.x = __fadd_rn(a0.x, b0.x); a0.y = __fadd_rn(a0.y, b0.y);
@@ -1106,11 +1277,16 @@ mean_long_kernel(const float* __restrict__ qkv,
       if (i < NP && c0 + 4 < hd) *reinterpret_cast<float4*>(dst + 4) = a1;
     }
   }
-  // each lane writes the accumulator entries it holds
+  // each lane writes the accumulator entries it holds (the global route:
+  // zeroes those outside the real block)
 #pragma unroll
   for (int rr = 0; rr < 4; ++rr) {
     const int i = row0 + srow + rr;
-    if (i < NP) {
+    if (i < NP && CT == 0) {
+      float* dst = map_out + ((size_t)b * NP + i) * NP;
+      for (int c = lane; c < NP; c += ppf::kWarp)
+        if (i >= real_n || c >= real_n) dst[c] = 0.f;
+    } else if (i < NP) {
       float* dst = map_out + ((size_t)b * NP + i) * NP;
 #pragma unroll
       for (int u = 0; u < CT; ++u) {
@@ -1130,16 +1306,21 @@ size_t smem_bytes(int NP, int hd) {
   return long_tokens(NP) ? LongLayout(NP, hd).total : Layout(NP, hd).total;
 }
 
-// Runs the statements given with `kernel` the fp32 kernel for NP tokens;
-// returns cudaErrorInvalidValue where none takes NP.
+// Runs the statements given with `kernel` the fp32 long kernel for NP
+// tokens; returns cudaErrorInvalidValue where none takes NP.
+#define PPF_DISPATCH_F32_LONG(NP, ...)                                   \
+  switch (long_ct(NP)) {                                                 \
+    case 12: { auto kernel = mean_long_kernel<12>; __VA_ARGS__ } break;  \
+    case 16: { auto kernel = mean_long_kernel<16>; __VA_ARGS__ } break;  \
+    case 20: { auto kernel = mean_long_kernel<20>; __VA_ARGS__ } break;  \
+    case 0: { auto kernel = mean_long_kernel<0>; __VA_ARGS__ } break;    \
+    default: return cudaErrorInvalidValue;                               \
+  }
+
+// The same for the fp32 kernel for NP tokens, the short one too.
 #define PPF_DISPATCH_F32(NP, ...)                                        \
   if (long_tokens(NP)) {                                                 \
-    switch (long_ct(NP)) {                                               \
-      case 12: { auto kernel = mean_long_kernel<12>; __VA_ARGS__ } break; \
-      case 16: { auto kernel = mean_long_kernel<16>; __VA_ARGS__ } break; \
-      case 20: { auto kernel = mean_long_kernel<20>; __VA_ARGS__ } break; \
-      default: return cudaErrorInvalidValue;                             \
-    }                                                                    \
+    PPF_DISPATCH_F32_LONG(NP, __VA_ARGS__)                               \
   } else {                                                               \
     PPF_DISPATCH_MAXT(NP, {                                              \
       auto kernel = mean_kernel<MAXT>;                                   \
@@ -1149,17 +1330,31 @@ size_t smem_bytes(int NP, int hd) {
 
 cudaError_t launch(const void* qkv, const float* policy, int B, int NP, int C,
                    int H, int real_n, float scale, float eps_over_n, void* out,
-                   float* map, cudaStream_t stream) {
+                   float* map, float* scratch, cudaStream_t stream) {
   const size_t smem = smem_bytes(NP, C / H);
   const dim3 grid((NP + kRows - 1) / kRows, B);
-  PPF_DISPATCH_F32(NP, {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(qkv), policy, NP, C, H, real_n, scale,
-        eps_over_n, static_cast<float*>(out), map);
-  });
+  if (long_scratch_bytes(B, NP, C / H) > 0 && scratch == nullptr)
+    return cudaErrorInvalidValue;
+  if (long_tokens(NP)) {
+    PPF_DISPATCH_F32_LONG(NP, {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, kThreads, smem, stream>>>(
+          static_cast<const float*>(qkv), policy, NP, C, H, real_n, scale,
+          eps_over_n, static_cast<float*>(out), map, scratch);
+    });
+  } else {
+    PPF_DISPATCH_MAXT(NP, {
+      const auto kernel = mean_kernel<MAXT>;
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, kThreads, smem, stream>>>(
+          static_cast<const float*>(qkv), policy, NP, C, H, real_n, scale,
+          eps_over_n, static_cast<float*>(out), map);
+    });
+  }
   return cudaGetLastError();
 }
 
@@ -1185,13 +1380,14 @@ int resident_blocks(int NP, int hd) {
 // qkv: (B, NP, 3C) fp32 or bf16 (is_bf16); policy: (B, NP) fp32 keep-mask
 // (pads 0), or null for all ones; out: (B, NP, C) in the qkv dtype; map:
 // (B, NP, NP) fp32. C / H is at most 64 and a multiple of 4 (fp32) or 8
-// (bf16); NP <= 640.
+// (bf16); any NP whose kernel fits a block's shared memory
+// (ppf_attention_mean_smem_bytes). scratch:
+// ppf_attention_mean_scratch_bytes of device memory (null where that is 0).
 // scale = hd**-0.5 and eps_over_n = 1e-6/real_n as fp32.
 extern "C" int ppf_attention_mean(const void* qkv, const void* policy, int B,
                                   int NP, int C, int H, int real_n, int is_bf16,
                                   float scale, float eps_over_n, void* out,
-                                  void* map, void* stream) {
-  if (NP > ppf::kMaxTokens) return cudaErrorInvalidValue;
+                                  void* map, void* stream, void* scratch) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* pol = static_cast<const float*>(policy);
   float* m = static_cast<float*>(map);
@@ -1199,7 +1395,7 @@ extern "C" int ppf_attention_mean(const void* qkv, const void* policy, int B,
     return bf16k::launch(qkv, pol, B, NP, C, H, real_n, scale, eps_over_n, out,
                          m, st);
   return f32k::launch(qkv, pol, B, NP, C, H, real_n, scale, eps_over_n, out, m,
-                      st);
+                      static_cast<float*>(scratch), st);
 }
 
 extern "C" int ppf_attention_mean_smem_bytes(int NP, int hd, int is_bf16) {
@@ -1207,15 +1403,29 @@ extern "C" int ppf_attention_mean_smem_bytes(int NP, int hd, int is_bf16) {
                        : f32k::smem_bytes(NP, hd));
 }
 
+// Device memory the launch at B samples of NP tokens needs for its scratch
+// (the fp32 long kernel's P on its global route).
+extern "C" long long ppf_attention_mean_scratch_bytes(int B, int NP, int hd,
+                                                      int is_bf16) {
+  if (is_bf16 || !f32k::long_tokens(NP)) return 0;
+  return (long long)f32k::long_scratch_bytes(B, NP, hd);
+}
+
+// The route of the long kernel at NP tokens: 0 where the rows' head mean
+// stays in registers (or below 257 tokens), 1 the global route.
+extern "C" int ppf_attention_mean_global_route(int NP, int hd, int is_bf16) {
+  if (is_bf16)
+    return bf16k::long_tokens(NP) && bf16k::long_route(NP, hd).st == 0;
+  return f32k::long_tokens(NP) && f32k::long_ct(NP) == 0;
+}
+
 // Blocks of the fp32 kernel for NP tokens at head dim hd an SM holds at
 // once (negative: the cudaError_t of the query).
 extern "C" int ppf_attention_mean_f32_resident_blocks(int NP, int hd) {
-  if (NP > ppf::kMaxTokens) return -static_cast<int>(cudaErrorInvalidValue);
   return f32k::resident_blocks(NP, hd);
 }
 
 // The same for the bf16 kernel.
 extern "C" int ppf_attention_mean_bf16_resident_blocks(int NP, int hd) {
-  if (NP > ppf::kMaxTokens) return -static_cast<int>(cudaErrorInvalidValue);
   return bf16k::resident_blocks(NP, hd);
 }

@@ -17,6 +17,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace ppf {
 
 namespace cg = cooperative_groups;
@@ -74,20 +76,21 @@ __device__ __forceinline__ float threshold_from_key(int lo, bool prefix16) {
   return __int_as_float(prefix16 ? (lo << 16) : lo);
 }
 
-// The most tokens a kernel here takes: a sample's fp32 map band of
-// ceil(640 / kMaxMapClusterSize) = 40 rows of 640 values fits one CTA's
-// shared memory (map_band_smem), and the long attention kernels' bands too.
-constexpr int kMaxTokens = 640;
+// Shared memory one block may use on Hopper (sm_90), bytes. No token
+// count is fixed: each kernel picks a route by what its operands need of
+// this (the map select's map_route, the long attention kernels' routes).
+constexpr size_t kMaxSmemPerBlock = 232448;
 
 // Columns a warp reads in one step of a row: 8 a lane.
 constexpr int kRowStep = 8 * kWarp;
 
-// s[i] = sum_j a[i, j] * [a[i, j] >= t] over `rows` resident rows of `cols`
-// (<= kMaxTokens) values at row stride `stride`, one warp per row, the
-// row in steps of kRowStep columns. kOneStep: cols <= kRowStep, one
+// s[i] = sum_j a[i, j] * [a[i, j] >= t] over `rows` rows of `cols` values
+// of A (fp32 in shared memory, or the map's own dtype in global memory on
+// the select's global route) at row stride `stride`, one warp per row,
+// the row in steps of kRowStep columns. kOneStep: cols <= kRowStep, one
 // unrolled step a row (the kernels' code up to 256 tokens).
-template <bool kOneStep>
-__device__ __forceinline__ void block_masked_row_sums(const float* a, int rows,
+template <bool kOneStep, typename A>
+__device__ __forceinline__ void block_masked_row_sums(const A* a, int rows,
                                                       int cols, int stride,
                                                       float t, float* s) {
   const int lane = threadIdx.x & 31;
@@ -98,7 +101,7 @@ __device__ __forceinline__ void block_masked_row_sums(const float* a, int rows,
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const int j = c0 + lane + kWarp * u;
-      v[u] = j < cols ? a[i * stride + j] : 0.f;
+      v[u] = j < cols ? to_float(a[i * stride + j]) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < 8; ++u)
@@ -169,7 +172,10 @@ constexpr int kHistCopies = 16;
 // largest band, 64 rows of 512, that is 2,048: far from the 65,535 that a
 // 16-bit counter holds before it carries into its neighbour (the count
 // that the load makes, by 16-byte chunks, is at most the band's 32,768
-// values). Each launcher checks its band against it (hist_counts_fit).
+// values). A band held in shared memory as fp32 (at most 58,112 values)
+// stays below ~3,700; the select's global route, whose band has no such
+// bound, counts into 32-bit copies instead (count_key<true>). Each
+// launcher checks a band of the shared-memory routes (hist_counts_fit).
 __host__ __device__ constexpr int hist_copy_counts(int rows, int cols) {
   return rows * 2 * ((cols + kWarp - 1) / kWarp);
 }
@@ -178,17 +184,16 @@ __host__ __device__ constexpr bool hist_counts_fit(int rows, int cols) {
   return hist_copy_counts(rows, cols) <= 0xFFFF;
 }
 
-static_assert(hist_counts_fit(kMaxTokens / kMaxMapClusterSize + 1,
-                              kMaxTokens) &&
-                  hist_counts_fit(512 / kMaxClusterSize, 512),
+static_assert(hist_counts_fit(512 / kMaxClusterSize, 512),
               "a band of the largest map overflows the 16-bit counters");
 
 // Shared ints the select takes: per pass the CTA's 256 digit counts (4
 // passes at most; above 256 columns the cluster's), the picked digit and
 // the count above it (sel[0] and sel[1], padded to 4), and the counting
-// scratch of kHistCopies copies of 256 16-bit counters, two digits a word.
-__host__ __device__ constexpr int radix_smem_ints() {
-  return 4 * 256 + 4 + 128 * kHistCopies;
+// scratch of kHistCopies copies of 256 16-bit counters, two digits a word
+// (`wide`: of 256 32-bit counters, one digit a word; the global route).
+__host__ __device__ constexpr int radix_smem_ints(bool wide = false) {
+  return 4 * 256 + 4 + (wide ? 256 : 128) * kHistCopies;
 }
 
 // The select's key of a value: the fp32 bit pattern, or its high 16 bits
@@ -206,6 +211,23 @@ __device__ __forceinline__ void count_digit(unsigned* mine, unsigned digit,
                                             bool counted) {
   atomicAdd(mine + (digit >> 1) * kHistCopies,
             static_cast<unsigned>(counted) << ((digit & 1) << 4));
+}
+
+// The same in a 32-bit copy (word digit * kHistCopies of the lane's copy):
+// no band overflows it.
+__device__ __forceinline__ void count_digit_wide(unsigned* mine,
+                                                 unsigned digit,
+                                                 bool counted) {
+  atomicAdd(mine + digit * kHistCopies, static_cast<unsigned>(counted));
+}
+
+template <bool kWide>
+__device__ __forceinline__ void count_key(unsigned* mine, unsigned digit,
+                                          bool counted) {
+  if constexpr (kWide)
+    count_digit_wide(mine, digit, counted);
+  else
+    count_digit(mine, digit, counted);
 }
 
 // The calling lane's histogram copy in the select's scratch.
@@ -235,6 +257,22 @@ __device__ __forceinline__ void sum_hist_copies(unsigned* scratch,
     lo += __shfl_xor_sync(0xffffffffu, lo, 1);
     hi16 += __shfl_xor_sync(0xffffffffu, hi16, 1);
     counts[t] = static_cast<int>(h ? hi16 : lo);
+  }
+}
+
+// sum_hist_copies for the 32-bit copies: thread t sums digit t over the 16
+// copies, rotated by t so that a warp's reads spread over the banks.
+__device__ __forceinline__ void sum_hist_copies_wide(unsigned* scratch,
+                                                     int* counts) {
+  for (int t = threadIdx.x; t < 256; t += blockDim.x) {
+    unsigned sum = 0;
+#pragma unroll
+    for (int i = 0; i < kHistCopies; ++i) {
+      unsigned* w = scratch + t * kHistCopies + ((i + t) & (kHistCopies - 1));
+      sum += *w;
+      *w = 0u;
+    }
+    counts[t] = static_cast<int>(sum);
   }
 }
 
@@ -281,11 +319,12 @@ __device__ __forceinline__ void radix_pass_end(cg::cluster_group& cluster,
 }
 
 // Counts, for the pass whose digit lies at `shift`, the keys of the
-// calling warp's rows of a band (a at row stride `stride`, `rows` x `cols`)
-// that match the digits above it (`prefix`; every key in pass 0), by that
-// digit; each warp's rows in steps of kRowStep columns.
-template <bool kOneStep>
-__device__ __forceinline__ void count_band(const float* a, int rows,
+// calling warp's rows of a band (a at row stride `stride`, `rows` x `cols`
+// of A) that match the digits above it (`prefix`; every key in pass 0), by
+// that digit; each warp's rows in steps of kRowStep columns. kWide: into
+// the 32-bit copies.
+template <bool kOneStep, bool kWide = false, typename A>
+__device__ __forceinline__ void count_band(const A* a, int rows,
                                            int cols, int stride,
                                            bool prefix16, int pass, int shift,
                                            unsigned prefix, unsigned* mine) {
@@ -297,14 +336,14 @@ __device__ __forceinline__ void count_band(const float* a, int rows,
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const int c = c0 + lane + kWarp * u;
-      v[u] = c < cols ? a[r * stride + c] : 0.f;
+      v[u] = c < cols ? to_float(a[r * stride + c]) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const unsigned key = select_key(v[u], prefix16);
       const bool counted = c0 + lane + kWarp * u < cols &&
                            (pass == 0 || (key >> (shift + 8)) == prefix);
-      count_digit(mine, (key >> shift) & 255u, counted);
+      count_key<kWide>(mine, (key >> shift) & 255u, counted);
     }
   };
   for (int r = threadIdx.x >> 5; r < rows; r += nw) {
@@ -438,14 +477,18 @@ __device__ __forceinline__ void cluster_red_add(int* p, int rank, int v) {
 // barrier each CTA's totals are the cluster's counts, and one warp picks
 // the digit from them. `first`: the call completes the barrier that the
 // CTAs arrived at once their totals were zeroed (cluster_map_select), so
-// that no count lands before the zeros.
+// that no count lands before the zeros. kWide: the 32-bit copies.
+template <bool kWide>
 __device__ __forceinline__ void radix_pass_end_long(
     cg::cluster_group& cluster, int k, int* smem, int* local, int* totals,
     bool first = false) {
   const int nranks = static_cast<int>(cluster.num_blocks());
   int* sel = smem + 4 * 256;
   __syncthreads();
-  sum_hist_copies(reinterpret_cast<unsigned*>(sel + 4), local);
+  if constexpr (kWide)
+    sum_hist_copies_wide(reinterpret_cast<unsigned*>(sel + 4), local);
+  else
+    sum_hist_copies(reinterpret_cast<unsigned*>(sel + 4), local);
   __syncthreads();
   if (first) cluster_wait();
   for (int t = threadIdx.x; t < 256; t += blockDim.x) {
@@ -472,9 +515,13 @@ __device__ __forceinline__ void radix_pass_end_long(
 // flat map, or one of few distinct values), the cluster runs passes 2 and
 // 3 over its bands instead. `ctl` (kSelectCtl ints) is zeroed with the
 // select's ints. Returns after its arrival on the cluster barrier: the
-// caller calls cluster_wait() before its CTA exits.
+// caller calls cluster_wait() before its CTA exits. kWide: the band passes
+// count into 32-bit copies (the global route, whose band `a` of A lies in
+// global memory; the passes over the copied lists keep 16-bit copies,
+// which no list of at most select_gather_cap keys overflows).
+template <bool kWide, typename A>
 __device__ __forceinline__ unsigned cluster_radix_select_long(
-    const float* a, int rows, int cols, int stride, bool prefix16, int keep,
+    const A* a, int rows, int cols, int stride, bool prefix16, int keep,
     unsigned hi, int* smem, int* ctl, unsigned short* list,
     unsigned short* gathered) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -497,10 +544,10 @@ __device__ __forceinline__ unsigned cluster_radix_select_long(
   // a pass over the bands, ended over the cluster
   auto band_pass = [&](int pass) {
     if (pass > 0)
-      count_band<false>(a, rows, cols, stride, prefix16, pass,
-                        bits - 8 * (pass + 1), prefix, mine);
-    radix_pass_end_long(cluster, k, smem, local, smem + pass * 256,
-                        pass == 0);
+      count_band<false, kWide>(a, rows, cols, stride, prefix16, pass,
+                               bits - 8 * (pass + 1), prefix, mine);
+    radix_pass_end_long<kWide>(cluster, k, smem, local, smem + pass * 256,
+                               pass == 0);
     next();
   };
   band_pass(0);
@@ -517,7 +564,7 @@ __device__ __forceinline__ unsigned cluster_radix_select_long(
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         const int c = c0 + lane + kWarp * u;
-        v[u] = c < cols ? a[r * stride + c] : 0.f;
+        v[u] = c < cols ? to_float(a[r * stride + c]) : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
@@ -602,8 +649,8 @@ __device__ __forceinline__ unsigned cluster_radix_select_long(
 }
 
 // Zeroes the select's shared ints; a barrier must follow before the call.
-__device__ __forceinline__ void zero_radix_smem(int* smem) {
-  for (int e = threadIdx.x; e < radix_smem_ints() / 4; e += blockDim.x)
+__device__ __forceinline__ void zero_radix_smem(int* smem, bool wide = false) {
+  for (int e = threadIdx.x; e < radix_smem_ints(wide) / 4; e += blockDim.x)
     reinterpret_cast<int4*>(smem)[e] = make_int4(0, 0, 0, 0);
 }
 
@@ -667,12 +714,13 @@ __host__ __device__ inline int map_band_rows(int rows) {
 
 // Where the band starts in shared memory: after the select's ints and,
 // above kRowStep columns, the compact key list (cluster_radix_select_long).
-__host__ __device__ inline size_t map_list_offset() {
-  return align16(radix_smem_ints() * sizeof(int));
+// `wide`: the global route's layout (32-bit histogram copies, no band).
+__host__ __device__ inline size_t map_list_offset(bool wide = false) {
+  return align16(radix_smem_ints(wide) * sizeof(int));
 }
 
-__host__ __device__ inline size_t map_gather_offset() {
-  return map_list_offset() + kSelectCtl * sizeof(int) +
+__host__ __device__ inline size_t map_gather_offset(bool wide = false) {
+  return map_list_offset(wide) + kSelectCtl * sizeof(int) +
          kSelectListCap * sizeof(unsigned short);
 }
 
@@ -698,6 +746,34 @@ __host__ __device__ inline size_t map_band_smem(int rows, int cols,
   const size_t band = map_band_rows(rows);
   return map_band_offset(cols) +
          (3 + band * band_stride(cols, stride)) * sizeof(float);
+}
+
+// The routes of the map select (cluster_map_select), chosen by shape:
+// kMapOneStep up to kRowStep columns; kMapLong above, each CTA's band in
+// shared memory as fp32; kMapGlobal where that band does not fit a block's
+// shared memory (from ~850 tokens at 16 CTAs a sample; 1,025 tokens, DeiT
+// at 512 px, take 65-row bands of 266 KB): each CTA reads its band in
+// place, in the map's own dtype, on every pass (from L2 while the map
+// stays there), and counts into 32-bit histogram copies, so no band size
+// overflows them. The cluster, the lists and the select's digits are the
+// long route's, so every route returns the same key.
+constexpr int kMapOneStep = 0;
+constexpr int kMapLong = 1;
+constexpr int kMapGlobal = 2;
+
+__host__ __device__ inline int map_route(int rows, int cols, int stride) {
+  if (cols <= kRowStep) return kMapOneStep;
+  return map_band_smem(rows, cols, stride) <= kMaxSmemPerBlock ? kMapLong
+                                                               : kMapGlobal;
+}
+
+// Shared bytes of one CTA of the select on its route.
+__host__ __device__ inline size_t map_select_smem(int rows, int cols,
+                                                  int stride) {
+  if (map_route(rows, cols, stride) != kMapGlobal)
+    return map_band_smem(rows, cols, stride);
+  return map_gather_offset(true) +
+         select_gather_cap(cols) * sizeof(unsigned short);
 }
 
 // Lets a kernel take clusters of `cs` CTAs where that is above the portable
@@ -805,63 +881,88 @@ __device__ __forceinline__ void load_band(float* dst, int dstride,
   }
 }
 
-// A CTA's share of one sample's map: its rows, resident in shared memory.
+// A CTA's share of one sample's map: its rows, resident in shared memory
+// as fp32 (A = float), or in place in global memory (the global route).
+template <typename A>
 struct MapBand {
-  float* a;        // the band's first row
-  int stride;      // its row stride (band_stride)
+  A* a;            // the band's first row
+  int stride;      // its row stride (band_stride, or the map's)
   int row0;        // the map row it starts at
   int rows;
 };
 
+template <int kRoute, typename T>
+using map_band_t =
+    MapBand<std::conditional_t<kRoute == kMapGlobal, T, float>>;
+
 // The keep-th largest key, at most `hi` (cluster_radix_select; 0 takes the
 // top of the key space), of one sample's real `rows` x `cols` map of T at
-// row stride `stride` (rows, cols <= kMaxTokens), split over the calling
-// cluster of map_cluster_size(rows) CTAs (blockIdx.x the rank): each CTA
-// loads a band of whole rows, rows * rank / cs up to the next, into `smem`
-// (map_band_smem bytes) as fp32, pad columns left out, and the cluster
-// selects over the bands. The rows are whole, so each CTA's epilogue on
+// row stride `stride`, split over the calling cluster of
+// map_cluster_size(rows) CTAs (blockIdx.x the rank): each CTA takes a band
+// of whole rows, rows * rank / cs up to the next, and the cluster selects
+// over the bands. On kMapOneStep and kMapLong (map_route) the CTA loads
+// its band into `smem` (map_band_smem bytes) as fp32, pad columns left
+// out; on kMapGlobal the band is the map's own rows, read in place (`smem`
+// map_select_smem bytes). The rows are whole, so each CTA's epilogue on
 // `band` needs no cluster traffic. Called by every thread of every CTA.
-// kOneStep: cols <= kRowStep, the select of cluster_radix_select; above,
+// kMapOneStep (cols <= kRowStep) runs cluster_radix_select; the others
 // cluster_radix_select_long, after which the caller calls cluster_wait()
 // before its CTA exits.
-template <bool kOneStep, typename T>
+template <int kRoute, typename T>
 __device__ __forceinline__ unsigned cluster_map_select(
     const T* map, int rows, int cols, int stride, bool prefix16, int keep,
-    unsigned char* smem, MapBand& band, unsigned hi = 0) {
+    unsigned char* smem, map_band_t<kRoute, T>& band, unsigned hi = 0) {
   const int cs = static_cast<int>(gridDim.x);
   const int rank = static_cast<int>(blockIdx.x);
   band.row0 = rank * rows / cs;
   band.rows = (rank + 1) * rows / cs - band.row0;
   int* radix = reinterpret_cast<int*>(smem);
   const T* src = map + (size_t)band.row0 * stride;
-  const int pad = static_cast<int>(
-      (reinterpret_cast<uintptr_t>(src) / sizeof(T)) & 3);
-  float* a = reinterpret_cast<float*>(smem + map_band_offset(cols)) + pad;
-  band.a = a;
-  band.stride = band_stride(cols, stride);
-  zero_radix_smem(radix);
   if (hi == 0) hi = prefix16 ? 0xFFFFu : 0xFFFFFFFFu;
-  if constexpr (kOneStep) {
-    load_band<false>(a, band.stride, src, band.rows, cols, stride, prefix16,
-                     nullptr);
-    __syncthreads();  // publishes the band and the zeroed counts
-    return cluster_radix_select(a, band.rows, cols, band.stride, prefix16,
-                                keep, hi, radix);
-  } else {
-    int* ctl = reinterpret_cast<int*>(smem + map_list_offset());
+  if constexpr (kRoute == kMapGlobal) {
+    band.a = const_cast<T*>(src);
+    band.stride = stride;
+    zero_radix_smem(radix, true);
+    int* ctl = reinterpret_cast<int*>(smem + map_list_offset(true));
     if (threadIdx.x < kSelectCtl) ctl[threadIdx.x] = 0;
-    __syncthreads();  // the zeroed counts, before the load counts into them
-    // the cluster's counts of a pass are added into every CTA's zeroed
-    // totals: no CTA adds before every CTA has zeroed them (the wait is
-    // in the select's first pass end, behind the load)
+    __syncthreads();  // the zeroed counts, before pass 0 counts into them
+    // as below: no CTA adds into another's totals before all zeroed them
     cluster_arrive();
-    load_band<true>(a, band.stride, src, band.rows, cols, stride, prefix16,
-                    hist_copy(radix));
-    // the select's first barrier publishes the band and pass 0's counts
-    return cluster_radix_select_long(
-        a, band.rows, cols, band.stride, prefix16, keep, hi, radix,
-        ctl, reinterpret_cast<unsigned short*>(ctl + kSelectCtl),
-        reinterpret_cast<unsigned short*>(smem + map_gather_offset()));
+    count_band<false, true>(src, band.rows, cols, stride, prefix16, 0,
+                            prefix16 ? 8 : 24, 0u, hist_copy(radix));
+    return cluster_radix_select_long<true>(
+        src, band.rows, cols, stride, prefix16, keep, hi, radix, ctl,
+        reinterpret_cast<unsigned short*>(ctl + kSelectCtl),
+        reinterpret_cast<unsigned short*>(smem + map_gather_offset(true)));
+  } else {
+    const int pad = static_cast<int>(
+        (reinterpret_cast<uintptr_t>(src) / sizeof(T)) & 3);
+    float* a = reinterpret_cast<float*>(smem + map_band_offset(cols)) + pad;
+    band.a = a;
+    band.stride = band_stride(cols, stride);
+    zero_radix_smem(radix);
+    if constexpr (kRoute == kMapOneStep) {
+      load_band<false>(a, band.stride, src, band.rows, cols, stride,
+                       prefix16, nullptr);
+      __syncthreads();  // publishes the band and the zeroed counts
+      return cluster_radix_select(a, band.rows, cols, band.stride, prefix16,
+                                  keep, hi, radix);
+    } else {
+      int* ctl = reinterpret_cast<int*>(smem + map_list_offset());
+      if (threadIdx.x < kSelectCtl) ctl[threadIdx.x] = 0;
+      __syncthreads();  // the zeroed counts, before the load counts into them
+      // the cluster's counts of a pass are added into every CTA's zeroed
+      // totals: no CTA adds before every CTA has zeroed them (the wait is
+      // in the select's first pass end, behind the load)
+      cluster_arrive();
+      load_band<true>(a, band.stride, src, band.rows, cols, stride, prefix16,
+                      hist_copy(radix));
+      // the select's first barrier publishes the band and pass 0's counts
+      return cluster_radix_select_long<false>(
+          a, band.rows, cols, band.stride, prefix16, keep, hi, radix,
+          ctl, reinterpret_cast<unsigned short*>(ctl + kSelectCtl),
+          reinterpret_cast<unsigned short*>(smem + map_gather_offset()));
+    }
   }
 }
 
@@ -1185,9 +1286,6 @@ __host__ __device__ inline int key_tiles(int N) {
 // The fewest tokens the long attention kernels take; up to 256 the
 // kernels keep every key of a head in shared memory and registers.
 constexpr int kLongMinTokens = 257;
-
-// Shared memory one block may use on Hopper (sm_90), bytes.
-constexpr size_t kMaxSmemPerBlock = 232448;
 
 __host__ __device__ inline int round_up(int x, int m) {
   return (x + m - 1) / m * m;

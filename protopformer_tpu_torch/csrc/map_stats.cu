@@ -22,8 +22,8 @@
 // not fit the card at once (chip_smoke.py prints how many do), so the
 // launch runs in two rounds.
 //
-// Tokens: N <= kMaxTokens (640). Up to 256 tokens the select is the one
-// above (cluster_radix_select). Above 256 tokens (cluster_radix_select_long):
+// Tokens: any N. Up to 256 tokens the select is the one above
+// (cluster_radix_select). Above 256 tokens (cluster_radix_select_long):
 //  * up to 512 rows a CTA holds at most 64 (5 CTAs at N=257, 8 from 449);
 //    above 512 a cluster of 16 CTAs (a non-portable size the H100 takes),
 //    bands of 37 rows at N=577 (DeiT-B/16 at 384): ~114 KB of shared
@@ -50,45 +50,61 @@
 // model's maps; PERF.md): 0.574 -> 0.357 ms at 577, 0.126 -> 0.086 ms at
 // 257; as K1's select at 577 0.347 -> 0.251 ms (bf16 map) and 0.556 ->
 // 0.351 ms (fp32).
+// Where a band of fp32 rows no longer fits a CTA's shared memory (from
+// ~850 tokens; DeiT at 512 px has 1,025), the select takes its global
+// route (common.cuh, ppf::map_route): each CTA reads its band of the map
+// where it lies, on each of its passes, and counts into 32-bit histogram
+// copies. Bound there: bytes, the map read once; what holds it above: the
+// passes re-read the band, from L2 where the map stays there (a simple
+// route, not yet tuned).
 // Above 256 tokens the same launch is also K1's select, on the map K1's
 // heads kernel stored (attention_block_stats.cu).
 #include "common.cuh"
 
 namespace {
 
-// kOneStep: N <= ppf::kRowStep (cluster_radix_select).
-template <typename T, bool kOneStep>
-__global__ void __launch_bounds__(ppf::kMapThreads,
-                                   ppf::map_ctas_per_sm(kOneStep))
+// kRoute: the select's route at N tokens (ppf::map_route).
+template <typename T, int kRoute>
+__global__ void __launch_bounds__(
+    ppf::kMapThreads, ppf::map_ctas_per_sm(kRoute == ppf::kMapOneStep))
 map_stats_kernel(const T* __restrict__ map, int N, int keep, bool prefix16,
                  unsigned hi, float* __restrict__ t_out,
                  float* __restrict__ s_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.y;
-  ppf::MapBand band;
-  const unsigned key = ppf::cluster_map_select<kOneStep>(
+  ppf::map_band_t<kRoute, T> band;
+  const unsigned key = ppf::cluster_map_select<kRoute>(
       map + (size_t)b * N * N, N, N, N, prefix16, keep, smem, band, hi);
   const float t = ppf::threshold_from_key(static_cast<int>(key), prefix16);
   if (blockIdx.x == 0 && threadIdx.x == 0) t_out[b] = t;
-  ppf::block_masked_row_sums<kOneStep>(band.a, band.rows, N, band.stride, t,
-                                       s_out + (size_t)b * N + band.row0);
-  if constexpr (!kOneStep) ppf::cluster_wait();
+  ppf::block_masked_row_sums<kRoute == ppf::kMapOneStep>(
+      band.a, band.rows, N, band.stride, t, s_out + (size_t)b * N + band.row0);
+  if constexpr (kRoute != ppf::kMapOneStep) ppf::cluster_wait();
 }
 
 // The kernel for maps of T at N tokens.
 template <typename T>
 auto kernel_for(int N) {
-  return N <= ppf::kRowStep ? map_stats_kernel<T, true>
-                            : map_stats_kernel<T, false>;
+  switch (ppf::map_route(N, N, N)) {
+    case ppf::kMapOneStep: return map_stats_kernel<T, ppf::kMapOneStep>;
+    case ppf::kMapLong: return map_stats_kernel<T, ppf::kMapLong>;
+    default: return map_stats_kernel<T, ppf::kMapGlobal>;
+  }
+}
+
+// Whether the 16-bit histogram counters hold the band of a shared-memory
+// route at N tokens (the global route counts in 32 bits).
+bool counters_hold(int N) {
+  return ppf::map_route(N, N, N) == ppf::kMapGlobal ||
+         ppf::hist_counts_fit(ppf::map_band_rows(N), N);
 }
 
 template <typename T>
 cudaError_t launch(const void* map, int B, int N, int keep, bool prefix16,
                    unsigned hi, void* t_out, void* s_out,
                    cudaStream_t stream) {
-  if (N > ppf::kMaxTokens || !ppf::hist_counts_fit(ppf::map_band_rows(N), N))
-    return cudaErrorInvalidValue;
-  const size_t smem = ppf::map_band_smem(N, N, N);
+  if (!counters_hold(N)) return cudaErrorInvalidValue;
+  const size_t smem = ppf::map_select_smem(N, N, N);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = ppf::cluster_launch_config(
       ppf::map_cluster_size(N), B, ppf::kMapThreads, smem, stream, attr);
@@ -107,7 +123,7 @@ cudaError_t launch(const void* map, int B, int N, int keep, bool prefix16,
 
 template <typename T>
 int active_clusters(int N) {
-  const size_t smem = ppf::map_band_smem(N, N, N);
+  const size_t smem = ppf::map_select_smem(N, N, N);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = ppf::cluster_launch_config(
       ppf::map_cluster_size(N), 1, ppf::kMapThreads, smem, nullptr, attr);
@@ -124,7 +140,7 @@ int active_clusters(int N) {
 
 }  // namespace
 
-// map: (B, N, N) fp32 or bf16 (map_is_bf16), N <= 640; t_out: (B,) fp32;
+// map: (B, N, N) fp32 or bf16 (map_is_bf16), any N; t_out: (B,) fp32;
 // s_out: (B, N) fp32; the key capped at `hi` (0: the top of the key space;
 // K1 above 256 tokens caps it at the key of 1.0, as its JAX kernel's
 // bisection from [0, 1] is). One cluster launch; returns its cudaError_t.
@@ -151,6 +167,10 @@ extern "C" int ppf_map_stats(const void* map, int map_is_bf16, int B, int N,
 extern "C" int ppf_map_stats_cluster_size(int N) {
   return ppf::map_cluster_size(N);
 }
+
+// The select's route at N tokens: 0 one step, 1 the band in shared memory,
+// 2 the band read in place from global memory (ppf::map_route).
+extern "C" int ppf_map_stats_route(int N) { return ppf::map_route(N, N, N); }
 
 // How many of those clusters the card can hold at once (negative: the
 // cudaError_t of the query).

@@ -20,6 +20,13 @@ def normalize_images(x: torch.Tensor) -> torch.Tensor:
     return (x - mean) / std
 
 
+def unnormalize_images(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``normalize_images`` (ref: undo_preprocess)."""
+    mean = torch.as_tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
+    std = torch.as_tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+    return x * std + mean
+
+
 def fold_normalization_into_patch_embed(
     state_dict: Mapping[str, torch.Tensor],
     mean=IMAGENET_MEAN,

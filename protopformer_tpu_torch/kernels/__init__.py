@@ -4,13 +4,18 @@ Each kernel's wrapper keeps a plain integer ``launches`` counter that it
 raises by one where it launches the kernel; ``launch_counts`` reads them
 and ``reset_launch_counts`` sets them to 0.
 
-Every kernel takes token counts N (or NP) up to ``MAX_N`` = 640, which
-covers the 384 presets' 577 and the 640 the JAX package pads them to; a
-wrapper raises ``ValueError`` above it. Up to 256 tokens K1 and K3 keep a
+No kernel fixes a most token count: each launcher picks a route by the
+shape, as the JAX kernels take any N. Up to 256 tokens K1 and K3 keep a
 head's keys in shared memory and registers; from 257 on their long kernels
 stream them through shared memory in chunks, and the selects of K1, K2 and
 K4/K5's normalize split one sample over a cluster of up to 16 CTAs (a
-non-portable size above 512 rows). Bounds
+non-portable size above 512 rows). Above 640 tokens the long kernels keep
+their head-mean accumulators (and K3 fp32 its P) in device memory, and
+where a band of fp32 map rows no longer fits a CTA's shared memory (from
+~850 tokens) the select reads the band where the map lies. What limits N
+then is a block's 232,448 bytes of shared memory, which the wrappers check
+(K1's heads kernel to ~6,000 tokens, K3's bf16 long kernel to ~2,900), and
+the card's memory for the maps. Bounds
 at B=160, N=577, H=12, hd=64 on an H100 (bytes at 3.35 TB/s, operations
 at 989 TFLOP/s bf16 or 67 TFLOP/s fp32): K1 674 MB (speed) / 780 MB
 (exact), 0.201 / 0.233 ms; K2 213 MB, 0.064 ms; K3 fp32 164 GFLOP,
@@ -30,7 +35,6 @@ from protopformer_tpu_torch.kernels.attention_core import (
     mean_padded_cuda,
 )
 from protopformer_tpu_torch.kernels.stats import (
-    MAX_N,
     fused_map_stats,
     map_stats_cuda,
 )
@@ -55,7 +59,6 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "MAX_N",
     "WRAPPERS",
     "fused_attention_block_stats",
     "fused_attention_core",

@@ -35,32 +35,39 @@ _LIB: Optional[ctypes.CDLL] = None
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
-# symbol -> argtypes; every launcher returns its cudaError_t as an int
+# symbol -> argtypes; every launcher returns its cudaError_t as an int, and
+# each query of _LONG_RESULTS a byte count as a long long
 _SIGNATURES = {
     "ppf_map_stats": [_VOIDP, _INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP,
                       _VOIDP],
     "ppf_map_stats_cluster_size": [_INT],
+    "ppf_map_stats_route": [_INT],
     "ppf_map_stats_active_clusters": [_INT, _INT],
     "ppf_map_stats_select_route": [_VOIDP, _INT],
     "ppf_attention_block_stats": [_VOIDP, _INT, _INT, _INT, _INT, _INT, _INT,
                                   _FLOAT, _FLOAT, _VOIDP, _VOIDP, _VOIDP,
-                                  _VOIDP, _VOIDP],
+                                  _VOIDP, _VOIDP, _VOIDP],
     "ppf_attention_block_stats_smem_bytes": [_INT, _INT],
+    "ppf_attention_block_stats_scratch_bytes": [_INT, _INT, _INT],
     "ppf_attention_block_stats_cluster_size": [_INT],
     "ppf_attention_block_stats_active_clusters": [_INT, _INT],
     "ppf_attention_block_stats_long_resident_ctas": [_INT, _INT],
     "ppf_attention_mean": [_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT, _INT,
-                           _FLOAT, _FLOAT, _VOIDP, _VOIDP, _VOIDP],
+                           _FLOAT, _FLOAT, _VOIDP, _VOIDP, _VOIDP, _VOIDP],
     "ppf_attention_mean_smem_bytes": [_INT, _INT, _INT],
+    "ppf_attention_mean_scratch_bytes": [_INT, _INT, _INT, _INT],
+    "ppf_attention_mean_global_route": [_INT, _INT, _INT],
     "ppf_attention_mean_f32_resident_blocks": [_INT, _INT],
     "ppf_attention_mean_bf16_resident_blocks": [_INT, _INT],
     "ppf_attention_core": [_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT, _INT,
                            _INT, _FLOAT, _FLOAT, _FLOAT, _FLOAT, _VOIDP,
-                           _VOIDP, _VOIDP],
+                           _VOIDP, _VOIDP, _VOIDP],
     "ppf_attention_core_cluster_size": [_INT],
     "ppf_attention_core_active_clusters": [_INT, _INT],
     "ppf_attention_core_select_route": [_VOIDP, _INT],
 }
+_LONG_RESULTS = {"ppf_attention_block_stats_scratch_bytes",
+                 "ppf_attention_mean_scratch_bytes"}
 
 # shared memory one block may use on Hopper (sm_90), bytes
 MAX_SMEM_PER_BLOCK = 232448
@@ -151,7 +158,7 @@ def library() -> ctypes.CDLL:
             if fn is None:
                 continue
             fn.argtypes = argtypes
-            fn.restype = _INT
+            fn.restype = ctypes.c_longlong if name in _LONG_RESULTS else _INT
         _LIB = lib
     return _LIB
 
@@ -163,6 +170,8 @@ def check_launch(name: str, code: int) -> None:
 
 
 def check_smem(name: str, need: int) -> None:
+    """Raise where a kernel's block needs more shared memory than the card
+    gives a block: what limits the token count a kernel takes."""
     if need > MAX_SMEM_PER_BLOCK:
         raise ValueError(
             f"{name}: needs {need} bytes of shared memory per block, more "

@@ -26,7 +26,6 @@ import torch
 
 from protopformer_tpu_torch.kernels import _build
 from protopformer_tpu_torch.kernels.stats import (
-    MAX_N,
     bisect_keys,
     masked_row_sums,
     radix_select_keys,
@@ -61,9 +60,24 @@ def _check_qkv(name: str, qkv: torch.Tensor, num_heads: int,
                          f"multiple of {step} and at most 64")
     if qkv.data_ptr() % 16:
         raise ValueError(f"{name}: qkv must be 16-byte aligned")
-    if N > MAX_N:
-        raise ValueError(f"{name}: at most {MAX_N} tokens, got {N}")
     return B, N, C
+
+
+def _scratch(lib, query: str, *args, device: torch.device):
+    """Device scratch for a launcher, of the bytes its ``query`` names (None
+    where 0): the long kernels' accumulators or P above 640 tokens, which
+    no longer fit shared memory or registers. Sources older than these
+    routes (``cli.time_long_kernels``'s parent copy) lack the query and
+    need none."""
+    fn = getattr(lib, query, None)
+    nbytes = fn(*args) if fn is not None else 0
+    if nbytes == 0:
+        return None
+    return torch.empty((nbytes + 3) // 4, dtype=torch.float32, device=device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 # --- K1 ---------------------------------------------------------------------
@@ -125,11 +139,13 @@ def block_stats_cuda(qkv: torch.Tensor, num_heads: int, keep: int,
     )
     t = torch.empty(B, dtype=torch.float32, device=dev)
     s = torch.empty((B, N), dtype=torch.float32, device=dev)
+    scratch = _scratch(lib, "ppf_attention_block_stats_scratch_bytes", B, N, hd,
+                       device=dev)
     code = lib.ppf_attention_block_stats(
         qkv.data_ptr(), B, N, C, num_heads, keep, int(exact_discard),
         _bf16_value(hd ** -0.5), _bf16_value(SOFTMAX_EPS / N),
         out.data_ptr(), fmap.data_ptr(), t.data_ptr(), s.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream, _ptr(scratch),
     )
     _build.check_launch("attention_block_stats", code)
     block_stats_cuda.launches += 1
@@ -230,11 +246,13 @@ def mean_padded_cuda(qkv: torch.Tensor, policy: torch.Tensor, num_heads: int,
     dev = qkv.device
     out = torch.empty((B, NP, C), dtype=qkv.dtype, device=dev)
     fmap = torch.empty((B, NP, NP), dtype=torch.float32, device=dev)
+    scratch = _scratch(lib, "ppf_attention_mean_scratch_bytes", B, NP,
+                       C // num_heads, int(is_bf16), device=dev)
     code = lib.ppf_attention_mean(
         qkv.data_ptr(), pol.data_ptr(), B, NP, C, num_heads, real_n,
         int(is_bf16), (C // num_heads) ** -0.5, SOFTMAX_EPS / real_n,
         out.data_ptr(), fmap.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream, _ptr(scratch),
     )
     _build.check_launch("attention_mean", code)
     mean_padded_cuda.launches += 1
@@ -323,12 +341,14 @@ def _core_launch(name: str, qkv: torch.Tensor, policy, num_heads: int,
     dev = qkv.device
     out = torch.empty((B, NP, C), dtype=qkv.dtype, device=dev)
     fmap = torch.empty((B, NP, NP), dtype=torch.float32, device=dev)
+    scratch = _scratch(lib, "ppf_attention_mean_scratch_bytes", B, NP, hd,
+                       int(is_bf16), device=dev)
     code = lib.ppf_attention_core(
-        qkv.data_ptr(), None if pol is None else pol.data_ptr(), B, NP, C,
+        qkv.data_ptr(), _ptr(pol), B, NP, C,
         num_heads, real_n, keep, int(is_bf16),
         hd ** -0.5, SOFTMAX_EPS / real_n, identity_weight,
         1.0 + identity_weight, out.data_ptr(), fmap.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream, _ptr(scratch),
     )
     _build.check_launch(name, code)
     return out, fmap
@@ -372,7 +392,7 @@ def fused_attention_core(
 
     Args:
       qkv: (B, N, 3C) q|k|v activations in the compute dtype (fp32 or
-        bf16), N <= ``MAX_N`` (640) on CUDA.
+        bf16).
       policy: (B, N) keep-mask, or None (all ones).
       ones_policy: the all-ones policy whatever ``policy`` holds
         (pre-prune blocks).
@@ -403,9 +423,8 @@ def fused_attention_core_padded(
     Args:
       qkv: (B, NP, 3C) activations; rows >= real_n are pads.
       policy: (B, NP) keep-mask with pads 0.
-      real_n: the real token count (<= NP <= ``MAX_N``, 640, on CUDA); the
-        eps terms and the discard keep count use it, so the real block
-        matches the unpadded kernel.
+      real_n: the real token count (<= NP); the eps terms and the discard
+        keep count use it, so the real block matches the unpadded kernel.
 
     Returns:
       (out (B, NP, C) in the qkv dtype, the normalized map (B, NP, NP)

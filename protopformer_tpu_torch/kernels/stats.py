@@ -18,11 +18,6 @@ import torch
 
 from protopformer_tpu_torch.kernels import _build
 
-# tokens a map may have: one sample's fp32 map over a cluster of at most 16
-# CTAs, each holding its band of 40 rows of 640 in shared memory
-# (``csrc/common.cuh``, ``kMaxTokens``); the 384 presets have 577 tokens
-MAX_N = 640
-
 
 def bisect_keys(a: torch.Tensor, prefix16: bool) -> torch.Tensor:
     """(B, ...) fp32 values -> (B, E) int32 keys, those the JAX kernels
@@ -89,18 +84,24 @@ def map_stats_plain(fmap: torch.Tensor, keep: int, prefix16: bool
     return t, masked_row_sums(a, t)
 
 
-def map_stats_cuda(fmap: torch.Tensor, keep: int, prefix16: bool
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/map_stats.cu`` on a contiguous (B, N, N) CUDA map."""
+def check_map(fmap: torch.Tensor) -> Tuple[int, int]:
+    """The checks of ``map_stats_cuda`` on a map: a contiguous (B, N, N)
+    fp32 or bf16 map of any N (up to ~850 tokens each CTA of a sample's
+    cluster holds its band in shared memory; above, it reads the band where
+    the map lies, ``csrc/common.cuh::map_route``). Returns (B, N)."""
     if fmap.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"map_stats: map dtype {fmap.dtype} not fp32/bf16")
     if fmap.dim() != 3 or fmap.shape[1] != fmap.shape[2]:
         raise ValueError(f"map_stats: expected (B, N, N), got {tuple(fmap.shape)}")
     if not fmap.is_contiguous():
         raise ValueError("map_stats: map must be contiguous")
-    B, N, _ = fmap.shape
-    if N > MAX_N:
-        raise ValueError(f"map_stats: at most {MAX_N} tokens, got {N}")
+    return fmap.shape[0], fmap.shape[1]
+
+
+def map_stats_cuda(fmap: torch.Tensor, keep: int, prefix16: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/map_stats.cu`` on a contiguous (B, N, N) CUDA map."""
+    B, N = check_map(fmap)
     lib = _build.library()
     t = torch.empty(B, dtype=torch.float32, device=fmap.device)
     s = torch.empty((B, N), dtype=torch.float32, device=fmap.device)

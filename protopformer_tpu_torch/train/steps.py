@@ -18,11 +18,13 @@ from __future__ import annotations
 import contextlib
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from protopformer_tpu_torch.core.config import OptimConfig, PPNetConfig
 from protopformer_tpu_torch.core.device import resolve_device
+from protopformer_tpu_torch.data.mixup import MixupCutmix
 from protopformer_tpu_torch.data.preprocess import normalize_images
 from protopformer_tpu_torch.ops.ppc import ppc_loss
 from protopformer_tpu_torch.serving import no_tf32
@@ -75,12 +77,15 @@ def make_train_step(
     metrics)``; ``generator`` (a ``torch.Generator`` on ``device``) feeds
     the dropout and stochastic-depth draws. ``normalize=False`` is for
     callers that feed normalized images.
+
+    ``mixup``: an optional ``data.mixup.MixupCutmix`` applied on the device
+    inside the step, to the raw images before the normalize (the JAX
+    step's order). Its scalar draws at step s come from the host generator
+    ``np.random.default_rng((generator.initial_seed(), s, 7))``, as the
+    JAX step folds 7 into its step key; the labels become soft (B, cls).
     """
-    if mixup is not None:
-        raise NotImplementedError(
-            "mixup in the train step is not ported yet: ROADMAP.md Queue 1 "
-            "item 10 (data)"
-        )
+    if mixup is not None and not isinstance(mixup, MixupCutmix):
+        raise TypeError(f"mixup must be a MixupCutmix, got {type(mixup)}")
     dev = resolve_device(device)
     use_ppc = ppnet_cfg is not None and ppnet_cfg.use_ppc_loss
     ema_decay = optim_cfg.model_ema_decay if optim_cfg.model_ema else None
@@ -88,6 +93,11 @@ def make_train_step(
     def train_step(state: TrainState, batch, generator, ppc_gate):
         images = _to(batch["image"], dev).float()
         labels = _to(batch["label"], dev)
+        if mixup is not None:
+            mixed = mixup({"image": images, "label": labels},
+                          np.random.default_rng(
+                              (generator.initial_seed(), state.step, 7)))
+            images, labels = mixed["image"], mixed["label"]
         if normalize:
             images = normalize_images(images)
         hard = _hard_labels(labels)

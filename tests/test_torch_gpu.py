@@ -340,10 +340,11 @@ def _mean_bf16_null_policy(qkv, H, real_n):
     C = C3 // 3
     out = torch.empty((B, NP, C), dtype=qkv.dtype, device=qkv.device)
     fmap = torch.empty((B, NP, NP), dtype=torch.float32, device=qkv.device)
+    # the bf16 kernels need no scratch at any NP
     code = _build.library().ppf_attention_mean(
         qkv.data_ptr(), None, B, NP, C, H, real_n, 1, (C // H) ** -0.5,
         1e-6 / real_n, out.data_ptr(), fmap.data_ptr(),
-        torch.cuda.current_stream(qkv.device).cuda_stream)
+        torch.cuda.current_stream(qkv.device).cuda_stream, None)
     _build.check_launch("attention_mean", code)
     return out, fmap
 
@@ -364,6 +365,14 @@ def _mean_bf16_null_policy(qkv, H, real_n):
     (577, 640, 192, 3, "null"),
     (640, 640, 192, 3, "zeros"),
     (640, 640, 768, 12, "null"),
+    # past 640: the global route (the head mean in the map) in 3 row tiles
+    # at 785 (DeiT-Tiny/16 at 448) and 896 (K5's bench pad of it), in 1
+    # at 1,025 (512 px) and 1,601
+    (785, 785, 192, 3, "null"),
+    (785, 896, 192, 3, "zeros"),
+    (1025, 1025, 192, 3, "null"),
+    (1025, 1152, 768, 12, "zeros"),
+    (1601, 1601, 192, 3, "zeros"),
 ])
 def test_mean_long_bf16_kernel_matches_plain(rng, cuda, N, NP, C, H, policy):
     """The long bf16 attention against ``mean_padded_plain``: out within
@@ -446,7 +455,7 @@ def _select_maps(rng, B, N, kind):
     return maps
 
 
-@pytest.mark.parametrize("N", [449, 512, 513, 577, 640])
+@pytest.mark.parametrize("N", [449, 512, 513, 577, 640, 785, 1025])
 @pytest.mark.parametrize("kind", ["signed zeros", "narrow", "flat", "few"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_map_select_long_matches_plain(rng, cuda, N, kind, dtype):
@@ -530,25 +539,159 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
             torch.zeros((2, 24, 48), device=cuda).transpose(1, 2), torch.ones(
                 (2, 48), device=cuda), 2, 48,
         )
-    # every kernel takes at most 640 tokens
-    with pytest.raises(ValueError, match="at most 640"):
-        stats.fused_map_stats(torch.zeros((2, 641, 641), device=cuda), 0.9)
-    with pytest.raises(ValueError, match="at most 640"):
-        ac.fused_attention_core(torch.zeros((2, 641, 48), device=cuda),
-                                None, 2, ones_policy=True)
-    with pytest.raises(ValueError, match="at most 640"):
-        ac.fused_attention_core_padded(
-            torch.zeros((2, 648, 48), device=cuda),
-            torch.ones((2, 648), device=cuda), 2, 577,
-        )
-    with pytest.raises(ValueError, match="at most 640"):
+    # no fixed token count: 641 launches everywhere; what limits N is a
+    # block's shared memory, and a wrapper names it (K1's heads kernel
+    # holds 16 rows of bf16 logits, K3's bf16 long kernel 16 of fp32)
+    t, _ = stats.fused_map_stats(torch.zeros((2, 641, 641), device=cuda), 0.9)
+    out, _ = ac.fused_attention_core(torch.zeros((2, 641, 48), device=cuda),
+                                     None, 2, ones_policy=True)
+    torch.cuda.synchronize()
+    assert t.shape == (2,) and out.shape == (2, 641, 16)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
         ac.fused_attention_block_stats(
-            torch.zeros((2, 641, 48), device=cuda, dtype=torch.bfloat16), 2,
+            torch.zeros((1, 8000, 48), device=cuda, dtype=torch.bfloat16), 2,
             0.9)
-    with pytest.raises(ValueError, match="at most 640"):
+    with pytest.raises(ValueError, match="bytes of shared memory"):
         ac.fused_attention_mean_padded(
-            torch.zeros((2, 641, 48), device=cuda),
-            torch.ones((2, 641), device=cuda), 2, 577)
+            torch.zeros((1, 4000, 48), device=cuda, dtype=torch.bfloat16),
+            torch.ones((1, 4000), device=cuda), 2, 3000)
+
+
+# --- past 640 tokens: every kernel's route above its old limit ---------------
+
+# 641 (one past the old limit), DeiT-Tiny/16 at 448 px (785) and 512 px
+# (1,025), 901 (past the map select's shared-memory band), 1,601
+_PAST_640 = [641, 785, 901, 1025, 1601]
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("N", _PAST_640 + [2305])
+def test_block_stats_past_640_matches_plain(rng, cuda, exact, N):
+    """K1 past 640 tokens, held as ``test_block_stats_kernel_matches_plain``
+    holds it (B=3, B=2 at 2,305): the heads kernel's accumulator in
+    device memory, in 3 row tiles up to ~2,000 tokens and in 1 above, its
+    passes 2 and 3 looping over a row's steps; K2's select on the stored
+    map in shared memory up to ~850 tokens, read in place above."""
+    B, C, H = (2 if N > 1601 else 3), 192, 3
+    qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * C)).astype(np.float32))
+    qkv = qkv.to(cuda, torch.bfloat16)
+    out, fmap, t, s = ac.fused_attention_block_stats(qkv, H, 0.9, exact)
+    p_out, p_map, p_t, _ = ac.block_stats_plain(
+        qkv, H, N * N - int(N * N * 0.9), exact)
+    own_t, _ = masked_map_stats(fmap, 0.9, exact_discard=exact)
+    torch.cuda.synchronize()
+    assert torch.equal(t, own_t)
+    assert _max_err(s, stats.masked_row_sums(fmap.float(), t.float())) <= 1e-6
+    assert _max_err(fmap, p_map) <= _bf16_ulp(p_map)
+    assert _max_err(out, p_out) <= 2 * _bf16_ulp(p_out)
+    map_diff = (fmap != p_map).flatten(1)
+    assert int(map_diff.sum()) <= max(int(1e-4 * fmap.numel()), N)
+    t_diff = t != p_t.to(t.dtype)
+    assert int(t_diff.sum()) <= 1
+    assert bool((map_diff.any(dim=1) | ~t_diff).all())
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("N", _PAST_640 + [2305])
+def test_map_stats_past_640_matches_plain(rng, cuda, exact, N):
+    """K2 past 640 tokens (B=3, B=2 at 2,305): t bit-equal, s within 1e-6;
+    the route is the band in shared memory up to ~850 tokens and the band
+    read in place above (``ppf_map_stats_route``)."""
+    from protopformer_tpu_torch.kernels import _build
+
+    B = 2 if N > 1601 else 3
+    assert _build.library().ppf_map_stats_route(N) == (1 if N <= 850 else 2)
+    maps = _prob_maps(rng, B, N).to(cuda)
+    if not exact:
+        maps = maps.bfloat16()
+    t, s = stats.fused_map_stats(maps, 0.9, exact_discard=exact)
+    want_t, want_s = stats.fused_map_stats(maps.cpu(), 0.9,
+                                           exact_discard=exact)
+    assert torch.equal(t.cpu(), want_t)
+    assert _max_err(s.cpu(), want_s) <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("N", _PAST_640)
+def test_mean_padded_past_640_matches_plain(rng, cuda, dtype, N):
+    """K3 past 640 tokens on its global route (the head mean in the map;
+    fp32 with P in device memory), held as
+    ``test_mean_padded_kernel_matches_plain`` holds it, at B=3."""
+    from protopformer_tpu_torch.kernels import _build
+
+    bf16 = int(dtype == torch.bfloat16)
+    assert _build.library().ppf_attention_mean_global_route(N, 64, bf16) == 1
+    qkv, pol = _qkv_policy(rng, 3, N, N, 192)
+    qkv, pol = qkv.to(cuda, dtype), pol.to(cuda)
+    out, fmap = ac.fused_attention_mean_padded(qkv, pol, 3, real_n=N)
+    p_out, p_map = ac.mean_padded_plain(qkv, pol, 3, real_n=N)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert _max_err(out, p_out) <= tol
+    assert _max_err(fmap, p_map) <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("N", _PAST_640)
+def test_core_past_640_matches_plain(rng, cuda, dtype, N):
+    """K4 past 640 tokens (the ones policy, as ``masked_forward_thresh``'s
+    pre-prune blocks call it), held by ``_check_core`` at B=3."""
+    qkv, pol = _qkv_policy(rng, 3, N, N, 192)
+    qkv = qkv.to(cuda, dtype)
+    pol = torch.ones_like(pol).to(cuda)
+    out, fmap = ac.fused_attention_core(qkv, None, 3, ones_policy=True)
+    p_out, p_map = ac.core_plain(qkv, pol, 3)
+    _check_core(qkv, pol, 3, N, out, fmap, p_out, p_map)
+
+
+@pytest.mark.parametrize("dtype,N,NP", [
+    (torch.bfloat16, 785, 896), (torch.bfloat16, 1025, 1152),
+    (torch.float32, 785, 896), (torch.float32, 1025, 1152),
+])
+def test_core_padded_past_640_pads_exactly_zero(rng, cuda, dtype, N, NP):
+    """K5 on an NP-padded stream past 640 tokens (DeiT-Tiny/16 at 448 and
+    512 px, padded to a multiple of 128 as the JAX bench pads): every pad
+    row and column of the map exactly 0, the real block held by
+    ``_check_core`` at B=3."""
+    qkv, pol = _qkv_policy(rng, 3, N, NP, 192)
+    qkv, pol = qkv.to(cuda, dtype), pol.to(cuda)
+    out, fmap = ac.fused_attention_core_padded(qkv, pol, 3, N)
+    p_out, p_map = ac.core_padded_plain(qkv, pol, 3, N)
+    _check_core(qkv, pol, 3, N, out, fmap, p_out, p_map)
+
+
+def test_deit_tiny_served_at_448_matches_the_cpu(cuda):
+    """F9's repair: a DeiT-Tiny/16 PPNet at 448 px (785 tokens) served on
+    the card in fp32 parity (K3 x 12, K2 x 11 per forward) against the CPU
+    forward on 2 images: logits within 1e-4, the same top-81 tokens,
+    cls_token_attn within 1e-5."""
+    from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
+    from protopformer_tpu_torch.models import construct_ppnet
+    from protopformer_tpu_torch.serving import ServingEngine
+
+    bk = backbone_preset("deit_tiny_patch16_224", img_size=448)
+    pp = PPNetConfig()
+    state = construct_ppnet(bk, pp, torch.float32,
+                            generator=torch.Generator().manual_seed(11)
+                            ).state_dict()
+    imgs = np.random.default_rng(12).integers(0, 256, (2, 448, 448, 3),
+                                              dtype=np.uint8)
+    res = {}
+    for device in ("cpu", cuda):
+        kernels.reset_launch_counts()
+        res[str(device)] = ServingEngine(bk, pp, state, batch_size=2,
+                                         compute_dtype=torch.float32,
+                                         with_attn=True, device=device)(imgs)
+    counts = kernels.launch_counts()
+    assert counts["fused_attention_mean_padded"] == 12
+    assert counts["fused_map_stats"] == 11
+    got, want = res["cuda"], res["cpu"]
+    assert float(np.abs(got.logits - want.logits).max()) <= 1e-4
+    assert float(np.abs(got.cls_token_attn - want.cls_token_attn).max()) <= 1e-5
+    for a, b in zip(got.cls_token_attn, want.cls_token_attn):
+        assert set(np.argsort(-a)[:81]) == set(np.argsort(-b)[:81])
 
 
 _DIV_CHECK = r"""

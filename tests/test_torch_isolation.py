@@ -58,6 +58,22 @@ def test_no_source_imports_jax(path):
     assert not [n for n in names if _forbidden(n)]
 
 
+def test_the_checks_cover_the_data_layer():
+    """The import walk and the source scan above both reach each module of
+    the data layer (its loader, transforms, native binding and mixup)."""
+    import pkgutil
+
+    import protopformer_tpu_torch.data as data
+
+    walked = {m.name for m in pkgutil.walk_packages(data.__path__,
+                                                    data.__name__ + ".")}
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")}
+    for mod in ("datasets", "loader", "local_parts", "mixup", "native",
+                "preprocess", "transforms"):
+        assert f"protopformer_tpu_torch.data.{mod}" in walked
+        assert f"protopformer_tpu_torch/data/{mod}.py" in scanned
+
+
 def test_forbidden_name_check_is_exact():
     assert _forbidden("protopformer_tpu") and _forbidden("protopformer_tpu.ops")
     assert _forbidden("jax.numpy") and not _forbidden("jaxtyping")

@@ -1,8 +1,9 @@
 """Token counts above 256: the port against the JAX package at N = 257
 (``deit_tiny_patch2_32``'s count) and N = 577 (the 384 presets').
 
-The kernels' CUDA versions take up to 640 tokens (``kernels.MAX_N``); on
-the CPU each public kernel function runs its plain PyTorch version, held
+The kernels' CUDA versions take any token count (the shared memory of a
+block bounds their routes); on the CPU each public kernel function runs
+its plain PyTorch version, held
 here against the JAX Pallas kernels in interpret mode, as
 tests/test_torch_kernels.py holds them at N <= 24:
   * K1: t bit-equal to ``masked_map_stats`` on the emitted map (the JAX
@@ -64,16 +65,23 @@ PP = PPNetConfig(
 
 
 def test_the_kernels_take_the_384_presets_token_counts():
-    """MAX_N covers the 384 presets (577 tokens), the 640 JAX pads them
-    to, and ``deit_tiny_patch2_32`` (257)."""
+    """No kernel has a fixed most token count any more (F9's repair): the
+    CUDA wrappers' checks take the 384 presets (577 tokens), the 640 JAX
+    pads them to, ``deit_tiny_patch2_32`` (257) and DeiT-Tiny/16 at 448
+    and 512 px (785 and 1,025), and the kernels module names no MAX_N."""
     from protopformer_tpu_torch.core.config import backbone_preset as t_preset
 
-    assert t_kernels.MAX_N == t_stats.MAX_N == 640
-    for name, n in (("deit_base_patch16_384", 577),
-                    ("deit_base_distilled_patch16_384", 577),
-                    ("deit_tiny_patch2_32", 257)):
-        assert t_preset(name).num_patches + 1 == n <= t_kernels.MAX_N
-    assert -(-577 // 128) * 128 == 640 <= t_kernels.MAX_N
+    assert not hasattr(t_kernels, "MAX_N") and not hasattr(t_stats, "MAX_N")
+    for name, kw, n in (("deit_base_patch16_384", {}, 577),
+                        ("deit_base_distilled_patch16_384", {}, 577),
+                        ("deit_tiny_patch2_32", {}, 257),
+                        ("deit_tiny_patch16_224", {"img_size": 448}, 785),
+                        ("deit_tiny_patch16_224", {"img_size": 512}, 1025)):
+        assert t_preset(name, **kw).num_patches + 1 == n
+    for n in (577, 640, 785, 1025):
+        qkv = torch.zeros((2, n, 3 * 192), dtype=torch.bfloat16)
+        assert t_ac._check_qkv("K", qkv, 3, (torch.bfloat16,)) == (2, n, 192)
+        assert t_stats.check_map(torch.zeros((2, n, n))) == (2, n)
 
 
 # --- the kernels' plain versions against the interpreted JAX kernels ----------
@@ -96,7 +104,7 @@ def assert_within_ulps(got, want, limit, what: str) -> None:
 
 
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "speed"])
-@pytest.mark.parametrize("N", [257, 577])
+@pytest.mark.parametrize("N", [257, 577, 785])
 def test_block_stats_plain_matches_jax_kernel(rng, N, exact):
     B, C, H = 1, 16, 2
     qkv = _qkv(rng, B, N, C)
@@ -131,7 +139,7 @@ def test_block_stats_plain_matches_jax_kernel(rng, N, exact):
 
 
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "speed"])
-@pytest.mark.parametrize("N", [257, 577])
+@pytest.mark.parametrize("N", [257, 577, 785])
 def test_map_stats_plain_matches_jax_kernel(rng, N, exact):
     maps = rng.uniform(size=(2, N, N)).astype(np.float32)
     maps /= maps.sum(-1, keepdims=True)
@@ -152,7 +160,8 @@ def _policy(rng, B, N):
     return pol
 
 
-@pytest.mark.parametrize("N,NP", [(257, 257), (577, 577), (577, 640)])
+@pytest.mark.parametrize("N,NP", [(257, 257), (577, 577), (577, 640),
+                                  (785, 785), (785, 896)])
 def test_mean_padded_plain_matches_jax_kernel(rng, N, NP):
     B, C, H = 1, 16, 2
     pad = ((0, 0), (0, NP - N))
@@ -173,7 +182,17 @@ def test_mean_padded_plain_matches_jax_kernel(rng, N, NP):
 
 
 def test_core_padded_plain_matches_jax_kernel_at_577_in_640(rng):
-    B, N, NP, C, H = 1, 577, 640, 16, 2
+    _core_padded_against_jax(rng, 577, 640)
+
+
+def test_core_padded_plain_matches_jax_kernel_at_785_in_896(rng):
+    """Real 785 in NP 896: DeiT-Tiny/16 at 448 px, padded to a multiple of
+    128 as the JAX package pads, past 640 tokens."""
+    _core_padded_against_jax(rng, 785, 896)
+
+
+def _core_padded_against_jax(rng, N, NP):
+    B, C, H = 1, 16, 2
     pad = ((0, 0), (0, NP - N))
     qkv = np.pad(_qkv(rng, B, N, C), pad + ((0, 0),))
     pol = np.pad(_policy(rng, B, N), pad)
@@ -208,6 +227,31 @@ def micro(request):
     fp32 = jax.jit(j_construct(bk, PP).apply)({"params": params},
                                              jnp.asarray(x))
     return dict(n=n, backbone=bk, params=params, x=x, fp32=fp32)
+
+
+def test_ppnet_fp32_matches_jax_past_640_tokens():
+    """F9's CPU side: the port's PPNet at ``deit_micro_test`` in patches of
+    2 at 56 px (785 tokens, as DeiT/16 at 448 px) in fp32 against the JAX
+    package's default forward: the same top-81 tokens, ``cls_token_attn``
+    within 1e-5, distances and logits within 1e-4."""
+    bk = backbone_preset("deit_micro_test", patch_size=2, img_size=56)
+    assert bk.num_patches + 1 == 785
+    params = jax_params(bk, PP, seed=3)
+    x = np.random.default_rng(785).normal(size=(2, 56, 56, 3)).astype(
+        np.float32)
+    want = jax.jit(j_construct(bk, PP).apply)({"params": params},
+                                              jnp.asarray(x))
+    got = _port_forward(dict(params=params, x=x), bk, torch.float32)
+    want_attn = to_np(want.cls_token_attn)
+    assert want_attn.shape == (2, 784)
+    assert_tie_free(want_attn, 81)
+    assert topk_sets(to_np(got.cls_token_attn), 81) == topk_sets(want_attn, 81)
+    np.testing.assert_allclose(to_np(got.cls_token_attn), want_attn,
+                               atol=1e-5)
+    for field in ("distances", "logits", "logits_global", "logits_local"):
+        np.testing.assert_allclose(to_np(getattr(got, field)),
+                                   to_np(getattr(want, field)), atol=1e-4,
+                                   rtol=1e-4, err_msg=field)
 
 
 def _port_forward(m, backbone, dtype):

@@ -415,9 +415,16 @@ def test_ppc_gate_zero_vs_one(weights):
 
 
 def test_mixup_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """Mixup is ported now (tests/test_torch_data.py holds the step against
+    JAX): the step takes a ``MixupCutmix`` and refuses anything else."""
+    from protopformer_tpu_torch.data import MixupCutmix
+
+    with pytest.raises(TypeError, match="MixupCutmix"):
         t_train.make_train_step(None, PP, _port_optim(OPT), mixup=object(),
                                 device="cpu")
+    assert callable(t_train.make_train_step(
+        None, PP, _port_optim(OPT), mixup=MixupCutmix(num_classes=4),
+        device="cpu"))
 
 
 # --- optimizer, EMA and schedules --------------------------------------------
