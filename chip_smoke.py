@@ -147,6 +147,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
      (idle share); evaluate over the eval loader (K1 x 11 + K3 x 1 a
      batch, the last padded); prints the loader's img/s, the fed train
      step's img/s and idle share, and whether the native path ran;
+  4j. the offline user path through the CLIs, in process: the same seeded
+     CUB tree plus parts/parts.txt and parts/part_locs.txt (15 seeded parts
+     an image, a fifth invisible) and a seeded timm-layout DeiT-Tiny/16@224
+     .pth ({"model": ...}, module.-prefixed, a 1000-class head);
+     cli.train with cli/presets/train_cub.sh's flags at B=128,
+     --pretrained_ckpt, 2 epochs saving each (K2 x 11 a step, K1 x 11 +
+     K3 x 1 an eval batch), then --resume <root> for a third epoch, then
+     --eval --resume <epoch 2's file>, which must reproduce epoch 2's
+     logged acc1 and loss exactly; cli.export --use_ema, whose file loads
+     with weights_only=True and equals the checkpoint's model_ema;
+     ServingEngine serving 160 images from it (K1 x 11 + K3 x 1);
+     cli.visualize slim_gaussian over 2 classes, with --use_gauss where
+     matplotlib imports (the expected file count) and cli.eval_interpretability on the tree, each fp32 on
+     the card (K3 x 12 + K2 x 11 a batch), the consistency score equal to
+     the same CLI's on the CPU; prints the CLI's fed img/s per epoch, the
+     checkpoint saves' seconds, the tools' img/s (host clock) and push's
+     fp32 img/s on a device-resident batch of 160 (CUDA events);
   5. the card against the CPU: fp32 parity on 2 images (logits within
      1e-4, the same top-81 tokens), and bf16 speed and bf16 exact against
      the CPU's fp32 forward (at least 74 of the top-81 tokens kept, none
@@ -162,8 +179,10 @@ and exits non-zero.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2282,6 +2301,264 @@ def data_phase(dev: torch.device) -> dict:
     return results
 
 
+# --- phase 4j: the offline user path ----------------------------------------
+
+CUB_PARTS = ("back", "beak", "belly", "breast", "crown", "forehead",
+             "left eye", "left leg", "left wing", "nape", "right eye",
+             "right leg", "right wing", "tail", "throat")
+# cli/presets/train_cub.sh's flags (the reference's scripts/train_cub.sh)
+# but its batch (TRAIN_B, the preset's 128) and epochs, on the host's 8 cores
+CUB_PRESET = [
+    "--base_architecture=deit_tiny_patch16_224", "--data_set=CUB2011U",
+    "--input_size=224", "--model=deit_tiny_patch16_224", "--seed=1028", "--opt=adamw", "--sched=cosine", "--warmup-epochs=5",
+    "--warmup-lr=1e-4", "--decay-epochs=10", "--decay-rate=0.1",
+    "--weight_decay=0.05", "--features_lr=1e-4", "--add_on_layers_lr=3e-3",
+    "--prototype_vectors_lr=3e-3", "--prototype_shape", "2000", "192", "1",
+    "1", "--reserve_layers", "11", "--reserve_token_nums", "81",
+    "--use_global=True", "--use_ppc_loss=True", "--ppc_cov_thresh=1.",
+    "--ppc_mean_thresh=2.", "--global_coe=0.5", "--global_proto_per_class=10",
+    "--ppc_cov_coe=0.1", "--ppc_mean_coe=0.5", "--num_workers=8",
+]
+# cli/presets/visualize.sh's and eval_interpretability.sh's model flags
+TOOL_FLAGS = ["--base_architecture=deit_tiny_patch16_224",
+              "--prototype_shape", "2000", "192", "1", "1",
+              "--reserve_layers", "11", "--reserve_token_nums", "81",
+              "--global_proto_per_class=10"]
+VIS_CLASSES = 2
+VIS_B = 64
+INTERP_B = 256
+
+
+def write_cub_parts(root: Path, seed: int) -> int:
+    """parts/parts.txt and parts/part_locs.txt for the tree under ``root``:
+    15 parts an image at seeded places inside it, each invisible (0 0 0)
+    with probability 0.2, as CUB-200-2011 marks them. Returns the images."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    base = root / "CUB_200_2011"
+    (base / "parts").mkdir(exist_ok=True)
+    (base / "parts" / "parts.txt").write_text(
+        "".join(f"{i + 1} {name}\n" for i, name in enumerate(CUB_PARTS)))
+    lines = []
+    images = [ln.split() for ln in (base / "images.txt").read_text().split(
+        "\n") if ln.strip()]
+    for img_id, name in images:
+        with Image.open(base / "images" / name) as im:
+            w, h = im.size
+        for part in range(1, len(CUB_PARTS) + 1):
+            if rng.uniform() < 0.2:
+                lines.append(f"{img_id} {part} 0.0 0.0 0")
+            else:
+                lines.append(f"{img_id} {part} {rng.uniform(0, w):.1f} "
+                             f"{rng.uniform(0, h):.1f} 1")
+    (base / "parts" / "part_locs.txt").write_text("\n".join(lines) + "\n")
+    return len(images)
+
+
+def write_pretrained(path: Path, seed: int) -> None:
+    """A seeded DeiT-Tiny/16@224 in the timm/FB layout: ``{"model": ...}``
+    with ``module.``-prefixed keys (DataParallel's) and a 1000-class head."""
+    from protopformer_tpu_torch.models import create_backbone
+    from protopformer_tpu_torch.models.layers import seeded_init_
+
+    gen = torch.Generator().manual_seed(seed)
+    backbone = create_backbone("deit_tiny_patch16_224")
+    with torch.no_grad():
+        seeded_init_(backbone, backbone, "deit", 1e-5, gen)
+    sd = dict(backbone.state_dict())
+    sd["head.weight"] = torch.randn(1000, 192, generator=gen) * 0.02
+    sd["head.bias"] = torch.zeros(1000)
+    torch.save({"model": {f"module.{k}": v for k, v in sd.items()}}, path)
+
+
+def run_cli(what: str, fn) -> tuple:
+    """(result, launches, host seconds) of one in-process CLI run with the
+    launch counters set to 0 just before it."""
+    from protopformer_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    log(f"offline: {what} in {seconds:.2f} s; launches {json.dumps(launches)}")
+    return result, launches, seconds
+
+
+def _times(launches: dict, n: int) -> dict:
+    return {k: v * n for k, v in launches.items()}
+
+
+def _add(*counts: dict) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def offline_phase(dev: torch.device) -> dict:
+    """Phase 4j (see the module docstring). Returns {path: {"launches"}}."""
+    import shutil
+    import tempfile
+
+    from protopformer_tpu_torch.checkpoint import load_torch_checkpoint
+    from protopformer_tpu_torch.cli import eval_interpretability
+    from protopformer_tpu_torch.cli import export as export_cli
+    from protopformer_tpu_torch.cli import train as train_cli
+    from protopformer_tpu_torch.cli import visualize
+    from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
+    from protopformer_tpu_torch.models import construct_ppnet
+    from protopformer_tpu_torch.serving import ServingEngine
+    from protopformer_tpu_torch.tools.visualize import push
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="offline_", dir=ROOT / "build"))
+    try:
+        write_cub_tree(tmp, seed=31)
+        n_images = write_cub_parts(tmp, seed=32)
+        pretrained = tmp / "deit_tiny_patch16_224.pth"
+        write_pretrained(pretrained, seed=33)
+        out = tmp / "out"
+        n_train = DATA_CLASSES * DATA_TRAIN_PER_CLASS
+        n_test = DATA_CLASSES * DATA_TEST_PER_CLASS
+        log(f"offline: a CUB tree of {n_images} JPEGs with 15 parts each, "
+            f"a seeded timm-layout DeiT-Tiny/16@224 .pth "
+            f"({pretrained.stat().st_size / 2 ** 20:.1f} MiB)")
+        parser = train_cli.get_args_parser()
+        device = f"--device={dev.type}"  # the CLIs' default on the card
+        base = [*CUB_PRESET, f"--batch_size={TRAIN_B}", f"--data_path={tmp}",
+                f"--output_dir={out}", "--save_ep_freq=1", device]
+        steps = n_train // TRAIN_B
+        val_batches = -(-n_test // int(1.5 * TRAIN_B))
+        train_launches = _add(_times(TRAIN_LAUNCHES, steps),
+                              expected_launches("bf16_exact", val_batches))
+
+        # train 2 epochs from the pretrained backbone, then a third resumed
+        first, l_first, s_first = run_cli(
+            "cli.train, 2 epochs from --pretrained_ckpt",
+            lambda: train_cli.main(parser.parse_args(
+                base + ["--epochs=2", f"--pretrained_ckpt={pretrained}"])))
+        require(l_first == _times(train_launches, 2),
+                f"offline: cli.train launched {l_first}")
+        second, l_second, s_second = run_cli(
+            "cli.train --resume <root>, epoch 3",
+            lambda: train_cli.main(parser.parse_args(
+                base + ["--epochs=3", f"--resume={out / 'checkpoints'}"])))
+        require(l_second == train_launches,
+                f"offline: the resumed cli.train launched {l_second}")
+        epochs = first["epochs"] + second["epochs"]
+        require([e["epoch"] for e in epochs] == [0, 1, 2]
+                and sorted(os.listdir(out / "checkpoints")) == [
+                    f"checkpoint-{e}.pth" for e in range(3)],
+                f"offline: epochs {[e['epoch'] for e in epochs]}, files "
+                f"{sorted(os.listdir(out / 'checkpoints'))}")
+        metrics = [json.loads(ln) for ln in
+                   (out / "metrics.jsonl").read_text().splitlines()]
+        logged = [m for m in metrics if "epoch/val_acc1" in m]
+        require(all(math.isfinite(m["train/loss"]) for m in metrics
+                    if "train/loss" in m) and len(logged) == 3,
+                "offline: the train losses or the epoch records")
+        last = out / "checkpoints" / "checkpoint-2.pth"
+        stats, l_eval, _ = run_cli(
+            "cli.train --eval --resume <epoch 2's file>",
+            lambda: train_cli.main(parser.parse_args(
+                base + ["--epochs=3", "--eval", f"--resume={last}"])))
+        require(l_eval == expected_launches("bf16_exact", val_batches),
+                f"offline: --eval launched {l_eval}")
+        require(stats["acc1"] == logged[2]["epoch/val_acc1"]
+                and stats["loss"] == logged[2]["epoch/val_loss"],
+                f"offline: --eval {stats} does not reproduce epoch 2's "
+                f"logged acc1 {logged[2]['epoch/val_acc1']!r} and loss "
+                f"{logged[2]['epoch/val_loss']!r}")
+
+        # export the EMA weights, serve them, run the tools on them
+        export_path = tmp / "export.pth"
+        run_cli("cli.export --use_ema", lambda: export_cli.main(
+            export_cli.get_parser().parse_args(
+                [*CUB_PRESET, f"--resume={last}", "--use_ema",
+                 f"--export_path={export_path}", device])))
+        exported = torch.load(export_path, map_location="cpu",
+                              weights_only=True)["model"]
+        ema = torch.load(last, map_location="cpu",
+                         weights_only=True)["model_ema"]
+        require(exported.keys() == ema.keys()
+                and all(torch.equal(exported[k], ema[k]) for k in ema),
+                "offline: the export is not the checkpoint's model_ema")
+        backbone = backbone_preset("deit_tiny_patch16_224")
+        ppnet = PPNetConfig()
+        engine = ServingEngine(backbone, ppnet, load_torch_checkpoint(
+            str(export_path)), device=dev)
+        request = np.random.default_rng(34).integers(
+            0, 256, (B, 224, 224, 3), dtype=np.uint8)
+        served, l_serve, _ = run_cli("ServingEngine on the export, 160 images",
+                                     lambda: engine(request))
+        require(served.logits.shape == (B, 200)
+                and np.isfinite(served.logits).all()
+                and l_serve == expected_launches("bf16_exact", 1),
+                f"offline: serving the export launched {l_serve}")
+
+        # the Gaussian figures are matplotlib's, which the card's machine
+        # may lack; the forward and the rest of the outputs are the same
+        gauss = importlib.util.find_spec("matplotlib") is not None
+        vis_dir = tmp / "vis"
+        written, l_vis, s_vis = run_cli(
+            f"cli.visualize slim_gaussian{' --use_gauss' * gauss}, "
+            f"{VIS_CLASSES} classes (matplotlib "
+            f"{'present' if gauss else 'missing'})",
+            lambda: visualize.main([
+                *TOOL_FLAGS, "--data_set=CUB2011U", f"--data_path={tmp}",
+                f"--resume={export_path}", f"--output_dir={vis_dir}",
+                "--vis_classes", *map(str, range(VIS_CLASSES)),
+                *["--use_gauss"] * gauss, "--visual_type=slim_gaussian",
+                f"--batch_size={VIS_B}", device]))
+        want_files = VIS_CLASSES * DATA_TEST_PER_CLASS * ((1 + gauss) * 10 + 1)
+        require(len(written) == want_files == len(list(vis_dir.rglob("*.png"))),
+                f"offline: cli.visualize wrote {len(written)} files, not "
+                f"{want_files}")
+        vis_batches = -(-n_test // VIS_B)
+        require(l_vis == expected_launches("fp32_parity", vis_batches),
+                f"offline: cli.visualize launched {l_vis}")
+        interp = [*TOOL_FLAGS, f"--data_path={tmp / 'CUB_200_2011'}",
+                  f"--resume={export_path}", f"--batch_size={INTERP_B}"]
+        score, l_interp, s_interp = run_cli(
+            "cli.eval_interpretability on the card",
+            lambda: eval_interpretability.main(interp + [device]))
+        require(l_interp == expected_launches("fp32_parity",
+                                              -(-n_test // INTERP_B)),
+                f"offline: cli.eval_interpretability launched {l_interp}")
+        cpu_score, _, s_cpu = run_cli(
+            "cli.eval_interpretability on the CPU",
+            lambda: eval_interpretability.main(interp + ["--device=cpu"]))
+        require(score == cpu_score and 0.0 < score <= 100.0,
+                f"offline: consistency score {score!r} on the card, "
+                f"{cpu_score!r} on the CPU")
+
+        # the tools' forward alone: push on a device-resident batch of 160
+        model = construct_ppnet(backbone, ppnet)
+        model.load_state_dict(exported)
+        model.to(dev)
+        x = torch.rand((B, 224, 224, 3), generator=torch.Generator(
+        ).manual_seed(35)).to(dev)
+        push_ips = B / time_ms(lambda: push(model, x), 2, 5) * 1e3
+        log("offline: " + json.dumps({
+            "cli_train_img_per_sec": [e["img_per_sec"] for e in epochs],
+            "checkpoint_save_seconds": [e["save_seconds"] for e in epochs],
+            "cli_train_seconds": [s_first, s_second],
+            "val_acc1": [m["epoch/val_acc1"] for m in logged],
+            "val_loss": [m["epoch/val_loss"] for m in logged],
+            "visualize_img_per_sec": n_test / s_vis,
+            "visualize_files": len(written), "gaussian_figures": gauss,
+            "interpretability_img_per_sec": n_test / s_interp,
+            "interpretability_cpu_img_per_sec": n_test / s_cpu,
+            "consistency_score": score,
+            "push_fp32_img_per_sec": push_ips}))
+        return {"cli_train": {"launches": _add(l_first, l_second)},
+                "cli_eval": {"launches": l_eval},
+                "offline_serve": {"launches": l_serve},
+                "tools_fp32": {"launches": _add(l_vis, l_interp)}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # --- main ----------------------------------------------------------------------
 
 def main() -> int:
@@ -2361,17 +2638,26 @@ def main() -> int:
     fed = data_phase(dev)
     paths.update(fed)
     log(f"data layer: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths.update(offline_phase(dev))
+    log(f"offline user path: {time.perf_counter() - t0:.1f} s")
 
     # launches of each record's kernel on the paths that run it
     per_record_mode = {
         "fused_attention_block_stats[speed]": ["bf16_speed"],
-        "fused_attention_block_stats[exact]": ["bf16_exact", "train_eval"],
-        "fused_attention_mean_padded[fp32,N=197]": ["fp32_parity"],
+        "fused_attention_block_stats[exact]": ["bf16_exact", "train_eval",
+                                               "cli_train", "cli_eval",
+                                               "offline_serve"],
+        "fused_attention_mean_padded[fp32,N=197]": ["fp32_parity",
+                                                    "tools_fp32"],
         "fused_attention_mean_padded[bf16,N=82]": ["bf16_speed",
                                                    "bf16_exact",
-                                                   "train_eval"],
-        "fused_map_stats[fp32]": ["fp32_parity"],
-        "fused_map_stats[fp32,B=128]": ["train_bf16", "train_fp32"],
+                                                   "train_eval", "cli_train",
+                                                   "cli_eval",
+                                                   "offline_serve"],
+        "fused_map_stats[fp32]": ["fp32_parity", "tools_fp32"],
+        "fused_map_stats[fp32,B=128]": ["train_bf16", "train_fp32",
+                                        "cli_train"],
         "fused_attention_core[bf16,ones]": ["thresh_bf16_exact"],
         "fused_attention_core[fp32,policy]": ["thresh_fp32"],
         "fused_attention_core[bf16,bench]": ["bench"],

@@ -61,6 +61,15 @@ def no_tf32():
         torch.set_float32_matmul_precision(precision)
 
 
+def model_precision(model: torch.nn.Module, device: torch.device):
+    """``no_tf32()`` for an fp32 model on CUDA, else a null context: an fp32
+    forward on the card is true fp32 (cuDNN's TF32 is on by default and
+    would round the patch-embed conv)."""
+    fp32 = getattr(model, "compute_dtype", torch.float32) == torch.float32
+    return no_tf32() if fp32 and device.type == "cuda" \
+        else contextlib.nullcontext()
+
+
 class ServingEngine:
     """Fixed-batch PPNet inference over raw uint8 images.
 
@@ -91,8 +100,6 @@ class ServingEngine:
         self.with_attn = with_attn
         self.stage_window = max(1, stage_window)
         self._img_size = backbone.img_size
-        self._true_fp32 = (compute_dtype == torch.float32
-                           and self.device.type == "cuda")
         model = construct_ppnet(backbone, ppnet, compute_dtype)
         model.load_state_dict(
             fold_normalization_into_patch_embed(
@@ -111,8 +118,7 @@ class ServingEngine:
         self.last_peak_staged = 0
 
     def _forward(self, chunk: torch.Tensor) -> Dict[str, torch.Tensor]:
-        with torch.inference_mode(), (no_tf32() if self._true_fp32
-                                      else contextlib.nullcontext()):
+        with torch.inference_mode(), model_precision(self.model, self.device):
             out = self.model(chunk)
         ret = {"logits": out.logits.float()}
         if self.with_attn:
@@ -142,7 +148,7 @@ class ServingEngine:
         return dev, ready
 
     def _push(self, chunk: torch.Tensor) -> Dict[str, torch.Tensor]:
-        with no_tf32() if self._true_fp32 else contextlib.nullcontext():
+        with model_precision(self.model, self.device):
             out = self.model.push_forward(chunk)
         return {"cls_token_attn": out.cls_token_attn,
                 "proto_acts": out.proto_acts}

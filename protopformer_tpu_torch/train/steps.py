@@ -15,7 +15,6 @@ that are not synchronized: the loop fetches them once per window.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -27,7 +26,7 @@ from protopformer_tpu_torch.core.device import resolve_device
 from protopformer_tpu_torch.data.mixup import MixupCutmix
 from protopformer_tpu_torch.data.preprocess import normalize_images
 from protopformer_tpu_torch.ops.ppc import ppc_loss
-from protopformer_tpu_torch.serving import no_tf32
+from protopformer_tpu_torch.serving import model_precision
 from protopformer_tpu_torch.train.state import TrainState
 
 
@@ -52,13 +51,6 @@ def _hard_labels(labels: torch.Tensor) -> torch.Tensor:
 
 def _to(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x).to(device, non_blocking=True)
-
-
-def _precision(model: torch.nn.Module, device: torch.device):
-    """TF32 off for an fp32 model on CUDA."""
-    fp32 = getattr(model, "compute_dtype", torch.float32) == torch.float32
-    return no_tf32() if fp32 and device.type == "cuda" \
-        else contextlib.nullcontext()
 
 
 def make_train_step(
@@ -103,7 +95,7 @@ def make_train_step(
         hard = _hard_labels(labels)
         net = state.model
         net.train()
-        with _precision(net, dev):
+        with model_precision(net, dev):
             out = net(images, generator)
             ce = cross_entropy_loss(out.logits, labels, smoothing)
             metrics = {"ce_loss": ce}
@@ -151,7 +143,7 @@ def make_eval_step(use_global: bool = True, normalize: bool = True,
         valid = (_to(batch["valid"], dev).float() if "valid" in batch
                  else torch.ones(labels.shape[0], device=dev))
         model.eval()
-        with torch.inference_mode(), _precision(model, dev):
+        with torch.inference_mode(), model_precision(model, dev):
             out = model(images)
             logits = out.logits.float()
             loss_per = -torch.log_softmax(logits, dim=-1).gather(

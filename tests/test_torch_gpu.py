@@ -970,3 +970,113 @@ def test_train_step_launches_k2_per_pre_prune_block(rng, cuda, dtype):
         counts = kernels.launch_counts()
         assert counts["fused_attention_mean_padded"] == 3
         assert counts["fused_map_stats"] == 2
+
+
+# --- the offline user path: the train CLI and the consistency tool --------
+
+_CLI_MICRO = [
+    "--base_architecture=deit_micro_test", "--data_set=synthetic",
+    "--data_path=", "--img_size=32", "--input_size=32", "--batch_size=8",
+    "--warmup-epochs=1", "--prototype_shape", "8", "16", "1", "1",
+    "--reserve_layers", "2", "--reserve_token_nums", "9",
+    "--global_proto_per_class=2", "--num_workers=2",
+    "--compute_dtype=float32", "--save_ep_freq=1", "--use_ppc_loss=True",
+]
+
+
+def test_cli_train_resume_and_eval_on_the_card(cuda, tmp_path, monkeypatch):
+    """``cli.train`` on its default device: 2 epochs (drop path 0.1), a
+    resume of epoch 1 from epoch 0's file that ends with the continuous
+    run's step and generator state, and ``--eval`` of the saved epoch
+    reproducing its logged acc1 and loss exactly. Each train step launches
+    K2 on the 2 pre-prune blocks, each fp32 eval batch K3 x 3 + K2 x 2.
+    (The parameters are not compared bit for bit: the backward's
+    scatter-adds sum in any order on the card.)"""
+    import json
+    import os
+    import sys
+
+    from protopformer_tpu_torch.cli import train as train_cli
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+
+    def run(*flags):
+        kernels.reset_launch_counts()
+        out = train_cli.main(train_cli.get_args_parser().parse_args(
+            [*_CLI_MICRO, *flags]))
+        torch.cuda.synchronize()
+        return out, kernels.launch_counts()
+
+    _, counts = run("--epochs=2", f"--output_dir={tmp_path}/a")
+    # 64 images: 8 steps and 6 eval batches of 12 (the last padded) an epoch
+    assert counts["fused_map_stats"] == 2 * (8 * 2 + 6 * 2)
+    assert counts["fused_attention_mean_padded"] == 2 * 6 * 3
+    run("--epochs=2", f"--resume={tmp_path}/a/checkpoints/checkpoint-0.pth",
+        f"--output_dir={tmp_path}/b")
+    load = lambda p: torch.load(p, map_location="cpu", weights_only=True)  # noqa: E731
+    want = load(f"{tmp_path}/a/checkpoints/checkpoint-1.pth")
+    got = load(f"{tmp_path}/b/checkpoints/checkpoint-1.pth")
+    assert got["step"] == want["step"] == 16
+    assert torch.equal(got["generator"], want["generator"])
+    assert all(bool(torch.isfinite(v).all()) for v in got["model"].values())
+    stats, counts = run("--epochs=2", "--eval",
+                        f"--resume={tmp_path}/a/checkpoints/checkpoint-1.pth",
+                        f"--output_dir={tmp_path}/c")
+    with open(os.path.join(tmp_path, "a", "metrics.jsonl")) as f:
+        logged = [r for r in map(json.loads, f) if "epoch/val_acc1" in r][-1]
+    assert stats["acc1"] == logged["epoch/val_acc1"]
+    assert stats["loss"] == logged["epoch/val_loss"]
+    assert counts["fused_attention_mean_padded"] == 6 * 3
+
+
+def test_consistency_score_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """``consistency_score`` of the fp32 micro PPNet on the card (TF32 off,
+    K3 and K2 launched) equals the CPU's: the same per-prototype part hits
+    and visibility counts, so the same score; the thread pool is
+    bit-neutral on the card too."""
+    from protopformer_tpu_torch.data.local_parts import CubPartAnnotations
+    from protopformer_tpu_torch.tools import eval_interpretability as tool
+
+    rng = np.random.default_rng(12)
+    images = rng.normal(size=(16, 32, 32, 3)).astype(np.float32)
+    ids = np.arange(1, 17)
+    annotations = CubPartAnnotations(
+        id_to_path={}, id_to_bbox={},
+        id_to_part_loc={int(i): [(int(p) + 1, int(rng.integers(0, 64)),
+                                  int(rng.integers(0, 64)))
+                                 for p in rng.choice(15, 6, replace=False)]
+                        for i in ids})
+    sizes = {int(i): (64, 64) for i in ids}
+    labels = np.arange(16) % 4
+
+    def loader():
+        for s in range(0, 16, 8):
+            yield {"image": images[s:s + 8], "label": labels[s:s + 8],
+                   "valid": np.ones(8, np.float32),
+                   "position": np.arange(s, s + 8)}
+
+    sums = []
+    real = tool.aggregate_score
+    monkeypatch.setattr(tool, "aggregate_score", lambda h, v, t: (
+        sums.append((h.copy(), v.copy())), real(h, v, t))[1])
+    from protopformer_tpu_torch.tools.visualize import push
+
+    model = _micro_ppnet(torch.float32).eval()
+    _assert_tie_free(push(model, images).cls_token_attn, 9)
+    cfg = tool.ConsistencyConfig(half_size=8, img_size=32)
+    args = (loader, annotations, ids, sizes, model.config, cfg)
+
+    def score(m, **kw):
+        return tool.consistency_score(m, args[0](), *args[1:], **kw)
+
+    want = score(model)
+    model.to(cuda)
+    kernels.reset_launch_counts()
+    got = score(model)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_attention_mean_padded"] == 2 * 3
+    pooled = score(model, host_workers=4)
+    assert got == want == pooled
+    for a, b in zip(sums[1], sums[0]):
+        np.testing.assert_array_equal(a, b)
+    assert 0 < sums[0][0].sum() < sums[0][1].sum()

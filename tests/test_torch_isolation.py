@@ -74,6 +74,63 @@ def test_the_checks_cover_the_data_layer():
         assert f"protopformer_tpu_torch/data/{mod}.py" in scanned
 
 
+def test_the_checks_cover_the_checkpoints_tools_and_clis():
+    """The import walk and the source scan reach the checkpoint layer, the
+    utilities, the offline tools and every CLI."""
+    import pkgutil
+
+    import protopformer_tpu_torch as pkg
+
+    walked = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                    pkg.__name__ + ".")}
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")}
+    for mod in ("checkpoint.manager", "checkpoint.pretrained",
+                "checkpoint.torch_convert", "utils.logging", "utils.seeding",
+                "tools.visualize", "tools.eval_interpretability",
+                "cli.train", "cli.export", "cli.visualize",
+                "cli.eval_interpretability"):
+        assert f"protopformer_tpu_torch.{mod}" in walked
+        assert f"protopformer_tpu_torch/{mod.replace('.', '/')}.py" in scanned
+
+
+_MICRO = ["--base_architecture=deit_micro_test", "--prototype_shape", "8",
+          "16", "1", "1", "--reserve_layers", "2", "--reserve_token_nums",
+          "9", "--global_proto_per_class=2"]
+_SYNTHETIC = ["--img_size=32", "--data_set=synthetic"]
+
+
+@pytest.mark.parametrize("entry", ["cli.train", "cli.export",
+                                   "cli.visualize",
+                                   "cli.eval_interpretability", "set_seed",
+                                   "load_pretrained_backbone"])
+def test_cli_and_checkpoint_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path, entry):
+    from protopformer_tpu_torch.checkpoint import load_pretrained_backbone
+    from protopformer_tpu_torch.cli import eval_interpretability, export
+    from protopformer_tpu_torch.cli import train as train_cli
+    from protopformer_tpu_torch.cli import visualize
+    from protopformer_tpu_torch.core.config import backbone_preset
+    from protopformer_tpu_torch.utils import set_seed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = f"--output_dir={tmp_path}"
+    calls = {
+        "cli.train": lambda: train_cli.main(train_cli.get_args_parser(
+        ).parse_args([*_MICRO, *_SYNTHETIC, out])),
+        "cli.export": lambda: export.main(export.get_parser().parse_args(
+            [*_MICRO, *_SYNTHETIC, out])),
+        "cli.visualize": lambda: visualize.main(
+            [*_MICRO, "--resume", "w.pth", out]),
+        "cli.eval_interpretability": lambda: eval_interpretability.main(
+            [*_MICRO, "--resume", "w.pth"]),
+        "set_seed": lambda: set_seed(0),
+        "load_pretrained_backbone": lambda: load_pretrained_backbone(
+            "w.pth", backbone_preset("deit_micro_test")),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
 def test_forbidden_name_check_is_exact():
     assert _forbidden("protopformer_tpu") and _forbidden("protopformer_tpu.ops")
     assert _forbidden("jax.numpy") and not _forbidden("jaxtyping")
