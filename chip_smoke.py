@@ -164,6 +164,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the same CLI's on the CPU; prints the CLI's fed img/s per epoch, the
      checkpoint saves' seconds, the tools' img/s (host clock) and push's
      fp32 img/s on a device-resident batch of 160 (CUDA events);
+  4k. several cards and the serving options: the CUB preset's DeiT-Tiny/16
+     PPNet (drop path 0, fp32 with TF32 off) trained data-parallel at a
+     global B=128 on a device-resident batch, by one process a card over
+     NCCL (a group of one on a one-card machine) and, with fewer than two
+     cards, by two gloo ranks sharing card 0 (this script re-run with
+     --ddp-worker; each rank killed after 300 s): the backend each ran,
+     the first step's all-reduced loss equal on every rank and within 1e-5
+     of the one-process card step on the global batch, the gradients and
+     the AdamW step by step_contract, K2 x 11 a rank a step, ms/step over
+     10 steps; the mesh ServingEngine (every card, or card 0 twice) in
+     fp32 at B=160 a device against the one-device engine (logits within
+     1e-5, the same top-81 and top_class; a chunk launches each kernel
+     once a device) with both img/s; bf16 speed serving plain, int8
+     (quantize="int8") and with ln_stats "mxu" and "compute" at B=160,
+     each against the fp32 engine (phase 5's contract on 2 images, the
+     160-image readings recorded), launching K1 x 11 + K3 x 1 a chunk, with
+     its img/s; a profile of an int8 chunk, and a utils.profiling.trace of
+     one int8 chunk whose file holds its annotate span; every line with
+     the card's name and power limit;
   5. the card against the CPU: fp32 parity on 2 images (logits within
      1e-4, the same top-81 tokens), and bf16 speed and bf16 exact against
      the CPU's fp32 forward (at least 74 of the top-81 tokens kept, none
@@ -2561,6 +2580,369 @@ def offline_phase(dev: torch.device) -> dict:
 
 # --- main ----------------------------------------------------------------------
 
+# --- phase 4k: several cards, int8 serving, the LayerNorm options, profiling ---
+
+DDP_TIMED_STEPS = 10
+DDP_LIMIT_S = 300  # a hard limit on every rank process
+
+
+def ddp_case_devices() -> list:
+    """(backend, a device a rank) of each data-parallel case: NCCL over
+    every card, and where there are fewer than two, two gloo ranks sharing
+    card 0 (NCCL refuses two ranks on one device)."""
+    n = torch.cuda.device_count()
+    cases = [("nccl", [f"cuda:{r}" for r in range(n)])]
+    if n < 2:
+        cases.append(("gloo", ["cuda:0", "cuda:0"]))
+    return cases
+
+
+def ddp_model(weights: str):
+    """The CUB preset's DeiT-Tiny/16@224 PPNet in fp32, drop path 0 (a
+    rank's generator is seeded seed + rank, so no draw is shared), with
+    the saved weights; its config and optimizer config."""
+    from protopformer_tpu_torch.core.config import (
+        OptimConfig,
+        PPNetConfig,
+        backbone_preset,
+    )
+    from protopformer_tpu_torch.models import construct_ppnet
+
+    backbone = backbone_preset("deit_tiny_patch16_224", drop_path_rate=0.0)
+    ppnet, optim = PPNetConfig(), OptimConfig()
+    model = construct_ppnet(backbone, ppnet, torch.float32)
+    model.load_state_dict(torch.load(weights), strict=True)
+    return model, ppnet, optim
+
+
+def ddp_worker(argv: list) -> int:
+    """One rank of phase 4k's data-parallel training:
+    ``chip_smoke.py --ddp-worker <rank> <world> <port> <job.json>``. It
+    joins the group over the job's backend, takes its contiguous rows of
+    the global batch on its card, runs one fp32 step (rank 0 saves its
+    gradients and parameters), one step with the launch counters set to 0
+    just before it, 2 more, then the job's timed steps, and prints one
+    JSON line."""
+    import torch.distributed as dist
+
+    from protopformer_tpu_torch import kernels, train
+    from protopformer_tpu_torch.parallel import initialize_multihost
+
+    rank, world, port = int(argv[0]), int(argv[1]), argv[2]
+    with open(argv[3]) as f:
+        job = json.load(f)
+    dev = torch.device(job["devices"][rank])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    if world == 1:  # the helper leaves one process alone: join it here
+        dist.init_process_group(job["backend"],
+                                init_method=f"tcp://localhost:{port}",
+                                world_size=1, rank=0)
+    else:
+        initialize_multihost(f"localhost:{port}", world, rank,
+                             backend=job["backend"])
+    model, ppnet, optim = ddp_model(job["weights"])
+    state = train.create_train_state(
+        model, train.make_optimizer(optim, model, TRAIN_STEPS_PER_EPOCH),
+        device=dev)
+    step = train.make_train_step(model, ppnet, optim, device=dev,
+                                 distributed=True)
+    full = torch.load(job["batch"])
+    b = len(full["label"]) // world
+    batch = {k: v[rank * b:(rank + 1) * b].to(dev) for k, v in full.items()}
+    gen = torch.Generator(dev).manual_seed(job["seed"] + rank)
+    first = {k: float(v) for k, v in step(state, batch, gen, 1.0)[1].items()}
+    if rank == 0:
+        torch.save({"grads": {n: p.grad.detach().cpu()
+                              for n, p in model.named_parameters()
+                              if p.grad is not None},
+                    "params": {n: p.detach().cpu()
+                               for n, p in model.named_parameters()}},
+                   job["out"])
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    sync()
+    kernels.reset_launch_counts()
+    step(state, batch, gen, 1.0)
+    sync()
+    launches = kernels.launch_counts()
+    for _ in range(2):
+        step(state, batch, gen, 1.0)
+    sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    losses = [step(state, batch, gen, 1.0)[1]["loss"]
+              for _ in range(job["timed_steps"])]
+    sync()
+    ms = (time.perf_counter() - t0) / job["timed_steps"] * 1e3
+    print(json.dumps({"rank": rank, "world": dist.get_world_size(),
+                      "backend": dist.get_backend(), "device": str(dev),
+                      "first": first, "launches": launches, "ms": ms,
+                      "losses": torch.stack(losses).tolist()}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(job_path: Path, world: int) -> list:
+    """Start ``world`` rank processes of this script on one job; wait for
+    each within DDP_LIMIT_S, killing every rank on expiry or failure."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-worker", str(r),
+         str(world), port, str(job_path)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=DDP_LIMIT_S)
+            require(p.returncode == 0,
+                    f"a data-parallel rank failed:\n{stderr[-3000:]}")
+            outs.append(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def ddp_phase(dev: torch.device) -> dict:
+    """Phase 4k's data-parallel training (see the module docstring).
+    Returns {path: {"launches", "ms_per_step", "img_per_sec"}}."""
+    import tempfile
+
+    from protopformer_tpu_torch import train
+    from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
+    from protopformer_tpu_torch.models import construct_ppnet
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="ddp_", dir=ROOT / "build"))
+    weights, batch_path = tmp / "weights.pt", tmp / "batch.pt"
+    torch.save(construct_ppnet(
+        backbone_preset("deit_tiny_patch16_224", drop_path_rate=0.0),
+        PPNetConfig(), torch.float32,
+        generator=torch.Generator().manual_seed(11)).state_dict(), weights)
+    batch = train_batch(torch.device("cpu"), torch.Generator().manual_seed(12),
+                        TRAIN_B)
+    torch.save(batch, batch_path)
+
+    def one_process(grads=None):
+        """The one-process card step on the global batch from the saved
+        weights, or with ``grads`` the optimizer step on those gradients."""
+        model, ppnet, optim = ddp_model(str(weights))
+        state = train.create_train_state(
+            model, train.make_optimizer(optim, model, TRAIN_STEPS_PER_EPOCH),
+            device=dev)
+        if grads is not None:
+            for n, p in model.named_parameters():
+                p.grad = grads[n].to(dev) if n in grads else None
+            state.apply_gradients()
+            return {n: p.detach().cpu() for n, p in model.named_parameters()}
+        step = train.make_train_step(model, ppnet, optim, device=dev)
+        loss = float(step(state, {k: v.to(dev) for k, v in batch.items()},
+                          torch.Generator(dev).manual_seed(0), 1.0)[1]["loss"])
+        return loss, {n: (p.detach().cpu(), None if p.grad is None
+                          else p.grad.detach().cpu())
+                      for n, p in model.named_parameters()}
+
+    ref_loss, ref = one_process()
+    results = {}
+    for backend, devices in ddp_case_devices():
+        world = len(devices)
+        job = tmp / f"{backend}.json"
+        out = tmp / f"{backend}_rank0.pt"
+        job.write_text(json.dumps({
+            "devices": devices, "backend": backend, "weights": str(weights),
+            "batch": str(batch_path), "seed": 1028, "out": str(out),
+            "timed_steps": DDP_TIMED_STEPS}))
+        t0 = time.perf_counter()
+        ranks = sorted(run_ranks(job, world), key=lambda r: r["rank"])
+        seconds = time.perf_counter() - t0
+        got = torch.load(out)
+        ddp = {n: (got["params"][n], got["grads"].get(n)) for n in ref}
+        res = step_contract(ref, ddp, one_process(got["grads"]))
+        res["loss"] = abs(ranks[0]["first"]["loss"] - ref_loss)
+        path = f"ddp_{backend}"
+        ms = max(r["ms"] for r in ranks)
+        log(f"{path}: backend {ranks[0]['backend']}, {world} rank(s) on "
+            f"{[r['device'] for r in ranks]}, global B={TRAIN_B} "
+            f"({TRAIN_B // world} a rank), fp32 with TF32 off; "
+            f"{ms:.2f} ms/step, {TRAIN_B / ms * 1e3:.1f} img/s over "
+            f"{DDP_TIMED_STEPS} steps (the slowest rank); first step's "
+            f"all-reduced loss a rank {[r['first']['loss'] for r in ranks]}; "
+            f"against the one-process card step (loss {ref_loss!r}) "
+            f"{json.dumps(res)}; launches of one step a rank "
+            f"{json.dumps([r['launches'] for r in ranks])}; "
+            f"{seconds:.1f} s with the ranks' start; {nvidia_smi_line()}")
+        require(all(r["backend"] == backend and r["world"] == world
+                    for r in ranks), f"{path}: not the backend asked for")
+        require(len({r["first"]["loss"] for r in ranks}) == 1
+                and all(r["losses"] == ranks[0]["losses"] for r in ranks),
+                f"{path}: the ranks' all-reduced losses differ")
+        require(all(math.isfinite(v) for v in ranks[0]["losses"]),
+                f"{path}: non-finite loss")
+        require(all(r["launches"] == TRAIN_LAUNCHES for r in ranks),
+                f"{path}: expected launches {TRAIN_LAUNCHES} a rank")
+        require(res["loss"] <= 1e-5 and res["holds"],
+                f"{path}: outside the training contract of the one-process "
+                "step")
+        results[path] = {"launches": _add(*[r["launches"] for r in ranks]),
+                         "ms_per_step": ms,
+                         "img_per_sec": TRAIN_B / ms * 1e3}
+    return results
+
+
+def mesh_phase(dev: torch.device, state_dict,
+               rng: np.random.Generator) -> dict:
+    """Phase 4k's mesh engine: one fp32 replica a mesh device (every card,
+    or card 0 twice where there is one), B=160 a device, against the
+    one-device engine."""
+    from protopformer_tpu_torch import kernels
+    from protopformer_tpu_torch.parallel import make_mesh
+    from protopformer_tpu_torch.serving import ServingEngine
+
+    ppnet, modes = model_configs()
+    backbone, dtype = modes["fp32_parity"]
+    mesh = make_mesh() if torch.cuda.device_count() >= 2 \
+        else make_mesh([dev, dev])
+    kw = dict(batch_size=B, compute_dtype=dtype, with_attn=True)
+    single = ServingEngine(backbone, ppnet, state_dict, device=dev, **kw)
+    engine = ServingEngine(backbone, ppnet, state_dict, mesh=mesh, **kw)
+    imgs = rng.integers(0, 256, (B * mesh.size + 13, 224, 224, 3),
+                        dtype=np.uint8)
+    kernels.reset_launch_counts()
+    single(imgs[:B])
+    torch.cuda.synchronize()
+    one_chunk = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    engine(imgs[:B * mesh.size])
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    got, want = engine(imgs), single(imgs)
+    err = float(np.abs(got.logits - want.logits).max())
+    same = all(a == b for a, b in zip(top81(got.cls_token_attn),
+                                      top81(want.cls_token_attn)))
+    probe = engine.throughput_probe(n_images=PROBE_IMAGES, reps=3)
+    base = single.throughput_probe(n_images=PROBE_IMAGES, reps=3)
+    log(f"mesh_fp32: {mesh}, B={B} a device; {len(imgs)} images against "
+        f"the one-device engine: logits max abs err {err!r}, same top-81 "
+        f"{same}, same top_class "
+        f"{bool((got.top_class == want.top_class).all())}; launches of a "
+        f"chunk {json.dumps(launches)} (one device's chunk "
+        f"{json.dumps(one_chunk)}); img/s {probe['img_per_sec']!r} "
+        f"(one device {base['img_per_sec']!r}); {nvidia_smi_line()}")
+    require(err <= 1e-5 and same
+            and bool((got.top_class == want.top_class).all()),
+            "mesh_fp32: differs from the one-device engine")
+    require(launches == {k: v * mesh.size for k, v in one_chunk.items()}
+            and one_chunk == expected_launches("fp32_parity", 1),
+            "mesh_fp32: a chunk did not launch each kernel once a device")
+    return {"mesh_fp32": {"launches": launches,
+                          "img_per_sec": probe["img_per_sec"]}}
+
+
+def options_phase(dev: torch.device, state_dict,
+                  rng: np.random.Generator) -> dict:
+    """Phase 4k's serving options in bf16 speed mode at B=160: int8
+    (``quantize="int8"``) and the two LayerNorm statistics options, each
+    against the fp32 engine (phase 5's contract on 2 images, the readings
+    over 160 recorded), with its launches and img/s beside plain bf16
+    speed's; then a ``utils.profiling.trace`` of one int8 chunk."""
+    import dataclasses
+    import tempfile
+
+    from protopformer_tpu_torch import kernels
+    from protopformer_tpu_torch.serving import ServingEngine
+    from protopformer_tpu_torch.utils import profiling
+
+    ppnet, modes = model_configs()
+    speed = modes["bf16_speed"][0]
+    imgs = rng.integers(0, 256, (B, 224, 224, 3), dtype=np.uint8)
+    fp32 = ServingEngine(modes["fp32_parity"][0], ppnet, state_dict,
+                         batch_size=B, compute_dtype=torch.float32,
+                         with_attn=True, device=dev)
+    ref = fp32(imgs)
+    two = ref._replace(logits=ref.logits[:2],
+                       cls_token_attn=ref.cls_token_attn[:2])
+    results = {}
+    for path, overrides in (("bf16_speed_plain", {}),
+                            ("int8_bf16_speed", {"quantize": "int8"}),
+                            ("ln_mxu_bf16_speed", {"ln_stats": "mxu"}),
+                            ("ln_compute_bf16_speed",
+                             {"ln_stats": "compute"})):
+        engine = ServingEngine(dataclasses.replace(speed, **overrides),
+                               ppnet, state_dict, batch_size=B,
+                               compute_dtype=torch.bfloat16, with_attn=True,
+                               device=dev)
+        kernels.reset_launch_counts()
+        got = engine(imgs)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        overlap, worst = selection(got.cls_token_attn, ref.cls_token_attn)
+        probe = engine.throughput_probe(n_images=PROBE_IMAGES, reps=3)
+        log(f"{path}: over {B} images against fp32, top-81 overlap min "
+            f"{min(overlap)} mean {float(np.mean(overlap))!r}, images "
+            f"dropping an fp32 rank below 64: "
+            f"{sum(1 for r in worst if r is not None and r < 64)}; "
+            f"launches {json.dumps(launches)}; img/s "
+            f"{probe['img_per_sec']!r}; {nvidia_smi_line()}")
+        held = bf16_contract(f"{path} vs fp32 (2 images)", got._replace(
+            logits=got.logits[:2], cls_token_attn=got.cls_token_attn[:2]),
+            two)
+        require(held, f"{path}: outside phase 5's contract against fp32")
+        require(launches == expected_launches("bf16_speed", 1),
+                f"{path}: expected the bf16 speed launches")
+        results[path] = {"launches": launches,
+                         "img_per_sec": probe["img_per_sec"]}
+        if overrides.get("quantize") == "int8":
+            log(f"{path}: profile {json.dumps(profile_forward(engine))}")
+            (ROOT / "build").mkdir(exist_ok=True)
+            trace_dir = Path(tempfile.mkdtemp(prefix="trace_",
+                                              dir=ROOT / "build"))
+            chunk = torch.from_numpy(imgs).to(dev)
+            with profiling.trace(str(trace_dir)):
+                with profiling.annotate("ppf_int8_chunk"):
+                    engine._forward(chunk)
+                torch.cuda.synchronize()
+            files = [f for f in trace_dir.iterdir()
+                     if f.name.endswith(".json")]
+            require(len(files) == 1, "profiling.trace wrote no trace file")
+            text = files[0].read_text()
+            log(f"profiling.trace: {files[0].name}, {len(text)} bytes, the "
+                f"annotate span in it {'ppf_int8_chunk' in text}; device "
+                "memory MiB " + json.dumps({
+                    d: {k: round(v, 1) for k, v in s.items()
+                        if k in ("allocated_bytes.all.peak",
+                                 "reserved_bytes.all.current")}
+                    for d, s in profiling.device_memory_stats().items()}))
+            require("ppf_int8_chunk" in text,
+                    "profiling.trace: the annotate span is missing")
+    return results
+
+
+def multi_phase(dev: torch.device, state_dict,
+                rng: np.random.Generator) -> dict:
+    """Phase 4k (see the module docstring)."""
+    t0 = time.perf_counter()
+    results = ddp_phase(dev)
+    log(f"data-parallel training: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    results.update(mesh_phase(dev, state_dict, rng))
+    results.update(options_phase(dev, state_dict, rng))
+    log(f"mesh engine, int8 and LayerNorm options: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return results
+
+
 def main() -> int:
     if not (ROOT / "protopformer_tpu_torch").is_dir():
         print("chip_smoke.py: the protopformer_tpu_torch package is not "
@@ -2641,23 +3023,36 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(offline_phase(dev))
     log(f"offline user path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    multi = multi_phase(dev, state_dict, rng)
+    paths.update(multi)
+    log(f"several cards and serving options: {time.perf_counter() - t0:.1f} s")
 
     # launches of each record's kernel on the paths that run it
     per_record_mode = {
-        "fused_attention_block_stats[speed]": ["bf16_speed"],
+        "fused_attention_block_stats[speed]": [
+            "bf16_speed", "bf16_speed_plain", "int8_bf16_speed",
+            "ln_mxu_bf16_speed", "ln_compute_bf16_speed"],
         "fused_attention_block_stats[exact]": ["bf16_exact", "train_eval",
                                                "cli_train", "cli_eval",
                                                "offline_serve"],
         "fused_attention_mean_padded[fp32,N=197]": ["fp32_parity",
-                                                    "tools_fp32"],
+                                                    "tools_fp32",
+                                                    "mesh_fp32"],
         "fused_attention_mean_padded[bf16,N=82]": ["bf16_speed",
                                                    "bf16_exact",
                                                    "train_eval", "cli_train",
                                                    "cli_eval",
-                                                   "offline_serve"],
-        "fused_map_stats[fp32]": ["fp32_parity", "tools_fp32"],
+                                                   "offline_serve",
+                                                   "bf16_speed_plain",
+                                                   "int8_bf16_speed",
+                                                   "ln_mxu_bf16_speed",
+                                                   "ln_compute_bf16_speed"],
+        "fused_map_stats[fp32]": ["fp32_parity", "tools_fp32", "mesh_fp32"],
         "fused_map_stats[fp32,B=128]": ["train_bf16", "train_fp32",
-                                        "cli_train"],
+                                        "cli_train", *(
+                                            f"ddp_{b}" for b, _ in
+                                            ddp_case_devices())],
         "fused_attention_core[bf16,ones]": ["thresh_bf16_exact"],
         "fused_attention_core[fp32,policy]": ["thresh_fp32"],
         "fused_attention_core[bf16,bench]": ["bench"],
@@ -2731,6 +3126,8 @@ def main() -> int:
     log("train img/s (B=128): " + json.dumps(
         {m: r["img_per_sec"] for m, r in {**trained, **fed}.items()
          if "img_per_sec" in r}))
+    log("phase 4k img/s: " + json.dumps(
+        {m: r["img_per_sec"] for m, r in multi.items()}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
@@ -2741,4 +3138,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        sys.exit(ddp_worker(sys.argv[2:]))
     sys.exit(main())

@@ -8,6 +8,8 @@ against the CUB part annotations; prints one JSON line
 ``{"consistency_score": ...}``. ``--resume`` is as ``cli.visualize``'s.
 The head is the reference's hard-coded one (200 classes, global branch
 on); the model is fp32 on ``--device`` (CUDA unless ``cpu``; TF32 off).
+On ``cuda`` with several cards, and a batch that splits over them,
+``push_forward`` runs one replica a card (``parallel.make_mesh``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import json
 import os
 
 import numpy as np
+import torch
 
 
 def get_args(argv=None):
@@ -55,6 +58,7 @@ def main(argv=None) -> float:
     from protopformer_tpu_torch.data.local_parts import load_cub_parts
     from protopformer_tpu_torch.data.transforms import build_square_transform
     from protopformer_tpu_torch.models import construct_ppnet
+    from protopformer_tpu_torch.parallel import make_mesh
     from protopformer_tpu_torch.tools.eval_interpretability import (
         ConsistencyConfig,
         consistency_score,
@@ -108,6 +112,15 @@ def main(argv=None) -> float:
             pos += int(batch["valid"].sum())
             yield batch
 
+    # push_forward over every card, one replica each, when the default
+    # device has several and the batch splits over them (as the JAX CLI
+    # shards over its devices)
+    mesh = None
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if dev.index is None and cards > 1 and args.batch_size % cards == 0:
+        mesh = make_mesh()
+        logger.info(f"push_forward over {mesh}")
+
     score = consistency_score(
         model, with_positions(), annotations,
         np.asarray(index.image_ids), image_sizes, ppnet_cfg,
@@ -115,6 +128,7 @@ def main(argv=None) -> float:
                           part_thresh=args.part_thresh,
                           img_size=backbone.img_size),
         logger,
+        mesh=mesh,
         host_workers=args.host_workers,
     )
     print(json.dumps({"consistency_score": score}))

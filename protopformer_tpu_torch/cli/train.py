@@ -20,9 +20,25 @@ the epoch is periodic or the best so far).
 ``.pth`` (the model's weights only; ``start_epoch`` follows its ``epoch``),
 or a URL (``file://`` is copied into the cache; ``http(s)://`` must already
 be there, ``checkpoint/pretrained.py``). ``--finetune`` is accepted and
-dead, as in the reference; ``--dist_eval`` is accepted and does nothing
-(one card: the whole eval set is evaluated exactly; several cards are
-ROADMAP.md Queue 1 item 13).
+dead, as in the reference.
+
+Several cards, one process each (``parallel/multihost.py``):
+
+    torchrun --nproc_per_node=W -m protopformer_tpu_torch.cli.train ...
+
+Every rank runs on ``cuda:LOCAL_RANK`` (or ``--device`` as given, with
+an index), joins the group over ``--dist_backend`` (nccl by default;
+gloo for ranks sharing a card or on the CPU), seeds with ``seed + rank``,
+reads its ``shard_index_for_process`` of the train and validation sets
+and trains data-parallel (``make_train_step(distributed=True)``).
+``--batch_size`` is the GLOBAL batch, rounded down to a multiple of W and
+split evenly over the ranks, as the JAX CLI rounds it to its devices (the
+reference gives it per GPU). The evaluation is always the exact full set,
+sharded: the wrapped duplicates of a shard carry ``valid`` 0 and the sums
+are all-reduced, so ``--dist_eval`` changes nothing. Rank 0 logs and
+saves (a barrier on each side of a save); each rank resumes from the
+same file, loaded on the CPU and copied onto its own card. Without
+``WORLD_SIZE`` the CLI runs one process on one card.
 """
 
 from __future__ import annotations
@@ -75,7 +91,10 @@ def get_args_parser() -> argparse.ArgumentParser:
     # model/EMA (ref: main.py:75-90)
     p.add_argument("--model", type=str, default="deit_tiny_patch16_224")
     p.add_argument("--input_size", type=int, default=224)
-    p.add_argument("--batch_size", type=int, default=256)
+    p.add_argument("--batch_size", type=int, default=256,
+                   help="the global batch; under torchrun rounded down to "
+                        "a multiple of the world size and split evenly "
+                        "over the ranks (the reference gives it per GPU)")
     p.add_argument("--epochs", type=int, default=200)
     p.add_argument("--save_ep_freq", type=int, default=400)
     p.add_argument("--drop", type=float, default=0.0)
@@ -129,9 +148,11 @@ def get_args_parser() -> argparse.ArgumentParser:
                         "commented out at :427) — use --pretrained_ckpt "
                         "for backbone weights or --resume for full state")
     p.add_argument("--dist_eval", type=str2bool, default=False,
-                   help="accepted for flag parity (ref: main.py:289-297); "
-                        "one card evaluates the exact full set, so the "
-                        "flag does nothing")
+                   help="accepted for flag parity (ref: main.py:289-297 "
+                        "shards val across ranks, with a padding-bias "
+                        "warning); this build always evaluates the exact "
+                        "full set, sharded over the ranks with a validity "
+                        "mask, so the flag is a no-op")
     p.add_argument("--data_set", default="CUB2011U")
     p.add_argument("--data_path", type=str,
                    default="./datasets/cub200_cropped/")
@@ -156,7 +177,13 @@ def get_args_parser() -> argparse.ArgumentParser:
                         "non-JPEG files")
     p.add_argument("--device", default="cuda",
                    help="where the model runs: cuda (default; raises "
-                        "without a CUDA device) or cpu")
+                        "without a CUDA device; cuda:LOCAL_RANK under "
+                        "torchrun) or cpu")
+    p.add_argument("--dist_backend", default="nccl",
+                   choices=["nccl", "gloo"],
+                   help="the process group's backend under torchrun: nccl "
+                        "(one card a rank) or gloo (ranks sharing a card, "
+                        "or on the CPU)")
     return p
 
 
@@ -284,6 +311,13 @@ def main(args) -> dict:
         build_train_transform,
     )
     from protopformer_tpu_torch.models import construct_ppnet
+    from protopformer_tpu_torch.parallel import (
+        barrier,
+        initialize_multihost,
+        local_rank,
+        process_index,
+        shard_index_for_process,
+    )
     from protopformer_tpu_torch.train import (
         create_train_state,
         evaluate,
@@ -304,14 +338,25 @@ def main(args) -> dict:
             f"or URL (expected a checkpoint root, one epoch's "
             f"checkpoint-<epoch>.pth, a reference .pth, or a URL)"
         )
-    dev = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    distributed = world > 1
+    device = args.device
+    if distributed and device == "cuda":
+        device = f"cuda:{local_rank()}"
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
+    initialize_multihost(num_processes=world, backend=args.dist_backend)
+    rank = process_index()
     out_dir = cfg.train.output_dir
     logger = get_logger("train", os.path.join(out_dir, "train-logs"))
     writer = MetricWriter(out_dir)
-    generator = set_seed(cfg.train.seed, dev)
+    generator = set_seed(cfg.train.seed + rank, dev)
     logger.info(f"device: {dev}"
                 + (f" ({torch.cuda.get_device_name(dev)})"
-                   if dev.type == "cuda" else ""))
+                   if dev.type == "cuda" else "")
+                + (f"; {world} ranks over {args.dist_backend}"
+                   if distributed else ""))
 
     compute_dtype = (torch.bfloat16 if cfg.train.compute_dtype == "bfloat16"
                      else torch.float32)
@@ -343,20 +388,28 @@ def main(args) -> dict:
         else:
             logger.warning("--native_decode requested but libppf_image is "
                            "unavailable; using PIL")
-    train_bs = cfg.data.batch_size
-    train_loader = HostDataLoader(
-        train_index, train_tf, train_bs, shuffle=True,
-        seed=cfg.train.seed, drop_last=True,
-        num_workers=cfg.data.num_workers, path_transform=train_path_tf,
-    )
-    # val batch = 1.5x train batch (ref: main.py:312)
-    val_loader = HostDataLoader(
-        val_index, eval_tf, int(1.5 * cfg.data.batch_size),
-        shuffle=False, seed=cfg.train.seed,
-        num_workers=cfg.data.num_workers, path_transform=eval_path_tf,
-    )
     logger.info(
         f"train: {len(train_index)} samples / val: {len(val_index)} samples"
+    )
+    if distributed:
+        train_index = shard_index_for_process(train_index)
+        val_index = shard_index_for_process(val_index)
+
+    def _round_to_ranks(bs: int) -> int:
+        return max(world, (bs // world) * world)
+
+    train_bs = _round_to_ranks(cfg.data.batch_size)
+    train_loader = HostDataLoader(
+        train_index, train_tf, train_bs // world, shuffle=True,
+        seed=cfg.train.seed + rank, drop_last=True,
+        num_workers=cfg.data.num_workers, path_transform=train_path_tf,
+    )
+    # val batch = 1.5x train batch (ref: main.py:312), split over the ranks
+    val_loader = HostDataLoader(
+        val_index, eval_tf,
+        _round_to_ranks(int(1.5 * cfg.data.batch_size)) // world,
+        shuffle=False, seed=cfg.train.seed + rank,
+        num_workers=cfg.data.num_workers, path_transform=eval_path_tf,
     )
 
     if args.pretrained_ckpt:
@@ -377,10 +430,14 @@ def main(args) -> dict:
             prob=cfg.data.mixup_prob, switch_prob=cfg.data.mixup_switch_prob,
             label_smoothing=smoothing, num_classes=cfg.ppnet.num_classes,
         )
+    # every rank mixes its own rows under one lambda (ROADMAP F11)
     train_step = make_train_step(model, cfg.ppnet, cfg.optim,
                                  smoothing=0.0 if mixup else smoothing,
-                                 mixup=mixup, device=dev)
-    eval_step = make_eval_step(cfg.ppnet.use_global, device=dev)
+                                 mixup=mixup, device=dev,
+                                 distributed=distributed,
+                                 mixup_seed=cfg.train.seed)
+    eval_step = make_eval_step(cfg.ppnet.use_global, device=dev,
+                               distributed=distributed)
 
     if args.finetune:
         logger.warning(
@@ -409,8 +466,11 @@ def main(args) -> dict:
         else:
             resume_mgr, epoch_arg = ((ckpt_mgr, None) if resume in _OWN_ROOT
                                      else manager_for(resume))
-            state, meta = resume_mgr.restore(state, epoch=epoch_arg,
-                                             generator=generator)
+            # the file holds rank 0's generator; the other ranks keep
+            # their own seed + rank streams
+            state, meta = resume_mgr.restore(
+                state, epoch=epoch_arg,
+                generator=generator if rank == 0 else None)
             start_epoch = int(meta.get("epoch", -1)) + 1
             logger.info(f"resumed from epoch {start_epoch - 1} ({resume})")
 
@@ -419,8 +479,10 @@ def main(args) -> dict:
                       else state.model)
         stats = evaluate(eval_step, eval_model, val_loader, logger,
                          cfg.ppnet.use_global)
-        print(json.dumps(stats))
+        if rank == 0:
+            print(json.dumps(stats))
         writer.close()
+        _leave(distributed)
         return stats
 
     best_acc = 0.0
@@ -455,11 +517,14 @@ def main(args) -> dict:
         save_s = None
         if periodic or is_best:
             t_save = time.perf_counter()
-            ckpt_mgr.save(
-                epoch, state,
-                {"val_acc1": val_stats["acc1"], "best": is_best},
-                generator=generator, args=vars(args),
-            )
+            barrier()
+            if rank == 0:
+                ckpt_mgr.save(
+                    epoch, state,
+                    {"val_acc1": val_stats["acc1"], "best": is_best},
+                    generator=generator, args=vars(args),
+                )
+            barrier()
             save_s = time.perf_counter() - t_save
         epoch_stats.append({"epoch": epoch, "train_seconds": train_s,
                             "img_per_sec": img_per_sec,
@@ -471,7 +536,13 @@ def main(args) -> dict:
             + (f" saved in {save_s:.3f}s" if save_s is not None else "")
         )
     writer.close()
+    _leave(distributed)
     return {"best_acc1": best_acc, "epochs": epoch_stats}
+
+
+def _leave(distributed: bool) -> None:
+    if distributed:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -7,7 +7,6 @@ from protopformer_tpu_torch.core.config import (
     PPNetConfig,
     TrainConfig,
     backbone_preset,
-    check_ported,
 )
 
 __all__ = [
@@ -19,5 +18,4 @@ __all__ = [
     "PPNetConfig",
     "TrainConfig",
     "backbone_preset",
-    "check_ported",
 ]

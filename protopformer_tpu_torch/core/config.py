@@ -9,11 +9,15 @@ and whose plain PyTorch versions run on CPU tensors. ``"off"`` selects the
 JAX package's kernel-off structure (``models/deit.py``): a configuration
 the caller asks for, never a fallback.
 
-Values the port does not implement (the XLA lowering choices and int8
-serving) are rejected by ``check_ported`` with the ``ROADMAP.md`` item
-that names them. ``use_pallas`` selects the structure of an eval forward
-only: a module in training mode always runs the differentiable plain
-attention, as the JAX package's kernel gate requires ``deterministic``.
+Every value is accepted. ``quantize="int8"`` runs the blocks' products
+int8 (``ops/quant.py``), ``ln_stats`` "compute"/"mxu" their LayerNorms
+with compute-dtype or product statistics in bf16, and
+``patch_embed="matmul"`` the patch projection as an unfold and one
+product. The four ``attn_impl`` values name XLA lowerings of one
+attention; the port runs its own single implementation for each.
+``use_pallas`` selects the structure of an eval forward only: a module in
+training mode always runs the differentiable plain attention, as the JAX
+package's kernel gate requires ``deterministic``.
 """
 
 from __future__ import annotations
@@ -214,31 +218,6 @@ class PPNetConfig:
     @property
     def final_reserve_num(self) -> int:
         return self.reserve_token_nums[-1]
-
-
-# (field, value that is ported) -> the ROADMAP.md item that ports the rest
-_NOT_PORTED = (
-    ("attn_impl", "headloop",
-     "Queue 1 item 14 (non-headloop attn_impl is an XLA lowering choice)"),
-    ("patch_embed", "conv",
-     "Queue 1 item 14 (patch_embed='matmul' is an XLA lowering choice)"),
-    ("ln_stats", "fp32",
-     "Queue 1 item 14 (ln_stats compute/mxu are XLA lowering choices)"),
-    ("quantize", "off", "Queue 1 item 14 (int8 serving)"),
-)
-
-
-def check_ported(backbone: BackboneConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration value the port
-    does not implement, naming the ROADMAP.md item (every PPNet value is
-    ported)."""
-    for name, ported, item in _NOT_PORTED:
-        value = getattr(backbone, name)
-        if value != ported:
-            raise NotImplementedError(
-                f"BackboneConfig.{name}={value!r} is not ported yet: "
-                f"ROADMAP.md {item}"
-            )
 
 
 @dataclass(frozen=True)

@@ -53,6 +53,9 @@ class DatasetIndex:
     # time (Dogs cropped=True mode — one SAMPLE per annotated box, matching
     # the reference's flattened breed_annotations, tools/datasets.py:695-701)
     crop_boxes: Optional[np.ndarray] = None  # (N, 4) int32
+    # 0 marks a sample repeated to even out a per-process shard
+    # (parallel.shard_index_for_process): an evaluation counts it 0 times
+    valid: Optional[np.ndarray] = None  # (N,) float32
 
     def __len__(self) -> int:
         return len(self.labels)

@@ -15,8 +15,10 @@ as the JAX package's loader, batch for batch:
   * the last eval batch is padded to the static batch shape with a
     ``valid`` mask instead of a shape-changing remainder batch;
   * a sample that the native path transform cannot decode falls back to
-    PIL (a host fallback of the JAX package's own), warning once.
-Batches over several cards (``mesh=``) are ROADMAP.md Queue 1 item 13.
+    PIL (a host fallback of the JAX package's own), warning once;
+  * ``valid`` is 0 on padding and on the samples an index marks invalid
+    (the wrapped duplicates of a per-process shard);
+  * with ``mesh=`` each batch comes split over the mesh's devices.
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ def _load_image(index: DatasetIndex, i: int):
 
 class HostDataLoader:
     """Iterable over batches: dicts {'image': (B, H, W, 3) f32, 'label':
-    (B,) i32, 'valid': (B,) f32} of numpy arrays.
+    (B,) i32, 'valid': (B,) f32} of numpy arrays, or with ``mesh`` a list
+    of such dicts of tensors, one a mesh device.
     """
 
     def __init__(
@@ -67,13 +70,16 @@ class HostDataLoader:
         that decodes straight from the file (the native C++ pipeline,
         data/native.py). Used instead of PIL ``transform`` for path-backed
         samples; falls back to PIL per-sample on decode errors (non-JPEG
-        files), warning once. ``mesh``: batches sharded over several cards,
-        not ported yet (raises)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "HostDataLoader(mesh=...) is not ported yet: ROADMAP.md "
-                "Queue 1 item 13 (multi-GPU)"
+        files), warning once. ``mesh``: a ``parallel.Mesh``; each batch is
+        then yielded split over it (``parallel.shard_batch``: one dict of
+        tensors a device, contiguous rows), so ``batch_size`` must divide
+        by ``mesh.size``."""
+        if mesh is not None and batch_size % mesh.size:
+            raise ValueError(
+                f"batch_size {batch_size} does not split over a mesh of "
+                f"{mesh.size} devices"
             )
+        self.mesh = mesh
         self.index = index
         self.transform = transform
         self.batch_size = batch_size
@@ -138,7 +144,8 @@ class HostDataLoader:
         labels = np.zeros((B,), np.int32)
         labels[: len(ids)] = self.index.labels[ids]
         valid = np.zeros((B,), np.float32)
-        valid[: len(ids)] = 1.0
+        valid[: len(ids)] = (1.0 if self.index.valid is None
+                             else self.index.valid[ids])
         return {"image": images, "label": labels, "valid": valid}
 
     def __iter__(self) -> Iterator[Dict]:
@@ -154,7 +161,15 @@ class HostDataLoader:
                         ids = order[
                             b * self.batch_size:(b + 1) * self.batch_size
                         ]
-                        out_q.put(self._make_batch(ids, pool))
+                        batch = self._make_batch(ids, pool)
+                        if self.mesh is not None:
+                            # imported here, as the JAX loader does, so
+                            # that the data layer stays below parallel/
+                            from protopformer_tpu_torch.parallel import (
+                                shard_batch,
+                            )
+                            batch = shard_batch(batch, self.mesh)
+                        out_q.put(batch)
                 out_q.put(sentinel)
             except BaseException as e:  # surface in the consumer thread
                 out_q.put(e)

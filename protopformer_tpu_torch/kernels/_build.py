@@ -14,6 +14,7 @@ module without ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,7 +23,9 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -161,6 +164,18 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_longlong if name in _LONG_RESULTS else _INT
         _LIB = lib
     return _LIB
+
+
+@contextlib.contextmanager
+def on_device(device: torch.device) -> Iterator[int]:
+    """Make ``device`` the thread's current CUDA device for a launch, and
+    yield the handle of its current stream. The launchers set their
+    kernels' attributes and launch through the CUDA runtime, which acts on
+    the current device: a replica's tensors on another card than the
+    current one would otherwise be launched onto a stream of another
+    device, which CUDA rejects."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
 
 
 def check_launch(name: str, code: int) -> None:

@@ -141,12 +141,13 @@ def block_stats_cuda(qkv: torch.Tensor, num_heads: int, keep: int,
     s = torch.empty((B, N), dtype=torch.float32, device=dev)
     scratch = _scratch(lib, "ppf_attention_block_stats_scratch_bytes", B, N, hd,
                        device=dev)
-    code = lib.ppf_attention_block_stats(
-        qkv.data_ptr(), B, N, C, num_heads, keep, int(exact_discard),
-        _bf16_value(hd ** -0.5), _bf16_value(SOFTMAX_EPS / N),
-        out.data_ptr(), fmap.data_ptr(), t.data_ptr(), s.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream, _ptr(scratch),
-    )
+    with _build.on_device(dev) as stream:
+        code = lib.ppf_attention_block_stats(
+            qkv.data_ptr(), B, N, C, num_heads, keep, int(exact_discard),
+            _bf16_value(hd ** -0.5), _bf16_value(SOFTMAX_EPS / N),
+            out.data_ptr(), fmap.data_ptr(), t.data_ptr(), s.data_ptr(),
+            stream, _ptr(scratch),
+        )
     _build.check_launch("attention_block_stats", code)
     block_stats_cuda.launches += 1
     return out, fmap, t, s
@@ -248,12 +249,13 @@ def mean_padded_cuda(qkv: torch.Tensor, policy: torch.Tensor, num_heads: int,
     fmap = torch.empty((B, NP, NP), dtype=torch.float32, device=dev)
     scratch = _scratch(lib, "ppf_attention_mean_scratch_bytes", B, NP,
                        C // num_heads, int(is_bf16), device=dev)
-    code = lib.ppf_attention_mean(
-        qkv.data_ptr(), pol.data_ptr(), B, NP, C, num_heads, real_n,
-        int(is_bf16), (C // num_heads) ** -0.5, SOFTMAX_EPS / real_n,
-        out.data_ptr(), fmap.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream, _ptr(scratch),
-    )
+    with _build.on_device(dev) as stream:
+        code = lib.ppf_attention_mean(
+            qkv.data_ptr(), pol.data_ptr(), B, NP, C, num_heads, real_n,
+            int(is_bf16), (C // num_heads) ** -0.5, SOFTMAX_EPS / real_n,
+            out.data_ptr(), fmap.data_ptr(),
+            stream, _ptr(scratch),
+        )
     _build.check_launch("attention_mean", code)
     mean_padded_cuda.launches += 1
     return out, fmap
@@ -343,13 +345,14 @@ def _core_launch(name: str, qkv: torch.Tensor, policy, num_heads: int,
     fmap = torch.empty((B, NP, NP), dtype=torch.float32, device=dev)
     scratch = _scratch(lib, "ppf_attention_mean_scratch_bytes", B, NP, hd,
                        int(is_bf16), device=dev)
-    code = lib.ppf_attention_core(
-        qkv.data_ptr(), _ptr(pol), B, NP, C,
-        num_heads, real_n, keep, int(is_bf16),
-        hd ** -0.5, SOFTMAX_EPS / real_n, identity_weight,
-        1.0 + identity_weight, out.data_ptr(), fmap.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream, _ptr(scratch),
-    )
+    with _build.on_device(dev) as stream:
+        code = lib.ppf_attention_core(
+            qkv.data_ptr(), _ptr(pol), B, NP, C,
+            num_heads, real_n, keep, int(is_bf16),
+            hd ** -0.5, SOFTMAX_EPS / real_n, identity_weight,
+            1.0 + identity_weight, out.data_ptr(), fmap.data_ptr(),
+            stream, _ptr(scratch),
+        )
     _build.check_launch(name, code)
     return out, fmap
 

@@ -105,11 +105,11 @@ def map_stats_cuda(fmap: torch.Tensor, keep: int, prefix16: bool
     lib = _build.library()
     t = torch.empty(B, dtype=torch.float32, device=fmap.device)
     s = torch.empty((B, N), dtype=torch.float32, device=fmap.device)
-    stream = torch.cuda.current_stream(fmap.device).cuda_stream
-    code = lib.ppf_map_stats(
-        fmap.data_ptr(), int(fmap.dtype == torch.bfloat16), B, N, keep,
-        int(prefix16), t.data_ptr(), s.data_ptr(), stream,
-    )
+    with _build.on_device(fmap.device) as stream:
+        code = lib.ppf_map_stats(
+            fmap.data_ptr(), int(fmap.dtype == torch.bfloat16), B, N, keep,
+            int(prefix16), t.data_ptr(), s.data_ptr(), stream,
+        )
     _build.check_launch("map_stats", code)
     map_stats_cuda.launches += 1
     return t, s

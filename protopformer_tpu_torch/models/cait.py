@@ -27,7 +27,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from protopformer_tpu_torch.core.config import BackboneConfig, check_ported
+from protopformer_tpu_torch.core.config import BackboneConfig
 from protopformer_tpu_torch.models.layers import (
     Generator,
     LayerScaleBlock,
@@ -52,13 +52,13 @@ class CaiTBackbone(nn.Module):
     def __init__(self, config: BackboneConfig,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        check_ported(config)
         cfg = config
         self.config = cfg
         self.compute_dtype = compute_dtype
         D = cfg.embed_dim
         self.patch_embed = PatchEmbed(
-            cfg.patch_size, cfg.in_chans, D, dtype=compute_dtype
+            cfg.patch_size, cfg.in_chans, D, dtype=compute_dtype,
+            impl=cfg.patch_embed,
         )
         self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
         # the position embedding covers the patches only

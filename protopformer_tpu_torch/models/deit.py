@@ -38,7 +38,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from protopformer_tpu_torch.core.config import BackboneConfig, check_ported
+from protopformer_tpu_torch.core.config import BackboneConfig
 from protopformer_tpu_torch.core.device import resolve_device
 from protopformer_tpu_torch.kernels.stats import fused_map_stats
 from protopformer_tpu_torch.models.layers import (
@@ -87,13 +87,13 @@ class DeiTBackbone(nn.Module):
     def __init__(self, config: BackboneConfig,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        check_ported(config)
         cfg = config
         self.config = cfg
         self.compute_dtype = compute_dtype
         D = cfg.embed_dim
         self.patch_embed = PatchEmbed(
-            cfg.patch_size, cfg.in_chans, D, dtype=compute_dtype
+            cfg.patch_size, cfg.in_chans, D, dtype=compute_dtype,
+            impl=cfg.patch_embed,
         )
         self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches + 1, D))
@@ -105,7 +105,8 @@ class DeiTBackbone(nn.Module):
         self.blocks = nn.ModuleList([
             Block(D, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
                   cfg.layer_norm_eps, compute_dtype, rollout, cfg.drop_rate,
-                  dpr[i], cfg.rollout_head_fusion, cfg.use_pallas != "off")
+                  dpr[i], cfg.rollout_head_fusion, cfg.use_pallas != "off",
+                  quant=cfg.quantize == "int8", ln_stats=cfg.ln_stats)
             for i in range(cfg.depth)
         ])
         self.norm = nn.LayerNorm(D, eps=cfg.layer_norm_eps)
@@ -304,13 +305,13 @@ class DistilledDeiT(nn.Module):
     def __init__(self, config: BackboneConfig, num_classes: int = 1000,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        check_ported(config)
         cfg = config
         self.config = cfg
         self.compute_dtype = compute_dtype
         D = cfg.embed_dim
         self.patch_embed = PatchEmbed(
-            cfg.patch_size, cfg.in_chans, D, dtype=compute_dtype
+            cfg.patch_size, cfg.in_chans, D, dtype=compute_dtype,
+            impl=cfg.patch_embed,
         )
         self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
         self.dist_token = nn.Parameter(torch.zeros(1, 1, D))

@@ -5,7 +5,12 @@ Module and parameter names follow the reference PyTorch layout
 (``patch_embed.proj``, ``blocks.{i}.norm1``, ``attn.qkv``, ``attn.proj``,
 ``mlp.fc1``, ``mlp.fc2``), so a reference state dict loads with
 ``strict=True``. Parameters stay fp32; each product runs in the compute
-dtype (bf16 speed or fp32 parity), LayerNorm statistics are fp32.
+dtype (bf16 speed or fp32 parity), LayerNorm statistics are fp32. The
+configuration's other choices keep those keys: ``QuantDense`` runs a
+block's four products int8 (``quantize="int8"``), ``FastLayerNorm`` and
+``MxuLayerNorm`` take a bf16 block's LayerNorm statistics in the compute
+dtype or as products with a 1/C vector (``ln_stats``), and ``PatchEmbed``
+states the patch conv as an unfold and one product (``patch_embed``).
 
 In eval mode, with a policy and the kernels on, ``Attention`` is the
 kernel-on structure of the JAX package (``layers.py:418-465``):
@@ -64,24 +69,102 @@ from protopformer_tpu_torch.ops.masking import (
     eps_softmax,
     softmax_with_policy,
 )
+from protopformer_tpu_torch.ops.quant import int8_matmul
 from protopformer_tpu_torch.ops.rollout import _fuse_heads, normalize_attention_map
 
 Policy = Union[str, torch.Tensor]
 Generator = Optional[torch.Generator]
 
 
+class QuantDense(nn.Linear):
+    """A ``Linear`` whose product runs on the int8 path (``ops/quant.py``):
+    the same ``weight``/``bias`` parameters and state-dict keys, fp32; only
+    the serving product is quantized (weights per column, activations per
+    row, both dynamic). The fp32 result plus the fp32 bias is cast to the
+    compute dtype. It has no backward (an int8 product)."""
+
+    def int8(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or self.weight.requires_grad):
+            raise RuntimeError(
+                "quantize='int8' is a serving mode: its int8 product has no "
+                "backward; run it under torch.no_grad()/inference_mode()"
+            )
+        y = int8_matmul(x.to(dtype), self.weight.t())
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(dtype)
+
+
+def linear(dim_in: int, dim_out: int, quant: bool = False, bias: bool = True
+           ) -> nn.Linear:
+    """``QuantDense`` under int8 serving, else ``nn.Linear``."""
+    return (QuantDense if quant else nn.Linear)(dim_in, dim_out, bias=bias)
+
+
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """``layer(x)`` with input, weight and bias in ``dtype``."""
+    """``layer(x)`` with input, weight and bias in ``dtype`` (a
+    ``QuantDense`` runs its int8 product)."""
+    if isinstance(layer, QuantDense):
+        return layer.int8(x, dtype)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
+class FastLayerNorm(nn.LayerNorm):
+    """LayerNorm with compute-dtype statistics (the JAX package's
+    ``ln_stats="compute"``): the mean and E[x^2] of x in the compute dtype,
+    each a mean rounded once to that dtype, then the variance, rsqrt,
+    normalize and affine in it. ``nn.LayerNorm``'s parameters and keys."""
+
+    def stats_norm(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        xs = x.to(dtype)
+        mu = xs.float().mean(dim=-1, keepdim=True).to(dtype)
+        msq = (xs * xs).float().mean(dim=-1, keepdim=True).to(dtype)
+        inv = torch.rsqrt(msq - mu * mu + torch.tensor(self.eps, dtype=dtype))
+        y = (xs - mu) * inv
+        return y * self.weight.to(dtype) + self.bias.to(dtype)
+
+
+class MxuLayerNorm(nn.LayerNorm):
+    """LayerNorm whose statistics are products with a 1/C vector (the JAX
+    package's ``ln_stats="mxu"``): mean and E[x^2] as fp32-accumulated sums
+    of x and of x*x (both in the compute dtype) times 1/C rounded to the
+    compute dtype; variance and rsqrt in fp32; the mean and inverse rounded
+    to the compute dtype for the normalize and affine.
+    ``nn.LayerNorm``'s parameters and keys."""
+
+    def stats_norm(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        xs = x.to(dtype)
+        w = float(torch.tensor(1.0 / xs.shape[-1], dtype=dtype))
+        mu = (xs.float() * w).sum(dim=-1, keepdim=True)
+        msq = ((xs * xs).float() * w).sum(dim=-1, keepdim=True)
+        inv = torch.rsqrt(msq - mu * mu + self.eps)
+        y = (xs - mu.to(dtype)) * inv.to(dtype)
+        return y * self.weight.to(dtype) + self.bias.to(dtype)
+
+
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype: torch.dtype
                ) -> torch.Tensor:
-    """LayerNorm with fp32 statistics and fp32 affine, output in ``dtype``."""
+    """LayerNorm with fp32 statistics and fp32 affine, output in ``dtype``
+    (a ``FastLayerNorm``/``MxuLayerNorm`` takes its own statistics)."""
+    if isinstance(norm, (FastLayerNorm, MxuLayerNorm)):
+        return norm.stats_norm(x, dtype)
     return F.layer_norm(
         x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps
     ).to(dtype)
+
+
+def block_norm(dim: int, eps: float, ln_stats: str, dtype: torch.dtype
+               ) -> nn.LayerNorm:
+    """A block's LayerNorm as the JAX package's ``Block`` picks it: the
+    compute-dtype or product statistics only when ``ln_stats`` asks for
+    them and the compute dtype is not fp32."""
+    if dtype != torch.float32 and ln_stats == "compute":
+        return FastLayerNorm(dim, eps=eps)
+    if dtype != torch.float32 and ln_stats == "mxu":
+        return MxuLayerNorm(dim, eps=eps)
+    return nn.LayerNorm(dim, eps=eps)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Generator,
@@ -151,18 +234,32 @@ class DropPath(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    """NHWC image -> (B, N, D) patch tokens by a strided conv."""
+    """NHWC image -> (B, N, D) patch tokens by a strided conv, or with
+    ``impl="matmul"`` (the JAX package's ``_PatchProj``) by the same
+    function stated as an unfold and one product over the conv's own
+    parameters, ordered (kh, kw, in)."""
 
     def __init__(self, patch_size: int, in_chans: int, embed_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, impl: str = "conv"):
         super().__init__()
         self.dtype = dtype
+        self.impl = impl
         self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, patch_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        dt = self.dtype
+        if self.impl == "matmul":
+            B, H, W, C = x.shape
+            p = self.proj.stride[0]
+            gh, gw = H // p, W // p
+            patches = x.reshape(B, gh, p, gw, p, C).permute(
+                0, 1, 3, 2, 4, 5).reshape(B, gh * gw, p * p * C)
+            w = self.proj.weight.permute(2, 3, 1, 0).reshape(p * p * C, -1)
+            return torch.matmul(patches.to(dt), w.to(dt)) \
+                + self.proj.bias.to(dt)
+        x = x.permute(0, 3, 1, 2).to(dt)
         y = F.conv2d(
-            x, self.proj.weight.to(self.dtype), self.proj.bias.to(self.dtype),
+            x, self.proj.weight.to(dt), self.proj.bias.to(dt),
             stride=self.proj.stride,
         )
         return y.flatten(2).transpose(1, 2)
@@ -173,12 +270,12 @@ class Mlp(nn.Module):
     product followed by dropout in training mode."""
 
     def __init__(self, dim: int, hidden: int, dtype: torch.dtype,
-                 drop_rate: float = 0.0):
+                 drop_rate: float = 0.0, quant: bool = False):
         super().__init__()
         self.dtype = dtype
         self.drop_rate = drop_rate
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = linear(dim, hidden, quant)
+        self.fc2 = linear(hidden, dim, quant)
 
     def forward(self, x: torch.Tensor, generator: Generator = None
                 ) -> torch.Tensor:
@@ -202,12 +299,13 @@ class Attention(nn.Module):
         per-head probabilities, which the consumer fuses.
       kernels: the eval forward takes the kernel structure (``use_pallas``
         "on"/"auto" under "mean" fusion); else the headloop.
+      quant: ``qkv`` and ``proj`` are ``QuantDense`` (int8 serving).
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool,
                  dtype: torch.dtype, rollout: Tuple[float, float, bool],
                  drop_rate: float = 0.0, head_fusion: str = "mean",
-                 kernels: bool = True):
+                 kernels: bool = True, quant: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
@@ -215,8 +313,8 @@ class Attention(nn.Module):
         self.drop_rate = drop_rate
         self.head_fusion = head_fusion
         self.kernels = kernels and head_fusion == "mean"
-        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = linear(dim, dim * 3, quant, bias=qkv_bias)
+        self.proj = linear(dim, dim, quant)
 
     def forward(self, x: torch.Tensor, policy: Policy, tap: bool = True,
                 normalized: bool = False, generator: Generator = None):
@@ -314,20 +412,23 @@ class Attention(nn.Module):
 
 class Block(nn.Module):
     """Pre-LN transformer block returning (x, attention aux); in training
-    mode each residual branch goes through ``DropPath(drop_path)``."""
+    mode each residual branch goes through ``DropPath(drop_path)``.
+    ``quant``: its four products run int8 (``QuantDense``); ``ln_stats``:
+    its two LayerNorms as ``block_norm`` picks them."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  qkv_bias: bool, layer_norm_eps: float, dtype: torch.dtype,
                  rollout: Tuple[float, float, bool], drop_rate: float = 0.0,
                  drop_path: float = 0.0, head_fusion: str = "mean",
-                 kernels: bool = True):
+                 kernels: bool = True, quant: bool = False,
+                 ln_stats: str = "fp32"):
         super().__init__()
         self.dtype = dtype
-        self.norm1 = nn.LayerNorm(dim, eps=layer_norm_eps)
+        self.norm1 = block_norm(dim, layer_norm_eps, ln_stats, dtype)
         self.attn = Attention(dim, num_heads, qkv_bias, dtype, rollout,
-                              drop_rate, head_fusion, kernels)
-        self.norm2 = nn.LayerNorm(dim, eps=layer_norm_eps)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, drop_rate)
+                              drop_rate, head_fusion, kernels, quant)
+        self.norm2 = block_norm(dim, layer_norm_eps, ln_stats, dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, drop_rate, quant)
         self.drop_path1 = DropPath(drop_path)
         self.drop_path2 = DropPath(drop_path)
 

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from protopformer_tpu_torch.data.local_parts import CubPartAnnotations
+from protopformer_tpu_torch.parallel.mesh import replicate, shard_batch
 from protopformer_tpu_torch.tools.visualize import (
     push,
     scatter_activations_to_grid,
@@ -125,33 +126,40 @@ def consistency_score(
         are skipped).
       image_ids: dataset-native CUB ids aligned with loader order.
       image_sizes: id -> (width, height) of the ORIGINAL image.
-      mesh: the forward sharded over several cards: not ported yet
-        (raises).
+      mesh: a ``parallel.Mesh``: one replica of ``model`` a mesh device,
+        each running ``push_forward`` on its contiguous slice of the batch
+        (the batch must split evenly), as the JAX package shards the batch
+        on its mesh's data axis; the hit counts equal one device's.
       host_workers: thread-pool width for the host matching (0 = inline).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "consistency_score(mesh=...) is not ported yet: ROADMAP.md "
-            "Queue 1 item 13 (multi-GPU)"
-        )
     cfg = cfg or ConsistencyConfig()
     ppc = ppnet_cfg.num_prototypes_per_class
     P = ppnet_cfg.num_prototypes
-    dev = next(model.parameters()).device
+    replicas = None if mesh is None else replicate(model, mesh)
 
     # the label's ppc maps gathered on the device: fetching the full
     # (B, P, k, k) tensor costs ~166 MB a batch at B=256, P=2000; the
     # gather is a bit-neutral reorder of the reference's host-side select
     # (ref :198-202), (B, ppc, k, k) ~ 0.8 MB
-    def dispatch(images, labels):
+    def dispatch_one(net, images, labels):
+        dev = next(net.parameters()).device
         with torch.inference_mode():
-            out = push(model, images)
-            lab = torch.as_tensor(np.asarray(labels), device=dev).long()
+            out = push(net, images)
+            lab = torch.as_tensor(labels, device=dev).long()
             idx = lab[:, None] * ppc + torch.arange(ppc, device=dev)[None, :]
             k = out.proto_acts.shape[-1]
             sel = out.proto_acts.gather(
                 1, idx[:, :, None, None].expand(-1, -1, k, k))
         return out.cls_token_attn, sel
+
+    def dispatch(images, labels):
+        """[(cls_attn, sel)] a replica, in batch order."""
+        labels = np.asarray(labels)
+        if mesh is None:
+            return [dispatch_one(model, images, labels)]
+        return [dispatch_one(net, part["image"], part["label"])
+                for net, part in zip(replicas, shard_batch(
+                    {"image": images, "label": labels}, mesh))]
 
     # per-prototype accumulators
     hit_sum = np.zeros((P, cfg.num_parts), np.float64)
@@ -162,10 +170,11 @@ def consistency_score(
     pending: List[Tuple[int, "cf.Future"]] = []
     seen = 0
 
-    def match_batch(out, batch):
+    def match_batch(outs, batch):
         nonlocal seen
-        cls_attn = out[0].float().cpu().numpy()
-        sel = out[1].float().cpu().numpy()  # (B, ppc, k, k)
+        cls_attn = np.concatenate([o[0].float().cpu().numpy() for o in outs])
+        sel = np.concatenate(  # (B, ppc, k, k)
+            [o[1].float().cpu().numpy() for o in outs])
         labels = np.asarray(batch["label"])
         valid = np.asarray(batch.get("valid", np.ones(labels.shape[0])))
         pos = np.asarray(batch["position"])

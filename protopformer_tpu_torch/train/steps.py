@@ -11,6 +11,19 @@ the model's compute dtype. An fp32 model on CUDA runs with TF32 off
 Both factories run on CUDA unless the caller passes ``device="cpu"``; with
 no CUDA device the default raises. Metrics come back as 0-d device tensors
 that are not synchronized: the loop fetches them once per window.
+
+``distributed=True`` is the data-parallel step (the JAX package's
+``mesh=``), one process a card in a ``torch.distributed`` group
+(``parallel/multihost.py``): each rank feeds its own contiguous rows of
+the global batch, the model runs inside ``DistributedDataParallel`` (the
+EMA copy and the frozen heads do not: they take no gradient), the
+gradients are averaged by its all-reduce before the clip and the update,
+and the step's metrics are all-reduced to the global batch's means, so
+every rank returns the same values. No trainable parameter of a PPNet is
+left without a gradient by any configuration (``use_global``, PPC, DeiT or
+CaiT), so ``find_unused_parameters`` stays off. Dropout and drop path draw
+from each rank's own generator (seeded ``seed + rank``), so they cannot
+match a one-process step bit for bit. The eval step all-reduces its sums.
 """
 
 from __future__ import annotations
@@ -19,6 +32,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from protopformer_tpu_torch.core.config import OptimConfig, PPNetConfig
@@ -53,6 +67,18 @@ def _to(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x).to(device, non_blocking=True)
 
 
+def _all_reduce(metrics: Dict[str, torch.Tensor], mean: bool
+                ) -> Dict[str, torch.Tensor]:
+    """Sum (or average) each 0-d metric over the process group, in one
+    collective."""
+    names = list(metrics)
+    flat = torch.stack([metrics[k].detach().float() for k in names])
+    dist.all_reduce(flat)
+    if mean:
+        flat = flat / dist.get_world_size()
+    return dict(zip(names, flat.unbind()))
+
+
 def make_train_step(
     model,
     ppnet_cfg: Optional[PPNetConfig],
@@ -61,8 +87,11 @@ def make_train_step(
     mixup=None,
     normalize: bool = True,
     device="cuda",
+    distributed: bool = False,
+    mixup_seed: Optional[int] = None,
 ) -> Callable:
-    """Build the train step for ``model`` (the train state's model).
+    """Build the train step for ``model`` (the train state's model, already
+    on ``device``).
 
     The returned function is ``(state, batch {'image': (B, H, W, 3) in
     [0, 1], 'label': (B,) or (B, cls)}, generator, ppc_gate) -> (state,
@@ -73,22 +102,36 @@ def make_train_step(
     ``mixup``: an optional ``data.mixup.MixupCutmix`` applied on the device
     inside the step, to the raw images before the normalize (the JAX
     step's order). Its scalar draws at step s come from the host generator
-    ``np.random.default_rng((generator.initial_seed(), s, 7))``, as the
-    JAX step folds 7 into its step key; the labels become soft (B, cls).
+    ``np.random.default_rng((mixup_seed, s, 7))``, as the JAX step folds 7
+    into its step key (``mixup_seed`` defaults to the generator's initial
+    seed); the labels become soft (B, cls). Each rank of a data-parallel
+    step mixes its own rows (row i with its row b-1-i), as the reference's
+    timm Mixup does under DDP; the ranks pass one ``mixup_seed`` so that
+    they share lambda and the box (ROADMAP F11).
+
+    ``distributed``: the data-parallel step of the module docstring; the
+    process group must be up.
     """
     if mixup is not None and not isinstance(mixup, MixupCutmix):
         raise TypeError(f"mixup must be a MixupCutmix, got {type(mixup)}")
     dev = resolve_device(device)
     use_ppc = ppnet_cfg is not None and ppnet_cfg.use_ppc_loss
     ema_decay = optim_cfg.model_ema_decay if optim_cfg.model_ema else None
+    ddp = None
+    if distributed:
+        from torch.nn.parallel import DistributedDataParallel
+
+        ddp = DistributedDataParallel(
+            model, device_ids=[dev] if dev.type == "cuda" else None)
 
     def train_step(state: TrainState, batch, generator, ppc_gate):
         images = _to(batch["image"], dev).float()
         labels = _to(batch["label"], dev)
         if mixup is not None:
+            seed = generator.initial_seed() if mixup_seed is None \
+                else mixup_seed
             mixed = mixup({"image": images, "label": labels},
-                          np.random.default_rng(
-                              (generator.initial_seed(), state.step, 7)))
+                          np.random.default_rng((seed, state.step, 7)))
             images, labels = mixed["image"], mixed["label"]
         if normalize:
             images = normalize_images(images)
@@ -96,7 +139,7 @@ def make_train_step(
         net = state.model
         net.train()
         with model_precision(net, dev):
-            out = net(images, generator)
+            out = (ddp if ddp is not None else net)(images, generator)
             ce = cross_entropy_loss(out.logits, labels, smoothing)
             metrics = {"ce_loss": ce}
             loss = ce
@@ -120,19 +163,25 @@ def make_train_step(
             state.optimizer.zero_grad()
             loss.backward()
             state.apply_gradients(ema_decay)
-        return state, {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if distributed:
+            metrics = _all_reduce(metrics, mean=True)
+        return state, metrics
 
     return train_step
 
 
 def make_eval_step(use_global: bool = True, normalize: bool = True,
-                   device="cuda") -> Callable:
+                   device="cuda", distributed: bool = False) -> Callable:
     """Build the eval step ``(model, batch) -> metrics``: per-batch sums
     (``n``, ``loss_sum``, ``correct1``, ``correct5`` and, with the global
     branch, ``global_correct1`` / ``local_correct1``) weighted by the
     batch's ``valid`` mask, so a padded last batch aggregates exactly.
     ``model`` is the module whose weights are evaluated (the train state's
-    model or its EMA copy); it runs its eval forward, with the kernels."""
+    model or its EMA copy); it runs its eval forward, with the kernels.
+    ``distributed``: each rank evaluates its shard and the sums are
+    all-reduced, so the whole set is evaluated exactly (the shards' wrapped
+    duplicates carry ``valid`` 0)."""
     dev = resolve_device(device)
 
     def eval_step(model, batch) -> Dict[str, torch.Tensor]:
@@ -165,6 +214,8 @@ def make_eval_step(use_global: bool = True, normalize: bool = True,
                     out.logits_global.float(), 1)
                 metrics["local_correct1"] = topk_correct(
                     out.logits_local.float(), 1)
+            if distributed:
+                metrics = _all_reduce(metrics, mean=False)
         return metrics
 
     return eval_step

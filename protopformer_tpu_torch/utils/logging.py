@@ -4,9 +4,9 @@ Replaces the reference's three channels (ref: main.py:209-238,
 tools/utils.py:272-291): TensorBoard SummaryWriter, python file+console
 logging, and print-gating by rank. Scalars always land in a JSONL file that
 tooling can tail; TensorBoard is written beside it when
-``torch.utils.tensorboard`` imports. The port runs one process, which is
-rank 0 and always writes (several processes are ROADMAP.md Queue 1 item
-13).
+``torch.utils.tensorboard`` imports. In a data-parallel run only rank 0
+of the ``torch.distributed`` group logs and writes, as the JAX package
+gates on process 0; one process is rank 0.
 """
 
 from __future__ import annotations
@@ -17,20 +17,31 @@ import os
 import time
 from typing import Dict, Optional
 
+import torch.distributed as dist
+
 _LOG_FORMAT = (
     "%(asctime)s - %(funcName)s - %(name)s - %(levelname)s - %(message)s"
 )
 
 
+def _is_rank0() -> bool:
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
+
+
 def get_logger(
     name: str, output_dir: Optional[str] = None, file_name: str = "train.log"
 ) -> logging.Logger:
-    """File + console logger (ref: tools/utils.py:272-291). A logger that
-    already has handlers is returned as it is."""
+    """File + console logger (ref: tools/utils.py:272-291); emits on rank 0
+    only (ref print-gating: utils.py:203-215). A logger that already has
+    handlers is returned as it is."""
     logger = logging.getLogger(name)
     logger.setLevel(logging.INFO)
     logger.propagate = False
     if logger.handlers:
+        return logger
+    if not _is_rank0():
+        logger.addHandler(logging.NullHandler())
         return logger
     fmt = logging.Formatter(_LOG_FORMAT)
     sh = logging.StreamHandler()
@@ -52,6 +63,9 @@ class MetricWriter:
 
     def __init__(self, output_dir: str):
         self.output_dir = output_dir
+        self._jsonl = self._tb = None
+        if not _is_rank0():
+            return
         os.makedirs(output_dir, exist_ok=True)
         self._jsonl = open(
             os.path.join(output_dir, "metrics.jsonl"), "a", buffering=1
@@ -66,6 +80,8 @@ class MetricWriter:
             )
 
     def write(self, step: int, scalars: Dict[str, float]) -> None:
+        if self._jsonl is None:
+            return
         rec = {"step": int(step), "time": time.time()}
         rec.update({k: float(v) for k, v in scalars.items()})
         self._jsonl.write(json.dumps(rec) + "\n")
@@ -74,6 +90,8 @@ class MetricWriter:
                 self._tb.add_scalar(k, float(v), int(step))
 
     def close(self) -> None:
+        if self._jsonl is None:
+            return
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()

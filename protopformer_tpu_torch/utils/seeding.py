@@ -3,8 +3,9 @@
 The reference seeds python/numpy/torch per rank (ref: main.py:241-249,
 254-255). The JAX package seeds the host generators and returns its root
 PRNG key; here the device's randomness (dropout, stochastic depth) draws
-from an explicit ``torch.Generator``, which ``set_seed`` returns. One
-process is rank 0 (ROADMAP.md Queue 1 item 13 adds ranks)."""
+from an explicit ``torch.Generator``, which ``set_seed`` returns. A
+data-parallel caller passes ``seed + rank``, as the JAX package folds in
+the process index (``cli/train.py`` under ``torchrun``)."""
 
 from __future__ import annotations
 

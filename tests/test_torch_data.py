@@ -397,10 +397,29 @@ def test_native_library_builds_outside_native_dir(monkeypatch, tmp_path):
 
 
 def test_loader_mesh_is_not_ported_yet():
-    index = t_ds.build_synthetic_index(num_samples=4, image_size=8)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        t_loader.HostDataLoader(index, t_tf.build_eval_transform(8), 2,
-                                False, mesh=object())
+    """The name is kept from when ``mesh=`` raised; it is ported now.
+    ``mesh=`` yields each batch split over the mesh (``shard_batch``):
+    device d gets rows d*b .. (d+1)*b - 1 of the numpy batch, as tensors,
+    the padded last batch's ``valid`` included; a batch size the mesh does
+    not divide raises."""
+    from protopformer_tpu_torch.parallel import make_mesh
+
+    index = t_ds.build_synthetic_index(num_samples=10, image_size=8)
+    tf = t_tf.build_eval_transform(8)
+    mesh = make_mesh([torch.device("cpu")] * 2)
+    plain = list(t_loader.HostDataLoader(index, tf, 4, False))
+    split = list(t_loader.HostDataLoader(index, tf, 4, False, mesh=mesh))
+    assert len(split) == len(plain) == 3
+    for whole, parts in zip(plain, split):
+        assert len(parts) == 2
+        for d, part in enumerate(parts):
+            for k in ("image", "label", "valid"):
+                assert isinstance(part[k], torch.Tensor)
+                np.testing.assert_array_equal(part[k].numpy(),
+                                              whole[k][2 * d:2 * d + 2])
+    assert split[-1][1]["valid"].tolist() == [0.0, 0.0]
+    with pytest.raises(ValueError, match="does not split"):
+        t_loader.HostDataLoader(index, tf, 3, False, mesh=mesh)
 
 
 # --- preprocess, local parts, package exports ----------------------------------

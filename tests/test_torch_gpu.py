@@ -9,9 +9,12 @@ machine run it without the suite's conftest (which imports JAX):
 
 Tolerances: thresholds t bit-equal, row sums 1e-6, fp32 outputs 1e-5 and
 maps 1e-6 (those of the JAX package's kernel tests); K3's bf16 output 1e-2;
-a micro train step on the card against the CPU in fp32: the loss within
+a micro train step on the card against the CPU in fp32, and two gloo ranks
+sharing the card against the one-process card step: the loss within
 1e-5, gradients within 2e-4 * max|g| + 1e-7, the AdamW step within 1e-6
-of the CPU's step on the card's gradients.
+of the reference's step on the card's gradients; the mesh engine against
+one device in fp32: logits 1e-5, the same top-81; int8 serving against
+the CPU's int8 forward: serving's bf16 selection contract.
 K1 sums the dots of QK^T on tensor cores, in another order than the plain
 version's fp32 matmul, and rounds each logit to bf16 at once: a logit can
 then land one bf16 ulp away and move its row of the map, so the map is not
@@ -1080,3 +1083,174 @@ def test_consistency_score_on_the_card_matches_the_cpu(cuda, monkeypatch):
     for a, b in zip(sums[1], sums[0]):
         np.testing.assert_array_equal(a, b)
     assert 0 < sums[0][0].sum() < sums[0][1].sum()
+
+
+# --- several cards: the mesh engine, data-parallel steps; int8 serving -------
+
+def _tiny_224(dtype, **overrides):
+    """DeiT-Tiny/16@224 at the CUB head, seeded weights, and its config."""
+    from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
+    from protopformer_tpu_torch.models import construct_ppnet
+
+    bk = backbone_preset("deit_tiny_patch16_224", **overrides)
+    pp = PPNetConfig()
+    model = construct_ppnet(bk, pp, dtype,
+                            generator=torch.Generator().manual_seed(3))
+    return bk, pp, model.state_dict()
+
+
+def _top81(attn):
+    return [set(np.argsort(-row)[:81].tolist()) for row in attn]
+
+
+def test_mesh_engine_sharing_the_card_equals_one_device(rng, cuda):
+    """Two replicas on one card (8 images each): fp32 logits within 1e-5
+    of the one-device engine's, the same top-81, and a chunk's launches
+    twice a one-device chunk's."""
+    from protopformer_tpu_torch.parallel import make_mesh
+    from protopformer_tpu_torch.serving import ServingEngine
+
+    bk, pp, sd = _tiny_224(torch.float32)
+    kw = dict(compute_dtype=torch.float32, with_attn=True)
+    single = ServingEngine(bk, pp, sd, batch_size=8, device=cuda, **kw)
+    mesh = ServingEngine(bk, pp, sd, batch_size=8,
+                         mesh=make_mesh([cuda, cuda]), **kw)
+    assert mesh.batch_size == 16 and len(mesh.models) == 2
+    imgs = rng.integers(0, 256, (16, 224, 224, 3), dtype=np.uint8)
+    kernels.reset_launch_counts()
+    single(imgs[:8])
+    torch.cuda.synchronize()
+    one_chunk = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    got = mesh(imgs)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {k: 2 * v for k, v in one_chunk.items()}
+    assert one_chunk["fused_attention_mean_padded"] == 12
+    want = single(imgs)
+    assert _max_err(torch.from_numpy(got.logits),
+                    torch.from_numpy(want.logits)) <= 1e-5
+    assert _top81(got.cls_token_attn) == _top81(want.cls_token_attn)
+    np.testing.assert_array_equal(got.top_class, want.top_class)
+
+
+def _ddp_job(tmp_path, devices, backend):
+    """The job of the data-parallel worker; the kernels are built here,
+    once, so that no two ranks start ``nvcc`` on the same directory."""
+    from protopformer_tpu_torch.kernels import _build
+    from tests import torch_ddp_common as common
+
+    _build.build()
+
+    model = common.construct_ppnet(common.BACKBONE, common.PPNET,
+                                   torch.float32,
+                                   generator=torch.Generator().manual_seed(0))
+    weights = str(tmp_path / "weights.pt")
+    torch.save(model.state_dict(), weights)
+    return {"weights": weights, "devices": devices, "backend": backend,
+            "optim": dict(epochs=2, warmup_epochs=1, model_ema=False,
+                          clip_grad=0.01),
+            "local_b": 4, "eval_b": 4, "seed": 1028,
+            "out": str(tmp_path / "rank")}
+
+
+def test_two_gloo_ranks_sharing_the_card_match_the_one_process_step(
+        cuda, tmp_path):
+    """Two processes over gloo on one card (NCCL refuses two ranks on one
+    device), fp32 with TF32 off, ``clip_grad`` set: the all-reduced loss
+    equal on both ranks and within 1e-5 of the one-process card step on
+    the global batch, every gradient within 2e-4 * max|g| + 1e-7, and the
+    ranks' parameters within 1e-6 of the card's AdamW step from the same
+    weights on their gradients."""
+    from protopformer_tpu_torch.core.config import OptimConfig
+    from protopformer_tpu_torch.parallel import shard_index_for_process
+    from tests import torch_ddp_common as common
+
+    job = _ddp_job(tmp_path, ["cuda:0", "cuda:0"], "gloo")
+    outs = common.run_workers(job, tmp_path)
+    assert {o["backend"] for o in outs} == {"gloo"}
+    assert outs[0]["loss"] == outs[1]["loss"]
+    ranks = [torch.load(f"{job['out']}.{r}.pt") for r in range(2)]
+    index = common.train_index()
+    parts = [common.local_rows(shard_index_for_process(index, r, 2), 4)
+             for r in range(2)]
+    batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    optim = OptimConfig(**job["optim"])
+    model, state, step = common.model_and_state(job["weights"], optim, cuda)
+    _, metrics = step(state, batch, torch.Generator(cuda).manual_seed(0), 1.0)
+    assert abs(float(metrics["loss"]) - ranks[0]["metrics"]["loss"]) <= 1e-5
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        tol = 2e-4 * max(float(p.grad.abs().max()), 1e-8) + 1e-7
+        assert _max_err(ranks[0]["grads"][name], p.grad.cpu()) <= tol, name
+    replay, rstate, _ = common.model_and_state(job["weights"], optim, cuda)
+    for name, p in replay.named_parameters():
+        g = ranks[0]["grads"].get(name)
+        p.grad = None if g is None else g.to(cuda)
+    rstate.apply_gradients()
+    for name, p in replay.state_dict().items():
+        assert _max_err(ranks[0]["params"][name], p.cpu()) <= 1e-6, name
+        assert torch.equal(ranks[0]["params"][name], ranks[1]["params"][name])
+    sums = ranks[0]["sums"]
+    assert sums["n"] == common.EVAL_SAMPLES == ranks[1]["sums"]["n"]
+
+
+def test_an_nccl_world_of_every_card_runs_one_step(cuda, tmp_path):
+    """``torch.cuda.device_count()`` ranks over NCCL, one card each (a
+    group of one on a one-card machine): one step, the same finite loss on
+    every rank."""
+    from tests import torch_ddp_common as common
+
+    world = torch.cuda.device_count()
+    job = _ddp_job(tmp_path, [f"cuda:{r}" for r in range(world)], "nccl")
+    outs = common.run_workers(job, tmp_path, world=world)
+    assert {o["backend"] for o in outs} == {"nccl"}
+    assert {o["world"] for o in outs} == {world}
+    assert len({o["loss"] for o in outs}) == 1
+    assert math.isfinite(outs[0]["loss"])
+
+
+def test_int8_matmul_on_the_card_matches_the_cpu(rng, cuda):
+    """``torch._int_mm`` on the card: the int32 product is exact, so the
+    output is the CPU's within 1e-6 * max|out|; a shape outside its CUDA
+    rules raises with its cause."""
+    from protopformer_tpu_torch.ops.quant import int8_matmul
+
+    x = torch.from_numpy(rng.normal(size=(160, 82, 192)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(192, 576)).astype(np.float32))
+    want = int8_matmul(x, w)
+    got = int8_matmul(x.to(cuda), w.to(cuda)).cpu()
+    assert _max_err(got, want) <= 1e-6 * float(want.abs().max())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        int8_matmul(x[:1, :8].to(cuda), w.to(cuda))
+
+
+def test_int8_serving_on_the_card_keeps_the_bf16_selection_contract(
+        rng, cuda):
+    """``quantize="int8"`` in bf16 speed mode: the card's forward against
+    the CPU's int8 forward on 2 images, by serving's bf16 contract (at
+    least 74 of the top-81 kept, none of rank below 64 dropped, logits
+    within rtol 2e-2 plus 2e-2 * max|logits|); a chunk launches K1 x 11 and
+    K3 x 1."""
+    from protopformer_tpu_torch.serving import ServingEngine
+
+    bk, pp, sd = _tiny_224(torch.bfloat16, quantize="int8",
+                           rollout_exact_discard=False)
+    imgs = rng.integers(0, 256, (2, 224, 224, 3), dtype=np.uint8)
+    kw = dict(batch_size=2, compute_dtype=torch.bfloat16, with_attn=True)
+    cpu = ServingEngine(bk, pp, sd, device="cpu", **kw)(imgs)
+    engine = ServingEngine(bk, pp, sd, device=cuda, **kw)
+    kernels.reset_launch_counts()
+    card = engine(imgs)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["fused_attention_block_stats"] == 11
+    assert counts["fused_attention_mean_padded"] == 1
+    order = np.argsort(-cpu.cls_token_attn, axis=-1)
+    for b, got in enumerate(_top81(card.cls_token_attn)):
+        want = set(order[b, :81].tolist())
+        rank = {int(t): r for r, t in enumerate(order[b])}
+        assert len(want & got) >= 74
+        assert all(rank[t] >= 64 for t in want - got)
+    atol = 2e-2 * float(np.abs(cpu.logits).max())
+    np.testing.assert_allclose(card.logits, cpu.logits, rtol=2e-2, atol=atol)

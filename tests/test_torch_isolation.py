@@ -282,3 +282,46 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path, alone):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_the_checks_cover_the_parallel_quant_and_profiling_modules():
+    """The import walk and the source scan reach the several-card layer,
+    int8 serving and the profiler hooks."""
+    import pkgutil
+
+    import protopformer_tpu_torch as pkg
+
+    walked = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                    pkg.__name__ + ".")}
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")}
+    for mod in ("parallel.mesh", "parallel.multihost", "ops.quant",
+                "utils.profiling"):
+        assert f"protopformer_tpu_torch.{mod}" in walked
+        assert f"protopformer_tpu_torch/{mod.replace('.', '/')}.py" in scanned
+
+
+@pytest.mark.parametrize("entry", ["make_mesh", "initialize_multihost",
+                                   "device_memory_stats", "trace"])
+def test_parallel_and_profiling_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path, entry):
+    """The default mesh is every CUDA device, the default backend nccl, and
+    the profiler traces the card: without one each raises, and nothing
+    falls back to the CPU or to gloo."""
+    from protopformer_tpu_torch.parallel import initialize_multihost, make_mesh
+    from protopformer_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def trace():
+        with profiling.trace(str(tmp_path)):
+            pass
+
+    calls = {
+        "make_mesh": make_mesh,
+        "initialize_multihost": lambda: initialize_multihost(
+            "localhost:1", num_processes=2, process_id=0),
+        "device_memory_stats": profiling.device_memory_stats,
+        "trace": trace,
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()

@@ -162,10 +162,22 @@ def test_port_config_copies_the_jax_fields_and_presets():
     ("quantize", "int8"),
 ])
 def test_values_not_ported_raise(field, value):
-    """Only the XLA lowering choices and int8 serving (ROADMAP item 14)."""
+    """The name is kept from when these values raised; what it holds now is
+    the opposite. Every value once refused (the XLA lowering choices and
+    int8 serving, ROADMAP item 14) now builds: the same state-dict keys and shapes as the
+    default model, and a bf16 eval forward with finite logits (the held
+    comparisons against JAX are ``tests/test_torch_quant.py``'s)."""
     bk, pp = port_configs(BK, PP)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        t_construct(dataclasses.replace(bk, **{field: value}), pp)
+    base = t_construct(bk, pp, torch.bfloat16)
+    model = t_construct(dataclasses.replace(bk, **{field: value}), pp,
+                        torch.bfloat16)
+    assert {k: v.shape for k, v in model.state_dict().items()} == \
+        {k: v.shape for k, v in base.state_dict().items()}
+    model.load_state_dict(base.state_dict(), strict=True)
+    with torch.inference_mode():
+        out = model.eval()(torch.zeros((2, 32, 32, 3)))
+    assert out.logits.shape == (2, pp.num_classes)
+    assert torch.isfinite(out.logits).all()
 
 
 def test_cait_ppnet_never_gathers():

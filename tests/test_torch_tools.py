@@ -231,8 +231,21 @@ def test_consistency_host_workers_are_bit_neutral(weights, monkeypatch):
         np.testing.assert_array_equal(a, b)
 
 
-def test_consistency_score_on_a_mesh_is_not_ported(weights):
-    loader, annotations, ids, sizes = _fixture()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        t_eval.consistency_score(weights[1], loader(), annotations, ids,
-                                 sizes, port_configs(BK, PP)[1], mesh=object())
+@pytest.mark.parametrize("replicas", [2, 3])
+def test_consistency_score_on_a_mesh_is_not_ported(weights, monkeypatch,
+                                                   replicas):
+    """The name is kept from when a mesh raised; it is ported now.
+    On a mesh (one CPU device listed 2 or 3 times, batches of 6 split
+    into contiguous slices, one model replica a slice) the score and the
+    hit counts equal one device's exactly."""
+    import torch
+
+    from protopformer_tpu_torch.parallel import make_mesh
+
+    pp = port_configs(BK, PP)[1]
+    one = _score(t_eval, (weights[1],), pp, monkeypatch)
+    mesh = make_mesh([torch.device("cpu")] * replicas)
+    got = _score(t_eval, (weights[1],), pp, monkeypatch, mesh=mesh)
+    assert got[0] == one[0]
+    for a, b in zip(got[1], one[1]):
+        np.testing.assert_array_equal(a, b)
