@@ -123,15 +123,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
   4h. past 640 tokens, the routes above the kernels' old limit:
      DeiT-Tiny/16 at 448 px (785 tokens, the CUB preset's head, seeded
      weights, B=160) served in the three modes as in 4g (bf16: K1 x 11 at
-     N=785, its heads kernel's accumulator in device memory, and K3 x 1 at
-     N=82; fp32: K3 x 12, on its global route, and K2 x 11 at N=785), fp32
+     N=785, its heads kernel on the head split, a cluster of 3 CTAs, one
+     a head, a band, and K3 x 1 at N=82; fp32: K3 x 12, on its split
+     route, 2 CTAs a row block, and K2 x 11 at N=785; each route's
+     cluster size and resident clusters printed, log_cluster, and
+     required), fp32
      card vs CPU on 2 images (logits within 1e-4, the same top-81), the
      bf16 readings recorded; masked_forward_thresh at 448 (K4 x 11 at 785),
      bf16 exact's selection recorded against both CPU forwards beside
      bf16_witness's 160-image readings; the kernel bench at real 785 in NP
      896 (K5); DeiT-Tiny/16 at 512 px (1,025 tokens, the map select's
      bands read in place) in bf16 speed and fp32; each kernel held against
-     its plain version on the path's own operands as in 4g;
+     its plain version on the path's own operands as in 4g, and at 512 px
+     also K1 in exact mode on the bf16 speed chunk's qkv (a reading);
   4i. the data layer feeding the trainer: a seeded CUB-200-2011 tree of
      JPEGs at the dataset's sizes written under build/ (200 classes, 3
      train and 1 test image each, with images.txt,
@@ -501,15 +505,18 @@ def _kept(norm_map: torch.Tensor) -> torch.Tensor:
     return (norm_map > 0) & ~eye
 
 
-def phase_ms(kernel, attention, reps: int = 5) -> dict:
+def phase_ms(kernel, attention, reps: int = 5,
+             attention_cluster: bool = False) -> dict:
     """Device ms per call of a K4/K5 call and of its two launches, after
     holding that a call is those two launches.
 
     A torch.profiler trace of ``reps`` calls holds the structure: its
-    host-side runtime records are, call after call, one plain launch
-    (``cudaLaunchKernel``: the attention) and one cluster launch
-    (``cudaLaunchKernelExC``: the normalize) and nothing else that puts
-    work on the card (no other launch, copy or fill), and every device
+    host-side runtime records are, call after call, one launch of the
+    attention (``cudaLaunchKernel``, or with ``attention_cluster`` a
+    cluster launch, ``cudaLaunchKernelExC``: K3 fp32's split route past
+    640 tokens) and one cluster launch (``cudaLaunchKernelExC``: the
+    normalize) and nothing else that puts work on the card (no other
+    launch, copy or fill), and every device
     record it keeps is K3's attention (``mean_``) or ``normalize_kernel``.
     It does not count the device records: the tracer drops those it
     places outside its capture window, more the longer the process has
@@ -532,7 +539,8 @@ def phase_ms(kernel, attention, reps: int = 5) -> dict:
             and any(w in e.name for w in ("Launch", "Memcpy", "Memset"))]
     device = {e.name for e in events if e.device_type == DeviceType.CUDA}
     kept = sum(e.device_type == DeviceType.CUDA for e in events)
-    require(work == ["cudaLaunchKernel", "cudaLaunchKernelExC"] * reps
+    launch = "cudaLaunchKernelExC" if attention_cluster else "cudaLaunchKernel"
+    require(work == [launch, "cudaLaunchKernelExC"] * reps
             and all("mean_" in n or "normalize_kernel" in n for n in device),
             f"expected one attention and one normalize launch a call: host "
             f"records {work}, device records {sorted(device)}")
@@ -640,7 +648,8 @@ def core_record(name: str, q: torch.Tensor, p, n: int, heads: int) -> dict:
     cluster = {"ctas_per_sample": lib.ppf_attention_core_cluster_size(n),
                "resident_clusters":
                    lib.ppf_attention_core_active_clusters(n, np_)}
-    phases = phase_ms(kernel, attention)
+    phases = phase_ms(kernel, attention, attention_cluster=(
+        fp32 and lib.ppf_attention_mean_f32_cluster_size(np_) > 1))
     # the normalize's bound: the real block's round trip (read once,
     # written once)
     phases["normalize_bound_ms"] = bound(2.0 * bq * n * n * 4)[0]
@@ -1497,8 +1506,19 @@ def k1_record(qkv: torch.Tensor, heads: int, exact: bool) -> dict:
     if n > 256:
         log_resident(f"K1 heads kernel at N={n}, hd={c // heads}",
                      lib.ppf_attention_block_stats_long_resident_ctas(
-                         n, c // heads),
-                     lib.ppf_attention_block_stats_smem_bytes(n, c // heads))
+                         n, c // heads, heads),
+                     lib.ppf_attention_block_stats_smem_bytes(
+                         n, c // heads, heads))
+    if n > 640:
+        # past 640 tokens the heads kernel runs a band in a cluster of one
+        # CTA a head (the head split)
+        size = lib.ppf_attention_block_stats_heads_cluster_size(
+            n, c // heads, heads)
+        log_cluster(f"K1 heads kernel's head split at N={n}, "
+                    f"hd={c // heads}", size,
+                    lib.ppf_attention_block_stats_heads_active_clusters(
+                        n, c // heads, heads))
+        require(size == heads, f"K1 at N={n}: not on the head split")
     keep = n * n - int(n * n * DISCARD)
     out, fmap, t, s = ac.fused_attention_block_stats(qkv, heads, DISCARD, exact)
     p_out, p_map, p_t, _ = ac.block_stats_plain(qkv, heads, keep, exact)
@@ -1543,6 +1563,14 @@ def k3_record(qkv: torch.Tensor, pol: torch.Tensor, heads: int) -> dict:
         log_resident(f"K3 fp32 long kernel at N={n}, hd={c // heads}",
                      lib.ppf_attention_mean_f32_resident_blocks(n, c // heads),
                      lib.ppf_attention_mean_smem_bytes(n, c // heads, 0))
+        if n > 640:
+            # past 640 tokens a cluster splits a row block's keys (the
+            # split route, up to 5,120 tokens)
+            size = lib.ppf_attention_mean_f32_cluster_size(n)
+            log_cluster(f"K3 fp32's split route at N={n}, hd={c // heads}",
+                        size, lib.ppf_attention_mean_f32_active_clusters(
+                            n, c // heads))
+            require(size > 1, f"K3 fp32 at N={n}: not on the split route")
     out, fmap = ac.fused_attention_mean_padded(qkv, pol, heads, real_n=n)
     p_out, p_map = ac.mean_padded_plain(qkv, pol, heads, real_n=n)
     torch.cuda.synchronize()
@@ -1606,7 +1634,8 @@ def k2_record(fmap: torch.Tensor, exact: bool) -> dict:
 
 
 def serve_width(dev: torch.device, preset: str, modes: tuple,
-                rng: np.random.Generator, hold_vs_fp32: bool) -> tuple:
+                rng: np.random.Generator, hold_vs_fp32: bool,
+                k1_exact_too: bool = False) -> tuple:
     """A DeiT PPNet of ``preset`` (WIDTH_TAGS; ``preset_config``'s names)
     at the CUB preset (seeded
     weights) served at B=160 in ``modes``: per mode one chunk with the
@@ -1616,7 +1645,10 @@ def serve_width(dev: torch.device, preset: str, modes: tuple,
     same shape at every image size); the card against the
     CPU on 2 images: fp32 logits within 1e-4 and the same top-81; each bf16
     mode by phase 5's contract against the CPU's fp32 forward where
-    ``hold_vs_fp32``, else that reading recorded; beside it the readings
+    ``hold_vs_fp32``, else that reading recorded; with ``k1_exact_too``
+    also K1 in exact mode on the bf16 speed chunk's qkv (block 0's qkv is
+    the same in both modes), held and timed as a reading; beside it the
+    readings
     of the card against the CPU's forward in the same mode and of the
     CPU's own bf16 against its fp32 (recorded: ranks among bf16 scores
     move with one ulp). Returns ({path: {"launches", "img_per_sec"}},
@@ -1678,6 +1710,13 @@ def serve_width(dev: torch.device, preset: str, modes: tuple,
             exact = mode == "bf16_exact"
             records[f"fused_attention_block_stats[{mode[5:]},H={heads}{at}]"] = (
                 k1_record(k1[0][0][0].clone(), heads, exact))
+            if k1_exact_too and mode == "bf16_speed":
+                rec = k1_record(k1[0][0][0].clone(), heads, True)
+                log(f"K1 exact at N={n} on the bf16 speed chunk's qkv "
+                    "(a reading, not a record: no path here launches it): "
+                    + json.dumps({"ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                                  "bound_ms": rec["bound"][0],
+                                  "max_abs_err": rec["max_abs_err"]}))
             if mode == "bf16_speed" and size == 224:
                 qkv, pol = (a.clone() for a in k3[0][0][:2])
                 records[f"fused_attention_mean_padded[bf16,N=82,H={heads}]"] = (
@@ -2106,7 +2145,7 @@ def past_640_phase(dev: torch.device, rng: np.random.Generator) -> tuple:
     # 1,025 tokens: the map select's bands no longer fit shared memory
     served, recs, _, _ = serve_width(dev, "deit_tiny_patch16_224@512",
                                      ("bf16_speed", "fp32_parity"), rng,
-                                     hold_vs_fp32=False)
+                                     hold_vs_fp32=False, k1_exact_too=True)
     paths.update(served)
     records.update(recs)
     log(f"deit_t512 serving: {time.perf_counter() - t0:.1f} s")

@@ -25,9 +25,11 @@ in the order A, B, B, A, and reports the mean of each side's two readings:
   kernels against their plain versions on them as above and times them:
   K1, K1's select alone (K2's launch on K1's stored map), K2 on the fp32
   serving map (t bit-equal to ``map_stats_plain``, s within 1e-6), K3 in
-  fp32; K4 in fp32 on the 384 fp32 operands (its attention phase is K3's
-  kernel); DeiT-B/16@384's serving img/s in the three modes
-  (``ServingEngine.throughput_probe``); its bf16 exact
+  fp32; the same for DeiT-Tiny/16 at 448 and 512 px (785 and 1,025
+  tokens, past 640: K1's head split, K3 fp32's key split); K4 in fp32 on the
+  384 and 448 fp32 operands (its attention phase is K3's kernel);
+  DeiT-B/16@384's and DeiT-Tiny/16's at 448 and 512 px serving img/s in
+  the three modes (``ServingEngine.throughput_probe``); the 384's bf16 exact
   ``masked_forward_thresh`` at B=160: img/s, and K4 with its attention
   phase (K3 bf16's long kernel) on the first K4 call's operands; and K5 on
   the kernel bench's operands at 577 tokens (real 577 in NP 640, B=256;
@@ -67,8 +69,14 @@ THRESHOLD = "constexpr int kLongMinTokens = 257;"
 # heads at 197, and the control at 257
 CASES = ((197, 192, 3), (82, 192, 3), (197, 768, 12), (257, 192, 3))
 # the models of the parent comparison, by the record tag of their token
-# count, and the serving modes timed on the first
-MODELS = {"N=577": "deit_base_patch16_384", "N=257": "deit_tiny_patch2_32"}
+# count: a preset and its overrides (DeiT-Tiny/16 at 448 and 512 px)
+MODELS = {"N=577": ("deit_base_patch16_384", {}),
+          "N=257": ("deit_tiny_patch2_32", {}),
+          "N=785": ("deit_tiny_patch16_224", {"img_size": 448}),
+          "N=1025": ("deit_tiny_patch16_224", {"img_size": 512})}
+# the models whose serving img/s is read in each mode (ServingEngine's
+# throughput_probe)
+PROBED = ("N=577", "N=785", "N=1025")
 MODES = ("bf16_speed", "bf16_exact", "fp32_parity")
 # (N, C, H) of the parent comparison's short readings: DeiT-Tiny and
 # DeiT-B's heads at 197, and the short route's largest N
@@ -217,8 +225,8 @@ def parent_worker(dev: torch.device = torch.device("cuda")
 
     ppnet = PPNetConfig()
     res = {}
-    for at, preset in MODELS.items():
-        cfg = backbone_preset(preset)
+    for at, (preset, overrides) in MODELS.items():
+        cfg = backbone_preset(preset, **overrides)
         heads = cfg.num_heads
         state_dict = construct_ppnet(
             cfg, ppnet, torch.float32,
@@ -227,7 +235,8 @@ def parent_worker(dev: torch.device = torch.device("cuda")
         chunk = torch.randint(0, 256, (B, cfg.img_size, cfg.img_size, 3),
                               generator=gen, dtype=torch.uint8).to(dev)
         for mode in MODES:
-            backbone = (backbone_preset(preset, rollout_exact_discard=False)
+            backbone = (backbone_preset(preset, **overrides,
+                                        rollout_exact_discard=False)
                         if mode == "bf16_speed" else cfg)
             dtype = torch.float32 if mode == "fp32_parity" else torch.bfloat16
             engine = ServingEngine(backbone, ppnet, state_dict, batch_size=B,
@@ -244,7 +253,7 @@ def parent_worker(dev: torch.device = torch.device("cuda")
                 name = f"K3[fp32,{at},H={heads}]"
                 res[name] = _time_ms(_hold_k3(name, qkv, pol, heads), dev, 3,
                                      20)
-                if at == "N=577":
+                if at in ("N=577", "N=785"):
                     res[f"K4[fp32,{at},H={heads}]"] = _time_ms(
                         lambda: ac.fused_attention_core(qkv, pol, heads, 0.9,
                                                         0.2), dev, 3, 20)
@@ -266,9 +275,10 @@ def parent_worker(dev: torch.device = torch.device("cuda")
                 name = f"K1_select[{mode[5:]},{at}]"
                 res[name] = _time_ms(_hold_k2(name, fmap, exact), dev, 3, 20)
                 del qkv, fmap
-            if at == "N=577":
+            if at in PROBED:
                 probe = engine.throughput_probe(n_images=PROBE_IMAGES, reps=2)
-                res[f"img_per_sec[{mode}]"] = probe["img_per_sec"]
+                tag = "" if at == "N=577" else f",{at}"
+                res[f"img_per_sec[{mode}{tag}]"] = probe["img_per_sec"]
             del engine, seen, seen_k2
             torch.cuda.empty_cache()
         if at == "N=577":

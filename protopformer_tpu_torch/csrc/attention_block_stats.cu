@@ -68,17 +68,33 @@
 //  * K and V stream through a ring of 2 chunk buffers filled by cp.async
 //    one chunk ahead (one barrier a chunk); a thread's copies step by the
 //    block's threads from offsets computed once (ppf::copy_steps).
-//  * Past what a CTA's shared memory holds (long_route): from ~660
-//    tokens the band's fp32 accumulator moves to a scratch buffer in
-//    global memory (its rows L2-resident while the CTA runs; 155 KB a CTA
-//    at 785 tokens), and from ~2,000 tokens the CTA takes one row tile (16
-//    rows, 4 warps), so that its bf16 logits still fit (up to ~6,000
-//    tokens). Above 640 columns passes 2 and 3 loop over a row's steps,
-//    each writing its values back in place, instead of holding the row in
-//    registers: the same operations in the same order, so the same map.
-//    Every row maximum is final before any exp (no online rescaling, which
-//    would move entries by an ulp that the threshold magnifies). A simple
-//    route, not yet tuned (PERF.md has its time against its bound).
+//  * Above 640 columns the band's fp32 accumulator and its rows no longer
+//    fit one CTA beside each other (at 785 tokens the accumulator alone is
+//    155 KB). There a thread block cluster of H CTAs takes each band, CTA
+//    h its head h (block_stats_split_kernel, the head split; up to 16
+//    heads): each holds its head's bf16 logits, then probabilities, for
+//    the band's whole rows in shared memory (3 row tiles a CTA where two
+//    CTAs fit an SM, to ~800 tokens; then 2, two CTAs an SM to ~1,200
+//    tokens; 1 tile from ~3,000 to ~6,000), passes 2 and 3 loop over a
+//    row's steps, each writing its values back in place, and it writes
+//    its head's out. A row's softmax lies in one CTA,
+//    so no row statistic crosses the cluster and every value is the
+//    kernel above's. After one cluster barrier each CTA adds the head
+//    mean of its share of the band's rows, acc = acc + p * (1/H) in head
+//    order from 0, reading the heads' probabilities through distributed
+//    shared memory, and stores it once: the map the kernel above stores,
+//    bit for bit. Every row maximum is final before any exp (no online
+//    rescaling, which would move entries by an ulp that the threshold
+//    magnifies). A key split (a cluster sharing each band's keys, as
+//    attention_mean.cu's fp32 split route does) was measured first and
+//    lost at 785 tokens: three cluster barriers a head with one CTA an SM
+//    (PERF.md). Above 16 heads the band's accumulator lies in a scratch
+//    buffer in global memory (3 row tiles a CTA up to ~2,000 tokens, 1
+//    above), as before the head split. Measured (cli.time_long_kernels
+//    --against parent, an H100 at 700 W, B=160, H=3, the model's own
+//    qkv; PERF.md), the heads kernel (K1 less its select): 1.94 -> 1.24
+//    ms (speed) at 785 tokens, 3.67 -> 2.42 ms at 1,025; 79 clusters of 3
+//    resident, two CTAs an SM.
 // A row sum adds each lane's values in column order, then the warp's
 // lanes; P V sums its 16-key products in key order. Measured
 // (cli.time_long_kernels --against parent, an H100 at 700 W, B=160, the
@@ -661,12 +677,297 @@ block_stats_long_kernel(const __nv_bfloat16* __restrict__ qkv, int N, int C,
   }
 }
 
+// --- above 640 columns: the head split ----------------------------------------
+
+// A thread block cluster of H CTAs takes each band of rows, CTA h its
+// head h (up to kMaxHeadSplit heads). Each CTA holds its head's bf16
+// logits, then probabilities, for the band's whole rows in shared memory,
+// runs passes 1-4 of the kernel above on them (passes 2 and 3 over a
+// row's steps, as above 640 columns), and writes its head's out. No row
+// statistic crosses the cluster: a row's softmax lies in one CTA. After
+// one cluster barrier the cluster adds the head mean, acc = acc + p *
+// (1/H) in head order from 0, reading each head's probabilities through
+// distributed shared memory, each CTA a share of the band's rows, and
+// stores it once in the storage dtype: the map the kernel above stores.
+constexpr int kMaxHeadSplit = ppf::kMaxMapClusterSize;
+
+// An SM's shared memory, 1,024 bytes of it reserved for each block.
+constexpr size_t kSmemPerSm = 233472;
+
+// Row tiles a CTA of the head split takes at N tokens: 3 where two such
+// CTAs fit an SM (up to ~800 tokens at head dim 64), else 2 (two CTAs an
+// SM up to ~1,200 tokens, one above), 1 past what 2 tiles' logits fit
+// (~3,000 tokens).
+__host__ __device__ inline int split_tiles(int N, int hd) {
+  if (2 * (LongLayout(N, hd, 3, false).total + 1024) <= kSmemPerSm) return 3;
+  return LongLayout(N, hd, 2, false).total <= ppf::kMaxSmemPerBlock ? 2 : 1;
+}
+
+template <int TILES>
+__global__ void __launch_bounds__(32 * kLongWarps * TILES, 2)
+block_stats_split_kernel(const __nv_bfloat16* __restrict__ qkv, int N, int C,
+                         int H, bool exact, float scale_bf16,
+                         float eps_over_n_bf16,
+                         __nv_bfloat16* __restrict__ out,
+                         void* __restrict__ map_out) {
+  constexpr int kLongRows = 16 * TILES;
+  constexpr int kLongThreads = 32 * kLongWarps * TILES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  ppf::cg::cluster_group cluster = ppf::cg::this_cluster();
+  const int hd = C / H;
+  const int hk = (hd + 15) / 16;
+  const int C3 = 3 * C;
+  const LongLayout L(N, hd, TILES, false);
+  __nv_bfloat16* lg = reinterpret_cast<__nv_bfloat16*>(smem + L.lg);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem + L.ring);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int tw = warp / kLongWarps;  // the warp's row tile
+  const int w = warp % kLongWarps;   // its 2 key tiles of a chunk, and its
+                                     // 16 columns of the head dim in P V
+  // the cluster's CTAs are consecutive along x, CTA h taking head h
+  const int h = static_cast<int>(blockIdx.x) % H;
+  const int row0 = kLongRows * (blockIdx.x / H);
+  const int rows = min(kLongRows, N - row0);  // real rows of the band
+  const int r0 = row0 + 16 * tw;              // the tile's first row
+  const bool active = 16 * tw < rows;
+  const bool pv = active && w < hk;
+  const int b = blockIdx.y;
+  const __nv_bfloat16* qkv_b = qkv + (size_t)b * N * C3;
+  const float rH = 1.0f / (float)H;
+  const float neg_inf = __uint_as_float(0xff800000u);
+  const int nc = L.np / kLongChunk;  // chunks of K (and of V)
+  __nv_bfloat16* ltile = lg + 16 * tw * L.lstride;
+  // ldmatrix's row and column of this lane in a 16 x 16 tile
+  const int lrow = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int lcol = (lane >> 4) * 8;
+
+  // the stream of the head's K chunks, then its V chunks (rows >= N
+  // zeros), as the kernel above streams each head's
+  const size_t chunk = (size_t)kLongChunk * L.kstride;
+  const ppf::CopySteps cps = ppf::copy_steps<__nv_bfloat16>(16 * hk);
+  int ic = 0, ist = 0, cst = 0;
+  auto fetch = [&]() {
+    if (ic < 2 * nc) {
+      const int k0 = (ic < nc ? ic : ic - nc) * kLongChunk;
+      ppf::load_rows_async(qkv_b + (size_t)k0 * C3, C3,
+                           (ic < nc ? C : 2 * C) + h * hd, hd, N - k0,
+                           kLongChunk, ring + ist * chunk, L.kstride, cps);
+    }
+    ++ic;
+    ist = ist + 1 == kLongStages ? 0 : ist + 1;
+    ppf::cp_async_commit();
+  };
+  auto arrive = [&]() {
+    ppf::cp_async_wait<kLongStages - 2>();
+    __syncthreads();
+    fetch();
+    const __nv_bfloat16* buf = ring + cst * chunk;
+    cst = cst + 1 == kLongStages ? 0 : cst + 1;
+    return buf;
+  };
+
+  for (int k = 0; k < kLongStages - 1; ++k) fetch();
+  uint32_t qa[4][4];
+  if (active)
+    ppf::load_q_frags(qa, qkv_b + (size_t)r0 * C3 + h * hd, C3, N - r0, hd);
+  // pass 1: the logits, rounded as the kernel above rounds them, into the
+  // band's bf16 rows, and the row maxima of the raw dots
+  float mx[2] = {neg_inf, neg_inf};
+  for (int c = 0; c < nc; ++c) {
+    const __nv_bfloat16* kb = arrive();
+    if (active) {
+      const int k0 = c * kLongChunk + 32 * w;
+      if (k0 >= N) continue;  // key tiles of pads only: never read
+      float S[4][4];
+      ppf::warp_qk<2>(S, qa, kb + 32 * w * L.kstride, L.kstride, hk);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float x = S[n][2 * r];
+          float y = S[n][2 * r + 1];
+          const int col = k0 + 8 * n + 2 * t;
+          if (col < N) mx[r] = fmaxf(mx[r], x);
+          if (col + 1 < N) mx[r] = fmaxf(mx[r], y);
+          ppf::round2_bf16(x, y);
+          x = __fmul_rn(x, scale_bf16);
+          y = __fmul_rn(y, scale_bf16);
+          uint32_t packed = ppf::round2_bf16(x, y);
+          if (col + 1 >= N)
+            packed = ppf::pack_bf16(col < N ? x : neg_inf, neg_inf);
+          *reinterpret_cast<uint32_t*>(ltile + (g + 8 * r) * L.lstride +
+                                       col) = packed;
+        }
+    }
+  }
+  if (active) {
+    mx[0] = ppf::quad_max(mx[0]);
+    mx[1] = ppf::quad_max(mx[1]);
+    if (t == 0) {
+      red[warp * 16 + g] = mx[0];
+      red[warp * 16 + g + 8] = mx[1];
+    }
+  }
+  __syncthreads();  // every logit and row maximum of the band stored
+  // passes 2 and 3 as the kernel above runs them above 640 columns, one
+  // row at a time over its steps: e = bf16 exp of the bf16 difference
+  // from the row maximum written back over the logits with the row sum
+  // (each lane's values in column order, then the warp's lanes); then p =
+  // bf16(bf16(e + eps/N) * inv), pads 0, back in place
+  {
+    constexpr int kNW = kLongThreads / 32;
+    const uint32_t eps2 = ppf::pack_bf16(eps_over_n_bf16, eps_over_n_bf16);
+    for (int k = 0; k < kLongRowsPerWarp; ++k) {
+      const int r = warp + kNW * k;
+      const float* rm = red + (r >> 4) * kLongWarps * 16 + (r & 15);
+      float m = rm[0];
+#pragma unroll
+      for (int q = 1; q < kLongWarps; ++q) m = fmaxf(m, rm[16 * q]);
+      m = ppf::bf16_round(__fmul_rn(ppf::bf16_round(m), scale_bf16));
+      const uint32_t m2 = ppf::pack_bf16(m, m);
+      __nv_bfloat16* prow = lg + r * L.lstride;
+      float sum = 0.f;
+      for (int c0 = 4 * lane; c0 < L.nk; c0 += 128) {
+        uint2 v = *reinterpret_cast<const uint2*>(prow + c0);
+        float x[4];
+        unpack4_bf16(make_uint2(ppf::sub_bf16x2(v.x, m2),
+                                ppf::sub_bf16x2(v.y, m2)),
+                     x);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) x[j] = expf(x[j]);
+        v.x = ppf::round2_bf16(x[0], x[1]);
+        v.y = ppf::round2_bf16(x[2], x[3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sum = __fadd_rn(sum, x[j]);
+        *reinterpret_cast<uint2*>(prow + c0) = v;
+      }
+      const float inv = ppf::bf16_round(
+          __fdiv_rn(1.0f, __fadd_rn(ppf::warp_sum(sum), 1e-6f)));
+      const uint32_t inv2 = ppf::pack_bf16(inv, inv);
+      for (int c0 = 4 * lane; c0 < L.nk; c0 += 128) {
+        const uint2 e = *reinterpret_cast<const uint2*>(prow + c0);
+        uint2 pv2;
+        pv2.x = ppf::mul_bf16x2(ppf::add_bf16x2(e.x, eps2), inv2);
+        pv2.y = ppf::mul_bf16x2(ppf::add_bf16x2(e.y, eps2), inv2);
+        if (c0 + 3 >= N) {  // pads 0
+          pv2.x &= (c0 < N ? 0xffffu : 0u) | (c0 + 1 < N ? 0xffff0000u : 0u);
+          pv2.y &= (c0 + 2 < N ? 0xffffu : 0u) |
+                   (c0 + 3 < N ? 0xffff0000u : 0u);
+        }
+        *reinterpret_cast<uint2*>(prow + c0) = pv2;
+      }
+    }
+  }
+  // pass 4: O = P V over the chunks of V, in key order; each warp the
+  // head dim's columns 16 w .. 16 w + 15
+  float O[2][4];
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) O[n][e] = 0.f;
+  for (int c = 0; c < nc; ++c) {
+    const __nv_bfloat16* vb = arrive();  // its barrier also publishes P
+    if (pv) {
+#pragma unroll
+      for (int j = 0; j < kLongChunk / 16; ++j) {
+        if (c * kLongChunk + 16 * j >= N) break;  // pads only
+        uint32_t pa[4], bv[4];
+        ppf::ldmatrix_x4(pa, ltile + lrow * L.lstride + c * kLongChunk +
+                                 16 * j + lcol);
+        ppf::ldmatrix_x4_trans(
+            bv, vb + (16 * j + lrow) * L.kstride + 16 * w + lcol);
+        ppf::mma_bf16(O[0], pa, bv[0], bv[1]);
+        ppf::mma_bf16(O[1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+  if (pv) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int col = 16 * w + 8 * n + 2 * t;
+      if (col < hd) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = g + 8 * half;
+          if (row < N - r0)
+            *reinterpret_cast<__nv_bfloat162*>(
+                out + ((size_t)b * N + r0 + row) * C + h * hd + col) =
+                __floats2bfloat162_rn(O[n][2 * half], O[n][2 * half + 1]);
+        }
+      }
+    }
+  }
+
+  // every head's probabilities of the band in its CTA: the head mean of
+  // rows r = h + H k, a warp a row, a lane 4 columns of each 128, added
+  // in head order from 0 and stored once in the storage dtype
+  cluster.sync();
+  for (int r = h + H * warp; r < rows; r += H * (kLongThreads / 32)) {
+    const size_t o = ((size_t)b * N + row0 + r) * N;
+    for (int c0 = 4 * lane; c0 < N; c0 += 128) {
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int q = 0; q < H; ++q) {
+        const __nv_bfloat16* src =
+            cluster.map_shared_rank(lg, q) + r * L.lstride + c0;
+        float x[4];
+        unpack4_bf16(*reinterpret_cast<const uint2*>(src), x);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) a[j] = __fadd_rn(a[j], __fmul_rn(x[j], rH));
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (c0 + j < N) {
+          if (exact)
+            static_cast<float*>(map_out)[o + c0 + j] = a[j];
+          else
+            static_cast<__nv_bfloat16*>(map_out)[o + c0 + j] =
+                __float2bfloat16_rn(a[j]);
+        }
+      }
+    }
+  }
+  cluster.sync();  // no CTA leaves while another reads its probabilities
+}
+
 bool long_tokens(int N) { return N >= ppf::kLongMinTokens; }
 
-size_t smem_bytes(int N, int hd) {
+// Whether the head split takes N tokens of H heads: rows longer than the
+// register route's 640 columns, and at most kMaxHeadSplit heads (above,
+// the routes with the band's accumulator in global memory).
+bool split_route(int N, int H) {
+  return long_tokens(N) &&
+         ppf::round_up(N, 16) > kLongChunk * kLongRegSteps &&
+         H <= kMaxHeadSplit;
+}
+
+size_t smem_bytes(int N, int hd, int H) {
   if (!long_tokens(N)) return Layout(N, hd).total;
+  if (split_route(N, H))
+    return LongLayout(N, hd, split_tiles(N, hd), false).total;
   const LongRoute rt = long_route(N, hd);
   return LongLayout(N, hd, rt.tiles, rt.acc_smem).total;
+}
+
+// The head split's kernel at `tiles` row tiles, and its launch of B
+// samples: clusters of H CTAs along x, one a band. `attr` must outlive
+// the launch call.
+auto split_kernel(int tiles) {
+  return tiles == 3   ? block_stats_split_kernel<3>
+         : tiles == 2 ? block_stats_split_kernel<2>
+                      : block_stats_split_kernel<1>;
+}
+
+cudaLaunchConfig_t split_config(int B, int N, int H, int tiles, size_t smem,
+                                cudaStream_t stream,
+                                cudaLaunchAttribute* attr) {
+  const int rows = 16 * tiles;
+  return ppf::cluster_launch_config(H, B, 32 * kLongWarps * tiles, smem,
+                                    stream, attr, (N + rows - 1) / rows);
 }
 
 // The heads kernel of a route, and its threads (one row tile only where
@@ -680,9 +981,10 @@ auto long_kernel(const LongRoute& rt) {
 int long_threads(const LongRoute& rt) { return 32 * kLongWarps * rt.tiles; }
 
 // Bytes of the scratch that holds the heads kernel's accumulators where
-// they lie in global memory (0 where they fit shared memory).
-size_t scratch_bytes(int B, int N, int hd) {
-  if (!long_tokens(N)) return 0;
+// they lie in global memory (0 where they fit shared memory, and on the
+// head split, which holds none).
+size_t scratch_bytes(int B, int N, int hd, int H) {
+  if (!long_tokens(N) || split_route(N, H)) return 0;
   const LongRoute rt = long_route(N, hd);
   if (rt.acc_smem) return 0;
   const int rows = 16 * rt.tiles;
@@ -721,8 +1023,28 @@ extern "C" int ppf_attention_block_stats(const void* qkv, int B, int N, int C,
                                          float scale_bf16, float eps_over_n_bf16,
                                          void* out, void* map, void* t, void* s,
                                          void* stream, void* scratch) {
-  const size_t smem = smem_bytes(N, C / H);
+  const size_t smem = smem_bytes(N, C / H, H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (split_route(N, H)) {
+    const int tiles = split_tiles(N, C / H);
+    const auto kernel = split_kernel(tiles);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess) err = ppf::allow_map_clusters(kernel, H);
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg =
+        split_config(B, N, H, tiles, smem, st, attr);
+    err = cudaLaunchKernelEx(&cfg, kernel,
+                             static_cast<const __nv_bfloat16*>(qkv), N, C, H,
+                             exact != 0, scale_bf16, eps_over_n_bf16,
+                             static_cast<__nv_bfloat16*>(out), map);
+    if (err != cudaSuccess) return err;
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return ppf_map_stats_at_most(map, !exact, B, N, keep, !exact,
+                                 exact ? 0x3F800000u : 0x3F80u, t, s, stream);
+  }
   if (long_tokens(N)) {
     const LongRoute rt = long_route(N, C / H);
     if (!rt.acc_smem && scratch == nullptr) return cudaErrorInvalidValue;
@@ -759,16 +1081,17 @@ extern "C" int ppf_attention_block_stats(const void* qkv, int B, int N, int C,
   return cudaGetLastError();
 }
 
-// Shared memory of the kernel that runs the heads at N tokens.
-extern "C" int ppf_attention_block_stats_smem_bytes(int N, int hd) {
-  return (int)smem_bytes(N, hd);
+// Shared memory of the kernel that runs the heads at N tokens of H heads.
+extern "C" int ppf_attention_block_stats_smem_bytes(int N, int hd, int H) {
+  return (int)smem_bytes(N, hd, H);
 }
 
-// Device memory the launch at B samples of N tokens needs for its scratch
-// (the heads kernel's accumulators where they leave shared memory).
+// Device memory the launch at B samples of N tokens of H heads needs for
+// its scratch (the heads kernel's accumulators where they leave shared
+// memory).
 extern "C" long long ppf_attention_block_stats_scratch_bytes(int B, int N,
-                                                             int hd) {
-  return (long long)scratch_bytes(B, N, hd);
+                                                             int hd, int H) {
+  return (long long)scratch_bytes(B, N, hd, H);
 }
 
 // CTAs per sample of the select's cluster launch at N tokens (K1's own up
@@ -781,7 +1104,7 @@ extern "C" int ppf_attention_block_stats_cluster_size(int N) {
 // cudaError_t of the query).
 extern "C" int ppf_attention_block_stats_active_clusters(int N, int hd) {
   if (long_tokens(N)) return ppf_map_stats_active_clusters(N, 0);
-  const size_t smem = smem_bytes(N, hd);
+  const size_t smem = Layout(N, hd).total;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(1, N, smem, nullptr, attr);
   int clusters = 0;
@@ -799,16 +1122,54 @@ extern "C" int ppf_attention_block_stats_active_clusters(int N, int hd) {
 // CTAs of the heads kernel an SM holds at once above 256 tokens (negative:
 // the cudaError_t of the query; 0 up to 256, where the cluster query
 // above applies).
-extern "C" int ppf_attention_block_stats_long_resident_ctas(int N, int hd) {
+extern "C" int ppf_attention_block_stats_long_resident_ctas(int N, int hd,
+                                                            int H) {
   if (!long_tokens(N)) return 0;
-  const size_t smem = smem_bytes(N, hd);
-  const LongRoute rt = long_route(N, hd);
-  const auto kernel = long_kernel(rt);
+  const size_t smem = smem_bytes(N, hd, H);
   int ctas = 0;
+  auto query = [&](auto kernel, int threads) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel,
+                                                          threads, smem);
+    return err == cudaSuccess ? ctas : -static_cast<int>(err);
+  };
+  if (split_route(N, H)) {
+    const int tiles = split_tiles(N, hd);
+    return query(split_kernel(tiles), 32 * kLongWarps * tiles);
+  }
+  const LongRoute rt = long_route(N, hd);
+  return query(long_kernel(rt), long_threads(rt));
+}
+
+// CTAs of the heads kernel's cluster a band at N tokens of H heads: H on
+// the head split (past 640 tokens), 1 where one CTA takes a band's heads
+// (up to 640 tokens; and up to 256, where the kernel above runs), 0 past
+// 640 above kMaxHeadSplit heads.
+extern "C" int ppf_attention_block_stats_heads_cluster_size(int N, int hd,
+                                                            int H) {
+  if (split_route(N, H)) return H;
+  if (!long_tokens(N)) return 1;
+  return long_route(N, hd).acc_smem ? 1 : 0;
+}
+
+// How many of those clusters the card holds at once (0 off the head
+// split; negative: the cudaError_t of the query).
+extern "C" int ppf_attention_block_stats_heads_active_clusters(int N, int hd,
+                                                               int H) {
+  if (!split_route(N, H)) return 0;
+  const int tiles = split_tiles(N, hd);
+  const size_t smem = smem_bytes(N, hd, H);
+  const auto kernel = split_kernel(tiles);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      split_config(1, N, H, tiles, smem, nullptr, attr);
+  int clusters = 0;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) err = ppf::allow_map_clusters(kernel, H);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &ctas, kernel, long_threads(rt), smem);
-  return err == cudaSuccess ? ctas : -static_cast<int>(err);
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }

@@ -82,22 +82,47 @@
 //    models' operands; PERF.md): 6.13 -> 3.35 ms at 577 on K4's operands
 //    (B=160, H=12), 2.56 -> 1.51 ms on K5's bench operands (B=256, real
 //    577 in NP 640, H=3).
-// Above 640 tokens neither long kernel holds its rows' head mean in
+// Above 640 tokens neither long kernel holds a row block's head mean in
 // registers, nor the fp32 one its P in shared memory (at NP = 1,152, P
 // alone would be 148 KB beside a 104 KB ring, and the head mean 144
-// registers a thread). There each takes its global route, a simple route
-// not yet tuned (PERF.md has its time against its bound):
-//  * the head mean accumulates in the output map itself, in global memory
-//    (zeroed by the block first, each entry updated by one lane in the
-//    same order: acc = acc + p * (1/H), head by head, so the map is the
-//    one the register route would give), and the entries outside the real
-//    block are zeroed at the end;
-//  * the softmax loops over a row's steps, writing e back in place, then p;
-//  * bf16: the block's fp32 logits stay in shared memory, in 3 row tiles
-//    (48 rows, up to ~900 tokens) or 1 (16 rows, up to ~2,900);
-//  * fp32: P lies in a scratch buffer in global memory (32 rows a block,
-//    L2-resident while the block runs), and the 8 warps' P V sums meet in
-//    shared memory.
+// registers a thread).
+//  * fp32, up to 5,120 columns (mean_split_kernel, the split route): a
+//    thread block cluster of ceil(cols / 640) CTAs takes each block of 32
+//    rows, CTA r the keys of its run of 128-key chunks (at most 5), so
+//    that each runs the register route's design on at most 640 columns:
+//    its logits and P in shared memory, its columns of the head mean in
+//    registers; nothing of P or the head mean leaves the chip, and each
+//    map entry is written once by the CTA that holds it. Per head two
+//    cluster barriers carry what crosses the cluster through distributed
+//    shared memory: the rows' maxima over each CTA's keys (the maximum is
+//    final before any exp, as on the register route), then the rows'
+//    sums of e, added in rank order. P V multiplies e + eps/real_n by V
+//    before the sums are known (the second barrier is split around it)
+//    and out = the CTAs' P V sums, added in rank order by the CTA whose
+//    rank is the row's modulo the cluster, divided by the row's
+//    denominator; those sums cross at the next head's first barrier. No
+//    atomics: every run gives the same result. p, and so the map, is the
+//    register route's arithmetic; out differs from it by the order of the
+//    sums and the late division (held to 1e-5, tests/test_torch_gpu.py).
+//    ~200-216 KB of shared memory: one CTA an SM, 66 clusters of 2
+//    resident. Measured (cli.time_long_kernels --against parent, an H100
+//    at 700 W, B=160, H=3, the model's own operands; PERF.md): 7.99 ->
+//    5.21 ms at 785 tokens, 16.99 -> 8.43 ms at 1,025 (4.6x and 4.4x the
+//    operations bound); what holds it above the register route's rate is
+//    each CTA's fixed work a head spread over 3-5 chunks, the runs'
+//    unequal chunk counts (3 + 4 at 785) meeting at the maxima's barrier.
+//  * bf16, and fp32 above 5,120 columns: the global route, a simple route
+//    not yet tuned (PERF.md has its time against its bound): the head
+//    mean accumulates in the output map itself, in global memory (zeroed
+//    by the block first, each entry updated by one lane in the same order:
+//    acc = acc + p * (1/H), head by head, so the map is the one the
+//    register route would give), and the entries outside the real block
+//    are zeroed at the end; the softmax loops over a row's steps, writing
+//    e back in place, then p; bf16: the block's fp32 logits stay in
+//    shared memory, in 3 row tiles (48 rows, up to ~900 tokens) or 1 (16
+//    rows, up to ~2,900); fp32: P lies in a scratch buffer in global
+//    memory (32 rows a block, L2-resident while the block runs), and the
+//    8 warps' P V sums meet in shared memory.
 #include "common.cuh"
 
 namespace {
@@ -1300,10 +1325,413 @@ mean_long_kernel(const float* __restrict__ qkv,
   }
 }
 
+// --- above 640 columns: the split route ---------------------------------------
+
+// A thread block cluster of split_ctas(NP) CTAs takes each block of 32
+// query rows, CTA `rank` the keys of its run of 128-key chunks
+// (split_chunks), so that each runs the register route above on at most
+// 640 columns: its logits and P in shared memory, its columns of the head
+// mean in registers. What crosses the cluster goes through distributed
+// shared memory (see the header).
+
+// CTAs of the cluster at NP tokens: 1 up to kLongMaxRegCols columns (the
+// register route, no cluster), ceil(cols / kLongMaxRegCols) up to
+// ppf::kMaxClusterSize (5,120 columns); 0 above, where the global route
+// runs.
+__host__ __device__ inline int split_ctas(int NP) {
+  const int cols = ppf::round_up(NP, kLongChunk);
+  if (cols <= kLongMaxRegCols) return 1;
+  const int cs = (cols + kLongMaxRegCols - 1) / kLongMaxRegCols;
+  return cs <= ppf::kMaxClusterSize ? cs : 0;
+}
+
+// The chunks [lo, hi) of a head's nc that CTA `rank` of a cluster of cs
+// takes: contiguous runs whose lengths differ by one at most, the longer
+// ones last (the row's last chunk, often a ragged one, in one of them);
+// each at most ceil(nc / cs) <= 5 chunks.
+__host__ __device__ inline void split_chunks(int nc, int cs, int rank,
+                                             int& lo, int& hi) {
+  lo = rank * nc / cs;
+  hi = (rank + 1) * nc / cs;
+}
+
+// The split route's shared memory: LongLayout's over the columns of the
+// longest run, then the exchange (the rows' maxima and sums over the
+// CTA's keys, their denominators over the cluster's, and the CTA's
+// kRows x 64 sums of P V).
+struct SplitLayout {
+  int cols, kstride, pstride;
+  size_t pol, red, q, ring, p, x, total;
+  __host__ __device__ SplitLayout(int NP, int hd) {
+    const int cs = split_ctas(NP);
+    const int nc = ppf::round_up(NP, kLongChunk) / kLongChunk;
+    cols = kLongChunk * ((nc + cs - 1) / cs);
+    kstride = hd + 4;
+    pstride = cols + 8;
+    pol = 0;
+    red = ppf::align16(pol + (size_t)cols * sizeof(float));
+    q = ppf::align16(red + (size_t)4 * kRows * sizeof(float));
+    ring = ppf::align16(q + (size_t)2 * kRows * kstride * sizeof(float));
+    p = ppf::align16(ring + (size_t)kLongStages * kLongChunk * kstride *
+                                sizeof(float));
+    const int pf = kRows * pstride > 8 * kRows * 64 ? kRows * pstride
+                                                    : 8 * kRows * 64;
+    x = ppf::align16(p + (size_t)pf * sizeof(float));
+    total = ppf::align16(x + (size_t)(3 + 64) * kRows * sizeof(float));
+  }
+};
+
+// The split route's kernel: CT = SplitLayout(NP, hd).cols / 32 (12, 16
+// or 20), a cluster of split_ctas(NP) CTAs along x a row block. Per head
+// two cluster barriers: the first publishes the rows' maxima (and the
+// previous head's P V sums, which the CTAs then add up: reduce_out), the
+// second, split in two around P V, the rows' sums of e. P V multiplies
+// e + eps/real_n by V and out is divided by the row's denominator at the
+// end, so P V does not wait for the sums. S, e, the sums and p are
+// computed as the register route computes them, and added over the CTAs
+// in rank order.
+template <int CT>
+__global__ void __launch_bounds__(kThreads, 1)
+mean_split_kernel(const float* __restrict__ qkv,
+                  const float* __restrict__ policy, int NP, int C, int H,
+                  int real_n, float scale, float eps_over_n,
+                  float* __restrict__ out, float* __restrict__ map_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  ppf::cg::cluster_group cluster = ppf::cg::this_cluster();
+  const int hd = C / H;
+  const int C3 = 3 * C;
+  const SplitLayout L(NP, hd);
+  float* pol = reinterpret_cast<float*>(smem + L.pol);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  float* qbuf = reinterpret_cast<float*>(smem + L.q);
+  float* ring = reinterpret_cast<float*>(smem + L.ring);
+  // P, whose space also takes the 8 warps' P V sums
+  float* P = reinterpret_cast<float*>(smem + L.p);
+  float* xm = reinterpret_cast<float*>(smem + L.x);  // rows' maxima
+  float* xs = xm + kRows;                            // rows' sums of e
+  float* xd = xs + kRows;  // rows' denominators (the CTA's own)
+  float* xo = xd + kRows;  // the CTA's P V sums, kRows x 64
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.y;
+  // the cluster's CTAs are consecutive along x; CTA rank takes chunks
+  // [c_lo, c_hi) of the head's, keys k_lo on (its column 0)
+  const int cs = split_ctas(NP);
+  const int rank = static_cast<int>(blockIdx.x) % cs;
+  int c_lo, c_hi;
+  split_chunks(ppf::round_up(NP, kLongChunk) / kLongChunk, cs, rank, c_lo,
+               c_hi);
+  const int nc = c_hi - c_lo;  // chunks of K (and of V) a head
+  const int k_lo = c_lo * kLongChunk;
+  // the CTA's columns that hold logits, to the last 32 that hold a key
+  const int live = min(nc * kLongChunk, ppf::round_up(NP - k_lo, 32));
+  const int row0 = blockIdx.x / cs * kRows;
+  const float* qkv_b = qkv + (size_t)b * NP * C3;
+  const float rH = 1.0f / (float)H;
+  const float neg_inf = __uint_as_float(0xff800000u);
+  // S = Q K^T as the register route takes it: a warp 16 rows x 32 keys of
+  // a chunk, a lane 4 x 4 (rows s_r + 4i, keys s_c + 8j)
+  const int s_r = 16 * (warp & 1) + (lane >> 3);
+  const int s_c = 32 * (warp >> 1) + (lane & 7);
+  const bool s_live = row0 + 16 * (warp & 1) < NP;
+  // the softmax and the head mean: block rows srow .. srow + 3; a warp of
+  // pad rows only (a sample's last block) computes nothing of them but
+  // meets the barriers
+  const int srow = 4 * warp;
+  const bool rows_live = row0 + srow < NP;
+  // O = P V: warp kg keys 16 kg .. 16 kg + 15 of every chunk, a lane 8 x 8
+  // of the 32 x 64 outputs (rows o_r + 4i, columns o_c .. o_c + 3 and
+  // o_c + 32 .. o_c + 35)
+  const int kg = warp;
+  const int o_r = lane >> 3;
+  const int o_c = 4 * (lane & 7);
+  // out of head hh for the block's rows r = t / 8 whose rank is r % cs
+  // (columns 8 (t % 8) .. + 7): the CTAs' P V sums in rank order, divided
+  // by the row's denominator
+  auto reduce_out = [&](int hh) {
+    const int r = threadIdx.x >> 3;
+    const int c0 = 8 * (threadIdx.x & 7);
+    const int i = row0 + r;
+    if (r % cs != rank || i >= NP || c0 >= hd) return;
+    float a[8];
+    for (int q = 0; q < cs; ++q) {
+      const float* src = cluster.map_shared_rank(xo, q) + r * 64 + c0;
+      const float4 b0 = *reinterpret_cast<const float4*>(src);
+      const float4 b1 = *reinterpret_cast<const float4*>(src + 4);
+      const float v[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) a[k] = q == 0 ? v[k] : __fadd_rn(a[k], v[k]);
+    }
+    const float denom = xd[r];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) a[k] = __fdiv_rn(a[k], denom);
+    float* dst = out + ((size_t)b * NP + i) * C + hh * hd + c0;
+    *reinterpret_cast<float4*>(dst) = make_float4(a[0], a[1], a[2], a[3]);
+    if (c0 + 4 < hd)
+      *reinterpret_cast<float4*>(dst + 4) = make_float4(a[4], a[5], a[6], a[7]);
+  };
+
+  // the policy of the CTA's columns (0 past its run and past NP)
+  load_policy(policy ? policy + (size_t)b * NP + k_lo : nullptr,
+              min(NP, c_hi * kLongChunk) - k_lo, L.cols, pol);
+  // the head mean of rows srow .. srow + 3, the CTA's columns lane + 32 u
+  float acc[4][CT];
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+    for (int u = 0; u < CT; ++u) acc[rr][u] = 0.f;
+
+  // the stream of chunks, as the register route's: each head's K chunks
+  // of the CTA's run, then its V chunks, with the head's Q rows
+  const size_t chunk = (size_t)kLongChunk * L.kstride;
+  const ppf::CopySteps cps = ppf::copy_steps<float>(hd);
+  int ih = 0, ic = 0, ist = 0, cst = 0;
+  auto fetch = [&]() {
+    if (ih < H) {
+      if (ic == 0)
+        ppf::load_rows_async(qkv_b + (size_t)row0 * C3, C3, ih * hd, hd,
+                             NP - row0, kRows,
+                             qbuf + (ih & 1) * kRows * L.kstride, L.kstride,
+                             cps);
+      const int k0 = k_lo + (ic < nc ? ic : ic - nc) * kLongChunk;
+      ppf::load_rows_async(qkv_b + (size_t)k0 * C3, C3,
+                           (ic < nc ? C : 2 * C) + ih * hd, hd,
+                           (ic < nc ? NP : real_n) - k0, kLongChunk,
+                           ring + ist * chunk, L.kstride, cps);
+    }
+    if (++ic == 2 * nc) {
+      ic = 0;
+      ++ih;
+    }
+    ist = ist + 1 == kLongStages ? 0 : ist + 1;
+    ppf::cp_async_commit();
+  };
+  auto arrive = [&]() {
+    ppf::cp_async_wait<kLongStages - 2>();
+    __syncthreads();
+    fetch();
+    const float* buf = ring + cst * chunk;
+    cst = cst + 1 == kLongStages ? 0 : cst + 1;
+    return buf;
+  };
+
+  for (int k = 0; k < kLongStages - 1; ++k) fetch();
+  for (int h = 0; h < H; ++h) {
+    const float* q = qbuf + (h & 1) * kRows * L.kstride;
+    // S over the CTA's chunks into P (its columns), -inf past NP, and each
+    // lane's row maxima
+    float mx[4] = {neg_inf, neg_inf, neg_inf, neg_inf};
+    for (int c = 0; c < nc; ++c) {
+      const float* kb = arrive();
+      const int k0 = k_lo + c * kLongChunk;
+      if (s_live) {
+        float sv[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) sv[i][j] = 0.f;
+        const int dn = k0 + 32 * (warp >> 1) < NP ? hd : 0;
+#pragma unroll 4
+        for (int d = 0; d < dn; d += 4) {
+          float4 qv[4], kv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            qv[i] = *reinterpret_cast<const float4*>(
+                q + (s_r + 4 * i) * L.kstride + d);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            kv[j] = *reinterpret_cast<const float4*>(
+                kb + (s_c + 8 * j) * L.kstride + d);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              sv[i][j] = fmaf(qv[i].x, kv[j].x, sv[i][j]);
+              sv[i][j] = fmaf(qv[i].y, kv[j].y, sv[i][j]);
+              sv[i][j] = fmaf(qv[i].z, kv[j].z, sv[i][j]);
+              sv[i][j] = fmaf(qv[i].w, kv[j].w, sv[i][j]);
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = k0 + s_c + 8 * j;
+            const float x = col < NP ? __fmul_rn(sv[i][j], scale) : neg_inf;
+            P[(s_r + 4 * i) * L.pstride + col - k_lo] = x;
+            mx[i] = fmaxf(mx[i], x);
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 4));
+      if ((lane & 7) == 0) red[(warp >> 1) * kRows + s_r + 4 * i] = mx[i];
+    }
+    __syncthreads();  // P holds the CTA's logits, red its maxima
+    // barrier 1: the rows' maxima over the CTA's keys published, and the
+    // previous head's P V sums
+    if (threadIdx.x < kRows) {
+      const float* rm = red + threadIdx.x;
+      xm[threadIdx.x] = fmaxf(fmaxf(rm[0], rm[kRows]),
+                              fmaxf(rm[2 * kRows], rm[3 * kRows]));
+    }
+    cluster.sync();
+    if (h > 0) reduce_out(h - 1);
+    // e = exp(s - m) * policy over the CTA's live columns, the row's sum
+    // of e over them (each lane's columns in order, then the warp's
+    // lanes), and e + eps/real_n back over the logits
+    if (rows_live) {
+      for (int rr = 0; rr < 4; ++rr) {
+        float m = neg_inf;
+        for (int r = 0; r < cs; ++r)
+          m = fmaxf(m, cluster.map_shared_rank(xm, r)[srow + rr]);
+        const int i = row0 + srow + rr;
+        float* prow = P + (srow + rr) * L.pstride + lane;
+        float sum = 0.f;
+#pragma unroll
+        for (int u = 0; u < CT; ++u) {
+          if (32 * u < live) {
+            const int c = lane + 32 * u;
+            const float pe = pol[c];
+            const float w =
+                c + k_lo == i ? __fadd_rn(pe, __fsub_rn(1.f, pe)) : pe;
+            const float e = __fmul_rn(expf(__fsub_rn(prow[32 * u], m)), w);
+            prow[32 * u] = __fadd_rn(e, eps_over_n);
+            sum = __fadd_rn(sum, e);
+          }
+        }
+        sum = ppf::warp_sum(sum);
+        if (lane == 0) xs[srow + rr] = sum;
+      }
+    }
+    ppf::cluster_arrive();  // barrier 2: xs published; waited for after P V
+    // O = (e + eps/real_n) V over the CTA's keys, each warp its keys of
+    // each chunk in key order (V rows >= real_n zeros; two steps of 16
+    // unrolled, so that the head mean stays in registers beside O)
+    float o[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) o[i][j] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      const float* vb = arrive();  // its barrier also publishes P
+      const int k0 = c * kLongChunk + 16 * kg;  // the CTA's column
+      if (k_lo + k0 < NP) {
+#pragma unroll 2
+        for (int j = 0; j < 16; ++j) {
+          float p[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) p[i] = P[(o_r + 4 * i) * L.pstride + k0 + j];
+          const float* vrow = vb + (16 * kg + j) * L.kstride + o_c;
+          const float4 v0 = *reinterpret_cast<const float4*>(vrow);
+          const float4 v1 = *reinterpret_cast<const float4*>(vrow + 32);
+          const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) o[i][jj] = fmaf(p[i], v[jj], o[i][jj]);
+        }
+      }
+    }
+    // the rows' sums of e over the CTAs in rank order; p = (e +
+    // eps/real_n) / (sum + 1e-6) over the CTA's live columns by the row's
+    // reciprocal (ppf::div_by_recip) into the head mean, and the row's
+    // denominator for out
+    ppf::cluster_wait();
+    if (rows_live) {
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        float sum = cluster.map_shared_rank(xs, 0)[srow + rr];
+        for (int r = 1; r < cs; ++r)
+          sum = __fadd_rn(sum, cluster.map_shared_rank(xs, r)[srow + rr]);
+        const float denom = __fadd_rn(sum, 1e-6f);
+        const float rcp = __frcp_rn(denom);
+        if (lane == 0) xd[srow + rr] = denom;
+        const float* prow = P + (srow + rr) * L.pstride + lane;
+#pragma unroll
+        for (int u = 0; u < CT; ++u) {
+          if (32 * u < live) {
+            const float p = ppf::div_by_recip(prow[32 * u], denom, rcp);
+            acc[rr][u] = __fadd_rn(acc[rr][u], __fmul_rn(p, rH));
+          }
+        }
+      }
+    }
+    // the 8 warps' sums of P V in warp order, through P's space, into xo
+    __syncthreads();  // every warp is done with P
+    float* part = P + kg * kRows * 64;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float* dst = part + (o_r + 4 * i) * 64 + o_c;
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
+      *reinterpret_cast<float4*>(dst + 32) =
+          make_float4(o[i][4], o[i][5], o[i][6], o[i][7]);
+    }
+    __syncthreads();
+    {
+      // thread t: row t / 8, columns 8 (t % 8) .. + 7
+      const int r = threadIdx.x >> 3;
+      const int c0 = 8 * (threadIdx.x & 7);
+      float4 a0 = *reinterpret_cast<const float4*>(P + r * 64 + c0);
+      float4 a1 = *reinterpret_cast<const float4*>(P + r * 64 + c0 + 4);
+#pragma unroll
+      for (int g = 1; g < kThreads / 32; ++g) {
+        const float* src = P + g * kRows * 64 + r * 64 + c0;
+        const float4 b0 = *reinterpret_cast<const float4*>(src);
+        const float4 b1 = *reinterpret_cast<const float4*>(src + 4);
+        a0.x = __fadd_rn(a0.x, b0.x); a0.y = __fadd_rn(a0.y, b0.y);
+        a0.z = __fadd_rn(a0.z, b0.z); a0.w = __fadd_rn(a0.w, b0.w);
+        a1.x = __fadd_rn(a1.x, b1.x); a1.y = __fadd_rn(a1.y, b1.y);
+        a1.z = __fadd_rn(a1.z, b1.z); a1.w = __fadd_rn(a1.w, b1.w);
+      }
+      *reinterpret_cast<float4*>(xo + r * 64 + c0) = a0;
+      *reinterpret_cast<float4*>(xo + r * 64 + c0 + 4) = a1;
+    }
+  }
+  cluster.sync();  // the last head's P V sums published
+  reduce_out(H - 1);
+  // no CTA leaves while another reads its xo: arrive here, wait at the end
+  ppf::cluster_arrive();
+  // each lane writes the head-mean entries of its run that it holds, 0
+  // outside the real block
+  const int c_end = min(NP, c_hi * kLongChunk) - k_lo;
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr) {
+    const int i = row0 + srow + rr;
+    if (i < NP) {
+      float* dst = map_out + ((size_t)b * NP + i) * NP + k_lo;
+#pragma unroll
+      for (int u = 0; u < CT; ++u) {
+        const int c = lane + 32 * u;
+        if (c < c_end) {
+          const float real = (i < real_n && c + k_lo < real_n) ? 1.f : 0.f;
+          dst[c] = __fmul_rn(acc[rr][u], real);
+        }
+      }
+    }
+  }
+  ppf::cluster_wait();
+}
+
 bool long_tokens(int NP) { return NP >= ppf::kLongMinTokens; }
 
+// Whether the split route takes NP tokens (641 to 5,120 columns).
+bool split_route(int NP) { return long_tokens(NP) && split_ctas(NP) > 1; }
+
 size_t smem_bytes(int NP, int hd) {
+  if (split_route(NP)) return SplitLayout(NP, hd).total;
   return long_tokens(NP) ? LongLayout(NP, hd).total : Layout(NP, hd).total;
+}
+
+// Bytes of the launch's scratch (the global route's P; none on the split
+// route, whose columns would otherwise take the global one).
+size_t scratch_bytes(int B, int NP, int hd) {
+  return split_route(NP) ? 0 : long_scratch_bytes(B, NP, hd);
 }
 
 // Runs the statements given with `kernel` the fp32 long kernel for NP
@@ -1317,9 +1745,20 @@ size_t smem_bytes(int NP, int hd) {
     default: return cudaErrorInvalidValue;                               \
   }
 
+// The same for the split route's kernel (CT = its run's columns / 32).
+#define PPF_DISPATCH_F32_SPLIT(NP, ...)                                   \
+  switch (SplitLayout(NP, 4).cols / 32) {                                 \
+    case 12: { auto kernel = mean_split_kernel<12>; __VA_ARGS__ } break;  \
+    case 16: { auto kernel = mean_split_kernel<16>; __VA_ARGS__ } break;  \
+    case 20: { auto kernel = mean_split_kernel<20>; __VA_ARGS__ } break;  \
+    default: return cudaErrorInvalidValue;                                \
+  }
+
 // The same for the fp32 kernel for NP tokens, the short one too.
 #define PPF_DISPATCH_F32(NP, ...)                                        \
-  if (long_tokens(NP)) {                                                 \
+  if (split_route(NP)) {                                                 \
+    PPF_DISPATCH_F32_SPLIT(NP, __VA_ARGS__)                              \
+  } else if (long_tokens(NP)) {                                          \
     PPF_DISPATCH_F32_LONG(NP, __VA_ARGS__)                               \
   } else {                                                               \
     PPF_DISPATCH_MAXT(NP, {                                              \
@@ -1328,14 +1767,40 @@ size_t smem_bytes(int NP, int hd) {
     });                                                                  \
   }
 
+// CTAs of the fp32 kernel's cluster a row block at NP tokens: 2-8 on the
+// split route, 1 where one CTA takes a row block (up to 640 columns), 0
+// on the global route (above 5,120).
+int cluster_size(int NP) { return long_tokens(NP) ? split_ctas(NP) : 1; }
+
+// The split route's launch of B samples: clusters of split_ctas(NP) CTAs
+// along x, one a row block. `attr` must outlive the launch call.
+cudaLaunchConfig_t split_config(int B, int NP, size_t smem,
+                                cudaStream_t stream,
+                                cudaLaunchAttribute* attr) {
+  return ppf::cluster_launch_config(split_ctas(NP), B, kThreads, smem, stream,
+                                    attr, (NP + kRows - 1) / kRows);
+}
+
 cudaError_t launch(const void* qkv, const float* policy, int B, int NP, int C,
                    int H, int real_n, float scale, float eps_over_n, void* out,
                    float* map, float* scratch, cudaStream_t stream) {
   const size_t smem = smem_bytes(NP, C / H);
   const dim3 grid((NP + kRows - 1) / kRows, B);
-  if (long_scratch_bytes(B, NP, C / H) > 0 && scratch == nullptr)
+  if (scratch_bytes(B, NP, C / H) > 0 && scratch == nullptr)
     return cudaErrorInvalidValue;
-  if (long_tokens(NP)) {
+  if (split_route(NP)) {
+    PPF_DISPATCH_F32_SPLIT(NP, {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+      cudaLaunchAttribute attr[1];
+      const cudaLaunchConfig_t cfg = split_config(B, NP, smem, stream, attr);
+      err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(qkv),
+                               policy, NP, C, H, real_n, scale, eps_over_n,
+                               static_cast<float*>(out), map);
+      if (err != cudaSuccess) return err;
+    });
+  } else if (long_tokens(NP)) {
     PPF_DISPATCH_F32_LONG(NP, {
       cudaError_t err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1373,6 +1838,24 @@ int resident_blocks(int NP, int hd) {
   return blocks;
 }
 
+// Clusters of the split route at NP tokens the card holds at once (0
+// where the route does not run; negative: the cudaError_t of the query).
+int active_clusters(int NP, int hd) {
+  if (!split_route(NP)) return 0;
+  const size_t smem = smem_bytes(NP, hd);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = split_config(1, NP, smem, nullptr, attr);
+  int clusters = 0;
+  PPF_DISPATCH_F32_SPLIT(NP, {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+  });
+  return clusters;
+}
+
 }  // namespace f32k
 
 }  // namespace
@@ -1408,15 +1891,29 @@ extern "C" int ppf_attention_mean_smem_bytes(int NP, int hd, int is_bf16) {
 extern "C" long long ppf_attention_mean_scratch_bytes(int B, int NP, int hd,
                                                       int is_bf16) {
   if (is_bf16 || !f32k::long_tokens(NP)) return 0;
-  return (long long)f32k::long_scratch_bytes(B, NP, hd);
+  return (long long)f32k::scratch_bytes(B, NP, hd);
 }
 
 // The route of the long kernel at NP tokens: 0 where the rows' head mean
-// stays in registers (or below 257 tokens), 1 the global route.
+// stays in registers or, in fp32, on chip over a cluster (and below 257
+// tokens), 1 the global route.
 extern "C" int ppf_attention_mean_global_route(int NP, int hd, int is_bf16) {
   if (is_bf16)
     return bf16k::long_tokens(NP) && bf16k::long_route(NP, hd).st == 0;
-  return f32k::long_tokens(NP) && f32k::long_ct(NP) == 0;
+  return f32k::long_tokens(NP) && f32k::cluster_size(NP) == 0;
+}
+
+// CTAs of the fp32 kernel's cluster a row block of 32 at NP tokens: 2-8
+// on the split route (641 to 5,120 columns), 1 where one CTA takes a row
+// block, 0 on the global route (above 5,120).
+extern "C" int ppf_attention_mean_f32_cluster_size(int NP) {
+  return f32k::cluster_size(NP);
+}
+
+// How many of those clusters the card holds at once (0 off the split
+// route; negative: the cudaError_t of the query).
+extern "C" int ppf_attention_mean_f32_active_clusters(int NP, int hd) {
+  return f32k::active_clusters(NP, hd);
 }
 
 // Blocks of the fp32 kernel for NP tokens at head dim hd an SM holds at

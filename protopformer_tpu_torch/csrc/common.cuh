@@ -654,15 +654,17 @@ __device__ __forceinline__ void zero_radix_smem(int* smem, bool wide = false) {
     reinterpret_cast<int4*>(smem)[e] = make_int4(0, 0, 0, 0);
 }
 
-// Launch configuration of a (cs, B) grid of `threads`-thread CTAs in
-// clusters of cs along x: one sample a cluster, blockIdx.x its CTA's rank
-// and blockIdx.y the sample. `attr` must outlive the launch call.
+// Launch configuration of a (groups * cs, B) grid of `threads`-thread
+// CTAs in clusters of cs along x: `groups` clusters a sample (one by
+// default, blockIdx.x then the CTA's rank), blockIdx.y the sample. `attr`
+// must outlive the launch call.
 inline cudaLaunchConfig_t cluster_launch_config(int cs, int B, int threads,
                                                 size_t smem,
                                                 cudaStream_t stream,
-                                                cudaLaunchAttribute* attr) {
+                                                cudaLaunchAttribute* attr,
+                                                int groups = 1) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs, B, 1);
+  cfg.gridDim = dim3(groups * cs, B, 1);
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;

@@ -50,17 +50,21 @@ _SIGNATURES = {
     "ppf_attention_block_stats": [_VOIDP, _INT, _INT, _INT, _INT, _INT, _INT,
                                   _FLOAT, _FLOAT, _VOIDP, _VOIDP, _VOIDP,
                                   _VOIDP, _VOIDP, _VOIDP],
-    "ppf_attention_block_stats_smem_bytes": [_INT, _INT],
-    "ppf_attention_block_stats_scratch_bytes": [_INT, _INT, _INT],
+    "ppf_attention_block_stats_smem_bytes": [_INT, _INT, _INT],
+    "ppf_attention_block_stats_scratch_bytes": [_INT, _INT, _INT, _INT],
     "ppf_attention_block_stats_cluster_size": [_INT],
     "ppf_attention_block_stats_active_clusters": [_INT, _INT],
-    "ppf_attention_block_stats_long_resident_ctas": [_INT, _INT],
+    "ppf_attention_block_stats_long_resident_ctas": [_INT, _INT, _INT],
+    "ppf_attention_block_stats_heads_cluster_size": [_INT, _INT, _INT],
+    "ppf_attention_block_stats_heads_active_clusters": [_INT, _INT, _INT],
     "ppf_attention_mean": [_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT, _INT,
                            _FLOAT, _FLOAT, _VOIDP, _VOIDP, _VOIDP, _VOIDP],
     "ppf_attention_mean_smem_bytes": [_INT, _INT, _INT],
     "ppf_attention_mean_scratch_bytes": [_INT, _INT, _INT, _INT],
     "ppf_attention_mean_global_route": [_INT, _INT, _INT],
     "ppf_attention_mean_f32_resident_blocks": [_INT, _INT],
+    "ppf_attention_mean_f32_cluster_size": [_INT],
+    "ppf_attention_mean_f32_active_clusters": [_INT, _INT],
     "ppf_attention_mean_bf16_resident_blocks": [_INT, _INT],
     "ppf_attention_core": [_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT, _INT,
                            _INT, _FLOAT, _FLOAT, _FLOAT, _FLOAT, _VOIDP,

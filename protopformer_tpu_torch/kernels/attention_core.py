@@ -129,7 +129,7 @@ def block_stats_cuda(qkv: torch.Tensor, num_heads: int, keep: int,
     lib = _build.library()
     _build.check_smem(
         "attention_block_stats",
-        lib.ppf_attention_block_stats_smem_bytes(N, hd),
+        lib.ppf_attention_block_stats_smem_bytes(N, hd, num_heads),
     )
     dev = qkv.device
     out = torch.empty((B, N, C), dtype=torch.bfloat16, device=dev)
@@ -140,7 +140,7 @@ def block_stats_cuda(qkv: torch.Tensor, num_heads: int, keep: int,
     t = torch.empty(B, dtype=torch.float32, device=dev)
     s = torch.empty((B, N), dtype=torch.float32, device=dev)
     scratch = _scratch(lib, "ppf_attention_block_stats_scratch_bytes", B, N, hd,
-                       device=dev)
+                       num_heads, device=dev)
     with _build.on_device(dev) as stream:
         code = lib.ppf_attention_block_stats(
             qkv.data_ptr(), B, N, C, num_heads, keep, int(exact_discard),

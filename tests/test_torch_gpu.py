@@ -566,16 +566,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 # (1,025), 901 (past the map select's shared-memory band), 1,601
 _PAST_640 = [641, 785, 901, 1025, 1601]
 
+# CTAs of K3 fp32's split route (a cluster shares a row block's keys,
+# each CTA a run of 128-key chunks) at each token count: 2 up to 1,280
+# columns, 3 up to 1,920, 4 up to 2,560; 0 past 5,120, where the global
+# route runs. At 1,281 the last chunk holds a single key, in the
+# cluster's last CTA.
+_SPLIT_CTAS = {641: 2, 785: 2, 901: 2, 1025: 2, 1281: 3, 1601: 3, 2305: 4,
+               5200: 0}
 
-@pytest.mark.parametrize("exact", [True, False])
-@pytest.mark.parametrize("N", _PAST_640 + [2305])
-def test_block_stats_past_640_matches_plain(rng, cuda, exact, N):
-    """K1 past 640 tokens, held as ``test_block_stats_kernel_matches_plain``
-    holds it (B=3, B=2 at 2,305): the heads kernel's accumulator in
-    device memory, in 3 row tiles up to ~2,000 tokens and in 1 above, its
-    passes 2 and 3 looping over a row's steps; K2's select on the stored
-    map in shared memory up to ~850 tokens, read in place above."""
-    B, C, H = (2 if N > 1601 else 3), 192, 3
+
+def _check_block_stats_past_640(rng, cuda, exact, N, H):
+    """K1 at N tokens of H heads (C=192) held as
+    ``test_block_stats_kernel_matches_plain`` holds it, at B=3 (B=2 at
+    2,305, B=1 above)."""
+    B, C = (1 if N > 2305 else 2 if N > 1601 else 3), 192
     qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * C)).astype(np.float32))
     qkv = qkv.to(cuda, torch.bfloat16)
     out, fmap, t, s = ac.fused_attention_block_stats(qkv, H, 0.9, exact)
@@ -592,6 +596,36 @@ def test_block_stats_past_640_matches_plain(rng, cuda, exact, N):
     t_diff = t != p_t.to(t.dtype)
     assert int(t_diff.sum()) <= 1
     assert bool((map_diff.any(dim=1) | ~t_diff).all())
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("N", _PAST_640 + [1281, 2305, 5200])
+def test_block_stats_past_640_matches_plain(rng, cuda, exact, N):
+    """K1 past 640 tokens at 3 heads: the heads kernel on its head split
+    (a cluster of 3 CTAs a band, one a head, each holding its head's
+    logits for whole rows, passes 2 and 3 over a row's steps; the head
+    mean added over the cluster once), 2 row tiles a CTA up to ~3,000
+    tokens and 1 above (5,200); K2's select on the stored map in shared
+    memory up to ~850 tokens, read in place above."""
+    from protopformer_tpu_torch.kernels import _build
+
+    assert _build.library().ppf_attention_block_stats_heads_cluster_size(
+        N, 64, 3) == 3
+    _check_block_stats_past_640(rng, cuda, exact, N, 3)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("N", [785, 2305])
+def test_block_stats_past_640_above_16_heads_keeps_its_route(rng, cuda,
+                                                            exact, N):
+    """K1 past 640 tokens at more heads than the head split takes (24 of
+    head dim 8): the routes with the band's accumulator in device memory,
+    3 row tiles a CTA at 785 tokens and 1 at 2,305, held as above."""
+    from protopformer_tpu_torch.kernels import _build
+
+    assert _build.library().ppf_attention_block_stats_heads_cluster_size(
+        N, 8, 24) == 0
+    _check_block_stats_past_640(rng, cuda, exact, N, 24)
 
 
 @pytest.mark.parametrize("exact", [True, False])
@@ -618,13 +652,19 @@ def test_map_stats_past_640_matches_plain(rng, cuda, exact, N):
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("N", _PAST_640)
 def test_mean_padded_past_640_matches_plain(rng, cuda, dtype, N):
-    """K3 past 640 tokens on its global route (the head mean in the map;
-    fp32 with P in device memory), held as
-    ``test_mean_padded_kernel_matches_plain`` holds it, at B=3."""
+    """K3 past 640 tokens, held as ``test_mean_padded_kernel_matches_plain``
+    holds it, at B=3: fp32 on its split route (``_SPLIT_CTAS`` CTAs a row
+    block of 32, P and the head mean on chip), bf16 on its global route
+    (the head mean in the map)."""
     from protopformer_tpu_torch.kernels import _build
 
     bf16 = int(dtype == torch.bfloat16)
-    assert _build.library().ppf_attention_mean_global_route(N, 64, bf16) == 1
+    lib = _build.library()
+    if bf16:
+        assert lib.ppf_attention_mean_global_route(N, 64, bf16) == 1
+    else:
+        assert lib.ppf_attention_mean_global_route(N, 64, bf16) == 0
+        assert lib.ppf_attention_mean_f32_cluster_size(N) == _SPLIT_CTAS[N]
     qkv, pol = _qkv_policy(rng, 3, N, N, 192)
     qkv, pol = qkv.to(cuda, dtype), pol.to(cuda)
     out, fmap = ac.fused_attention_mean_padded(qkv, pol, 3, real_n=N)
@@ -633,6 +673,32 @@ def test_mean_padded_past_640_matches_plain(rng, cuda, dtype, N):
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     assert _max_err(out, p_out) <= tol
     assert _max_err(fmap, p_map) <= 1e-6
+
+
+@pytest.mark.parametrize("N,NP,cs", [(1281, 1281, 3), (2305, 2305, 4),
+                                     (5200, 5200, 0), (1250, 1408, 3)])
+def test_mean_padded_f32_split_route_edges_match_plain(rng, cuda, N, NP, cs):
+    """K3 fp32 at the split route's edges, held as
+    ``test_mean_padded_past_640_matches_plain`` holds it (B=3, B=1 at
+    5,200): 1,281 tokens (3 CTAs, the last chunk a single key in the last
+    CTA's run), 2,305 (4 CTAs), 5,200 past the cluster's cap on the global
+    route (P in device memory, the head mean in the map), and 1,250 real
+    tokens in NP 1,408 (pad columns past real_n in the last CTA's run:
+    zero V rows, zero map entries)."""
+    from protopformer_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    assert lib.ppf_attention_mean_f32_cluster_size(NP) == cs
+    assert lib.ppf_attention_mean_global_route(NP, 64, 0) == int(NP > 5120)
+    B = 1 if NP > 2305 else 3
+    qkv, pol = _qkv_policy(rng, B, N, NP, 192)
+    qkv, pol = qkv.to(cuda), pol.to(cuda)
+    out, fmap = ac.fused_attention_mean_padded(qkv, pol, 3, real_n=N)
+    p_out, p_map = ac.mean_padded_plain(qkv, pol, 3, real_n=N)
+    torch.cuda.synchronize()
+    assert _max_err(out[:, :N], p_out[:, :N]) <= 1e-5
+    assert _max_err(fmap, p_map) <= 1e-6
+    assert float(fmap[:, N:].abs().sum() + fmap[:, :, N:].abs().sum()) == 0.0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
