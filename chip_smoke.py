@@ -135,7 +135,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
      896 (K5); DeiT-Tiny/16 at 512 px (1,025 tokens, the map select's
      bands read in place) in bf16 speed and fp32; each kernel held against
      its plain version on the path's own operands as in 4g, and at 512 px
-     also K1 in exact mode on the bf16 speed chunk's qkv (a reading);
+     also K1 in exact mode on the bf16 speed chunk's qkv (a reading); the
+     routes that replaced the simple ones past 640 held against them on
+     the same operands: K3 bf16's register route (K4's and K5's attention
+     at 785) with its map bit-equal to the global route's; the select's
+     bands read in place (K2, K1's select) with t and s bit-equal to the
+     band in shared memory's, its route record and resident clusters on
+     both routes printed; K4/K5's normalize bit-equal on both of its
+     routes, its route printed; each record's routes listed in the kernels
+     line;
   4i. the data layer feeding the trainer: a seeded CUB-200-2011 tree of
      JPEGs at the dataset's sizes written under build/ (200 classes, 3
      train and 1 test image each, with images.txt,
@@ -644,10 +652,27 @@ def core_record(name: str, q: torch.Tensor, p, n: int, heads: int) -> dict:
     require(errs["map_vs_plain"] is not None
             and errs["map_vs_plain"] <= 1e-6,
             f"{name}: map outside tolerance of the plain version")
-    # the normalize: one sample's real block over a cluster of CTAs
+    # the normalize: one sample's real block over a cluster of CTAs, its
+    # select's route, and past 640 real rows its map bit-equal to the
+    # normalize of K3's raw map on each route that takes the shape
+    names = {v: k for k, v in stats.SELECT_ROUTES.items()}
     cluster = {"ctas_per_sample": lib.ppf_attention_core_cluster_size(n),
                "resident_clusters":
-                   lib.ppf_attention_core_active_clusters(n, np_)}
+                   lib.ppf_attention_core_active_clusters(n, np_),
+               "route": names[lib.ppf_attention_core_route(n, np_)]}
+    if n > 640:
+        for rt in ("band", "in_place"):
+            cluster[f"resident_clusters_on_{rt}"] = (
+                lib.ppf_attention_core_route_active_clusters(
+                    n, np_, stats.SELECT_ROUTES[rt]))
+            if cluster[f"resident_clusters_on_{rt}"] == 0:
+                continue  # the band does not fit a block
+            other = ac.normalize_on_route(raw, n, rt)
+            torch.cuda.synchronize()
+            cluster[f"bit_equal_on_{rt}"] = torch.equal(
+                other.view(torch.int32), fmap.view(torch.int32))
+            require(cluster[f"bit_equal_on_{rt}"],
+                    f"{name}: the normalize differs on the {rt} route")
     phases = phase_ms(kernel, attention, attention_cluster=(
         fp32 and lib.ppf_attention_mean_f32_cluster_size(np_) > 1))
     # the normalize's bound: the real block's round trip (read once,
@@ -664,7 +689,17 @@ def core_record(name: str, q: torch.Tensor, p, n: int, heads: int) -> dict:
     nbytes = (bq * np_ * c3 * el + bq * np_ * c * el
               + bq * np_ * np_ * 4 + (0 if p is None else bq * np_ * 4))
     peak = FP32_FLOPS if fp32 else BF16_FLOPS
+    routes = None
+    if n > 640:
+        if fp32:
+            attention = "key split"
+        elif lib.ppf_attention_mean_global_route(np_, c // heads, 1):
+            attention = "global"
+        else:
+            attention = "register, 2 row tiles"
+        routes = {"attention": attention, "normalize": cluster["route"]}
     return dict(
+        routes=routes,
         kernel=name.split("[")[0],
         source="protopformer_tpu_torch/csrc/attention_core.cu",
         replaces=("protopformer_tpu/kernels/attention_core.py:126"
@@ -1458,6 +1493,8 @@ def select_reading(what: str, fmap: torch.Tensor, exact: bool,
     route = stats.select_route(n)
     require(torch.equal(t.float(), p_t) and max_err(s, p_s) <= 1e-6,
             f"{what}: t or s differs from the plain version")
+    route["route"] = {v: k for k, v in stats.SELECT_ROUTES.items()}[
+        lib.ppf_map_stats_route(n)]
     nbytes = b * n * n * fmap.element_size() + b * 4 + b * n * 4
     bound_ms, bound_by = bound(nbytes, (2.0 * b * n * n, FP32_FLOPS))
     reading = {
@@ -1478,13 +1515,49 @@ def select_reading(what: str, fmap: torch.Tensor, exact: bool,
     log(f"{what} (the select alone, the model's map): "
         f"{json.dumps(reading)}")
     require(reading["resident_clusters"] > 0, f"{what}: no cluster fits")
-    if exact:
-        # fp32 keys: the last two passes over the compact key lists where
-        # they fit; above 512 tokens the models' maps must take that route
-        log(f"{what}: select route {json.dumps(route)} (band_passes: "
-            f"samples whose lists overflowed)")
-        require(n <= 512 or route["band_passes"] == 0,
-                f"{what}: the key lists overflowed on the model's map")
+    # fp32 keys: the last two passes over the compact key lists where they
+    # fit; above 512 tokens the models' maps must take that route
+    log(f"{what}: select route {json.dumps(route)} (band_passes: samples "
+        f"whose lists overflowed)")
+    require(not exact or n <= 512 or route["band_passes"] == 0,
+            f"{what}: the key lists overflowed on the model's map")
+    if n > 640:
+        # past 640 tokens the bands are read in place: the same key and row
+        # sums as the band in shared memory, the route there before, where
+        # that still fits a block
+        band = stats.SELECT_ROUTES["band"]
+        if lib.ppf_map_stats_route_active_clusters(
+                n, int(fmap.dtype == torch.bfloat16), band) > 0:
+            b_t, b_s = stats.map_stats_on_route(fmap, keep, not exact, "band")
+            torch.cuda.synchronize()
+            require(torch.equal(b_t.view(torch.int32), t.float().view(
+                torch.int32)) and torch.equal(b_s, s),
+                    f"{what}: the in-place route differs from the band's")
+            reading["band_route_ms"] = time_ms(
+                lambda: stats.map_stats_on_route(fmap, keep, not exact,
+                                                 "band"))
+            reading["band_route_resident_clusters"] = (
+                lib.ppf_map_stats_route_active_clusters(
+                    n, int(fmap.dtype == torch.bfloat16), band))
+        log(f"{what}: route {route['route']} beside the band in shared "
+            f"memory: " + json.dumps({k: v for k, v in reading.items()
+                                      if k in ("ms", "band_route_ms",
+                                               "resident_clusters",
+                                               "band_route_resident_clusters")}))
+        require(route["route"] == "in_place",
+                f"{what}: not on the in-place route past 640 tokens")
+
+
+def select_routes(n: int):
+    """The map select's route at ``n`` tokens past 640 (the ``routes`` of
+    a record in the kernels line), else None."""
+    from protopformer_tpu_torch.kernels import _build
+    from protopformer_tpu_torch.kernels import stats
+
+    if n <= 640:
+        return None
+    names = {v: k for k, v in stats.SELECT_ROUTES.items()}
+    return {"select": names[_build.library().ppf_map_stats_route(n)]}
 
 
 def k1_record(qkv: torch.Tensor, heads: int, exact: bool) -> dict:
@@ -1538,6 +1611,7 @@ def k1_record(qkv: torch.Tensor, heads: int, exact: bool) -> dict:
     nbytes = (b * n * c3 * 2 + b * n * c * 2 + b * n * n * (4 if exact else 2)
               + b * 4 + b * n * 4)
     return dict(
+        routes=select_routes(n),
         kernel="fused_attention_block_stats",
         source="protopformer_tpu_torch/csrc/attention_block_stats.cu",
         replaces="protopformer_tpu/kernels/attention_core.py:474",
@@ -1623,6 +1697,7 @@ def k2_record(fmap: torch.Tensor, exact: bool) -> dict:
                        kthvalue=True)
     nbytes = b * n * n * fmap.element_size() + b * 4 + b * n * 4
     return dict(
+        routes=select_routes(n),
         kernel="fused_map_stats",
         source="protopformer_tpu_torch/csrc/map_stats.cu",
         replaces="protopformer_tpu/kernels/stats.py:33",
@@ -2011,7 +2086,8 @@ def k3_bf16_long_reading(qkv: torch.Tensor, pol, heads: int,
     attention phase above 256 tokens; its launches count as K4's or K5's)
     on their operands: its time beside its plain version's and its bound,
     and its blocks an SM and shared memory, printed (out within 1e-2, the
-    map within 1e-6, as ``k3_record``)."""
+    map within 1e-6, as ``k3_record``); past 640 tokens required on the
+    register route, its map bit-equal to the global route's."""
     from protopformer_tpu_torch.kernels import _build
     from protopformer_tpu_torch.kernels import attention_core as ac
 
@@ -2030,6 +2106,21 @@ def k3_bf16_long_reading(qkv: torch.Tensor, pol, heads: int,
     errs = {"out": max_err(out, p_out), "map": max_err(fmap, p_map)}
     require(errs["out"] <= 1e-2 and errs["map"] <= 1e-6,
             f"K3 bf16 NP={n} real_n={real_n}: outside tolerance")
+    if n > 640:
+        # past 640 tokens the register route (the head mean in registers,
+        # 2 row tiles) up to 1,152: its map bit-equal to the global route's
+        # on the same operands, out within 1e-5 of it
+        global_route = bool(lib.ppf_attention_mean_global_route(
+            n, c // heads, 1))
+        g_out, g_map = ac.mean_bf16_global_route(qkv, pol, heads, real_n)
+        torch.cuda.synchronize()
+        same = torch.equal(fmap.view(torch.int32), g_map.view(torch.int32))
+        log(f"K3 bf16 NP={n} real_n={real_n}: route "
+            f"{'global' if global_route else 'register'}; map bit-equal to "
+            f"the global route's {same}, out {max_err(out, g_out)!r} apart")
+        require(not global_route and same and max_err(out, g_out) <= 1e-5,
+                f"K3 bf16 NP={n}: not the register route, or apart from the "
+                "global route")
     nbytes = b * n * c3 * 2 + b * n * 4 + b * n * c * 2 + b * n * n * 4
     bound_ms, bound_by = bound(nbytes, (4.0 * b * n * n * c, BF16_FLOPS))
     log(f"K3 bf16 long NP={n} real_n={real_n} H={heads} B={b} (the "
@@ -3155,6 +3246,7 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
+            **({"routes": rec["routes"]} if rec.get("routes") else {}),
         })
     require(set(kernels.WRAPPERS) == {r["kernel"] for r in records.values()},
             "a kernel of the path has no record")

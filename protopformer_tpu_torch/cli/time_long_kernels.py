@@ -29,15 +29,18 @@ in the order A, B, B, A, and reports the mean of each side's two readings:
   tokens, past 640: K1's head split, K3 fp32's key split); K4 in fp32 on the
   384 and 448 fp32 operands (its attention phase is K3's kernel);
   DeiT-B/16@384's and DeiT-Tiny/16's at 448 and 512 px serving img/s in
-  the three modes (``ServingEngine.throughput_probe``); the 384's bf16 exact
-  ``masked_forward_thresh`` at B=160: img/s, and K4 with its attention
-  phase (K3 bf16's long kernel) on the first K4 call's operands; and K5 on
-  the kernel bench's operands at 577 tokens (real 577 in NP 640, B=256;
-  held against the plain normalize of K3's map) with its attention
-  phase, and K3 bf16 on the bench's operands at 257; and the routes at N <= 256 that share the select's code, on
-  seeded random operands: K1 in both modes and K2 on K1's exact map at
-  197 and 256 tokens, and K5 on the bench's operands at 197 and 256 with
-  its attention phase and its normalize (the call less that phase).
+  the three modes (``ServingEngine.throughput_probe``); the 384's and the
+  448's bf16 exact ``masked_forward_thresh`` at B=160: img/s, and K4 with
+  its attention phase (K3 bf16's long kernel) and its normalize on the
+  first K4 call's operands; K5 on the kernel bench's operands at 577 and
+  785 tokens (real 577 in NP 640, 785 in 896, B=256; held against the
+  plain normalize of K3's map) with its attention phase, and K3 bf16 on
+  the bench's operands at 257; the routes at N <= 256 that share the
+  select's code, on seeded random operands: K1 in both modes and K2 on
+  K1's exact map at 197 and 256 tokens, and K5 on the bench's operands
+  at 197 and 256 with its attention phase and its normalize (the call
+  less that phase); and on the change's side alone its routes past 640
+  side by side (``route_readings``).
 
 B = 160 (a serving chunk) but for the bench's K5. Needs a CUDA card.
 
@@ -212,11 +215,12 @@ def _first_calls(module, names):
             setattr(module, name, fn)
 
 
-def parent_worker(dev: torch.device = torch.device("cuda")
-                  ) -> Dict[str, float]:
+def parent_worker(dev: torch.device = torch.device("cuda"),
+                  routes: bool = False) -> Dict[str, float]:
     """Serve each model of ``MODELS`` with the package on ``sys.path``;
-    hold and time the long kernels on its operands. Returns ms per kernel
-    record and img/s per serving mode."""
+    hold and time the long kernels on its operands, and with ``routes``
+    this tree's routes past 640 side by side (``route_readings``). Returns
+    ms per kernel record and img/s per serving mode."""
     from protopformer_tpu_torch.cli.bench_kernels import _time_ms
     from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
     from protopformer_tpu_torch.kernels import attention_core as ac
@@ -281,11 +285,13 @@ def parent_worker(dev: torch.device = torch.device("cuda")
                 res[f"img_per_sec[{mode}{tag}]"] = probe["img_per_sec"]
             del engine, seen, seen_k2
             torch.cuda.empty_cache()
-        if at == "N=577":
+        if at in ("N=577", "N=785"):
             res.update(thresh_readings(cfg, ppnet, state_dict, dev))
         del state_dict
     res.update(bench_readings(dev))
     res.update(short_readings(dev))
+    if routes:
+        res.update(route_readings(dev))
     return res
 
 
@@ -322,32 +328,43 @@ def thresh_readings(cfg, ppnet, state_dict, dev) -> Dict[str, float]:
     ones = torch.ones(qkv.shape[:2], device=dev)
     res = {}
     name = f"K3[bf16,thresh,{at},H={heads}]"
-    res[name] = _time_ms(_hold_k3(name, qkv, ones, heads), dev, 3, 20)
-    res[f"K4[bf16,thresh,{at},H={heads}]"] = _time_ms(
+    attention = res[name] = _time_ms(_hold_k3(name, qkv, ones, heads), dev,
+                                     3, 20)
+    name = f"K4[bf16,thresh,{at},H={heads}]"
+    res[name] = _time_ms(
         lambda: ac.fused_attention_core(qkv, None, heads, 0.9, 0.2,
                                         ones_policy=True), dev, 3, 20)
-    res["img_per_sec[thresh_bf16_exact]"] = B / (_time_ms(forward, dev, 2, 5)
-                                                 / 1e3)
+    res[f"K4_normalize[bf16,thresh,{at}]"] = res[name] - attention
+    tag = "" if at == "N=577" else f",{at}"
+    res[f"img_per_sec[thresh_bf16_exact{tag}]"] = B / (
+        _time_ms(forward, dev, 2, 5) / 1e3)
     del model, qkv
     torch.cuda.empty_cache()
     return res
 
 
 def bench_readings(dev) -> Dict[str, float]:
-    """K5 on the kernel bench's operands at 577 tokens (real 577 in NP 640,
-    B=256): the whole call and its attention phase (K3 bf16's long
-    kernel); and K3 bf16's long kernel at its least token count, on the
-    bench's unpadded operands at 257."""
+    """K5 on the kernel bench's operands at 577 and 785 tokens (real 577
+    in NP 640, real 785 in NP 896, B=256): the whole call, its attention
+    phase (K3 bf16's long kernel) and, at 785, its normalize (the call
+    less that phase); and K3 bf16's long kernel at its least token count,
+    on the bench's unpadded operands at 257."""
     from protopformer_tpu_torch.cli.bench_kernels import (
         H as BENCH_H, _time_ms, bench_inputs)
 
-    n = 577
-    x = bench_inputs(dev, tokens=n)
-    qkv, pol = x["qkv_pad"], x["policy_pad"]
-    name = "K3[bf16,bench,577 in 640]"
-    res = {name: _time_ms(_hold_k3(name, qkv, pol, BENCH_H, n), dev, 3, 20)}
-    name = "K5[bf16,bench,577 in 640]"
-    res[name] = _time_ms(_hold_k5(name, qkv, pol, BENCH_H, n), dev, 3, 20)
+    res = {}
+    for n in (577, 785):
+        x = bench_inputs(dev, tokens=n)
+        qkv, pol = x["qkv_pad"], x["policy_pad"]
+        at = f"bench,{n} in {qkv.shape[1]}"
+        name = f"K3[bf16,{at}]"
+        attention = res[name] = _time_ms(_hold_k3(name, qkv, pol, BENCH_H, n),
+                                         dev, 3, 20)
+        name = f"K5[bf16,{at}]"
+        res[name] = _time_ms(_hold_k5(name, qkv, pol, BENCH_H, n), dev, 3, 20)
+        if n == 785:
+            res[f"K5_normalize[{at}]"] = res[name] - attention
+        del x, qkv, pol
     x = bench_inputs(dev, tokens=257)
     name = "K3[bf16,bench,257]"
     res[name] = _time_ms(_hold_k3(name, x["qkv"], x["policy"], BENCH_H),
@@ -391,6 +408,87 @@ def short_readings(dev) -> Dict[str, float]:
     return res
 
 
+# token counts of the route readings past 640: one past, 700, DeiT-Tiny/16
+# at 448 px (785) and 849, the last the band in shared memory fits
+ROUTE_TOKENS = (641, 700, 785, 849)
+
+
+def route_readings(dev) -> Dict[str, float]:
+    """This tree's routes past 640 tokens side by side on the same
+    operands, held equal first (a route that differs raises): the map
+    select on its band in shared memory (the route there before) and read
+    in place, on seeded probability maps in fp32 and bf16 at
+    ``ROUTE_TOKENS``, B=160, 16-bit prefix on bf16; K4/K5's normalize on
+    both routes alone (``normalize_on_route``, less a copy of the map it
+    works on) on K3's raw map of seeded operands at 785 (B=160), real 785
+    in NP 896 and real 641 in NP 768 (B=256), and at 700 and 849; K3 bf16
+    on the register and the global route at 785, 897 and 1,025 (B=160),
+    real 785 in NP 896 (B=256) and real 1,025 in NP 1,152."""
+    from protopformer_tpu_torch.cli.bench_kernels import _time_ms
+    from protopformer_tpu_torch.kernels import attention_core as ac
+    from protopformer_tpu_torch.kernels import stats
+
+    gen = torch.Generator().manual_seed(14)
+    res = {}
+    for n in ROUTE_TOKENS:
+        maps = torch.rand((B, n, n), generator=gen)
+        maps = (maps / maps.sum(-1, keepdim=True)).to(dev)
+        keep = n * n - int(n * n * 0.9)
+        for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            m = maps.to(dtype)
+            prefix16 = dtype == torch.bfloat16
+            want = stats.map_stats_cuda(m, keep, prefix16)
+            for route in ("band", "in_place"):
+                got = stats.map_stats_on_route(m, keep, prefix16, route)
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"select N={n} {tag}: {route} "
+                                         "differs")
+                res[f"select_route[{route},{tag},N={n}]"] = _time_ms(
+                    lambda: stats.map_stats_on_route(m, keep, prefix16,
+                                                     route), dev, 3, 20)
+            del m, want, got
+        del maps
+    for b, n, np_ in ((B, 785, 785), (256, 785, 896), (256, 641, 768),
+                      (B, 700, 700), (B, 849, 849)):
+        qkv = torch.randn((b, np_, 576), generator=gen).to(dev,
+                                                            torch.bfloat16)
+        pol = torch.ones((b, np_), device=dev)
+        pol[:, n:] = 0.0
+        _, raw = ac.fused_attention_mean_padded(qkv, pol, 3, n)
+        copy = _time_ms(lambda: raw.clone(), dev, 3, 20)
+        at = f"B={b},{n} in {np_}"
+        outs = {}
+        for route in ("band", "in_place"):
+            outs[route] = ac.normalize_on_route(raw, n, route)
+            res[f"normalize_route[{route},{at}]"] = _time_ms(
+                lambda: ac.normalize_on_route(raw, n, route), dev, 3,
+                20) - copy
+        if not torch.equal(outs["band"], outs["in_place"]):
+            raise AssertionError(f"normalize {at}: the routes differ")
+        del qkv, pol, raw, outs
+        torch.cuda.empty_cache()
+    for b, n, np_ in ((B, 785, 785), (256, 785, 896), (B, 897, 897),
+                      (B, 1025, 1025), (B, 1025, 1152)):
+        qkv = torch.randn((b, np_, 576), generator=gen).to(dev,
+                                                            torch.bfloat16)
+        pol = torch.ones((b, np_), device=dev)
+        pol[:, n:] = 0.0
+        at = f"B={b},{n} in {np_}"
+        out, fmap = ac.fused_attention_mean_padded(qkv, pol, 3, n)
+        g_out, g_map = ac.mean_bf16_global_route(qkv, pol, 3, n)
+        if not (torch.equal(fmap, g_map) and torch.equal(out, g_out)):
+            raise AssertionError(f"K3 bf16 {at}: the routes differ")
+        res[f"K3_global_route[bf16,{at}]"] = _time_ms(
+            lambda: ac.mean_bf16_global_route(qkv, pol, 3, n), dev, 3, 20)
+        res[f"K3_chosen_route[bf16,{at}]"] = _time_ms(
+            lambda: ac.fused_attention_mean_padded(qkv, pol, 3, n), dev, 3,
+            20)
+        del qkv, pol, out, fmap, g_out, g_map
+        torch.cuda.empty_cache()
+    return res
+
+
 def _copy_package(dest: Path) -> Path:
     shutil.rmtree(dest, ignore_errors=True)
     shutil.copytree(ROOT / PACKAGE, dest / PACKAGE,
@@ -431,21 +529,25 @@ def run(against: str = "short", parent: Path = None) -> Dict[str, object]:
     a, b = roots
     readings = {a: [], b: []}
     for side in (a, b, b, a):
+        # the change's own routes side by side, on its side alone
+        extra = ["--routes"] if against == "parent" and side == b else []
         proc = subprocess.run(
             [sys.executable, "-m", f"{PACKAGE}.cli.time_long_kernels",
-             "--worker", against], cwd=roots[side], capture_output=True,
-            text=True)
+             "--worker", against, *extra], cwd=roots[side],
+            capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"the {side} side failed:\n{proc.stderr}")
         readings[side].append(json.loads(proc.stdout.strip().splitlines()[-1]))
     mean = {side: {k: sum(r[k] for r in rs) / len(rs) for k in rs[0]}
             for side, rs in readings.items()}
+    values = {}
+    for k in {**mean[a], **mean[b]}:
+        values[k] = {side: mean[side][k] for side in (a, b)
+                     if k in mean[side]}
+        if len(values[k]) == 2:
+            values[k][f"{b}_over_{a}"] = mean[b][k] / mean[a][k]
     return {"device": torch.cuda.get_device_name(0), "batch": B,
-            "against": against,
-            "values": {k: {a: mean[a][k], b: mean[b][k],
-                           f"{b}_over_{a}": mean[b][k] / mean[a][k]}
-                       for k in mean[a]},
-            "readings": readings}
+            "against": against, "values": values, "readings": readings}
 
 
 def main(argv=None) -> int:
@@ -457,9 +559,13 @@ def main(argv=None) -> int:
                              "(--against parent)")
     parser.add_argument("--worker", choices=("short", "parent"),
                         help="time the package on sys.path and print JSON")
+    parser.add_argument("--routes", action="store_true",
+                        help="with --worker parent, also time this tree's "
+                             "routes past 640 tokens side by side")
     args = parser.parse_args(argv)
     if args.worker:
-        out = short_worker() if args.worker == "short" else parent_worker()
+        out = (short_worker() if args.worker == "short"
+               else parent_worker(routes=args.routes))
     else:
         if args.against == "parent" and args.parent is None:
             parser.error("--against parent needs --parent DIR")

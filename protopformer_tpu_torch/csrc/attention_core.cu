@@ -44,9 +44,12 @@
 // above 512 in a cluster of 16 CTAs with bands of up to 40 rows (37 at
 // 577, ~114 KB of shared memory: two CTAs an SM; measured 0.541 -> 0.437
 // ms at 577, B=160, and 1.08 -> 0.72 ms at real 577 in NP 640, B=256, on
-// an H100 at 700 W, PERF.md), and where a band of fp32 rows no longer fits
-// shared memory (from ~850 real rows) on the select's global route, which
-// reads each CTA's rows of the map in place and rewrites them there. At
+// an H100 at 700 W, PERF.md), and past 640 real rows on the select's
+// in-place route, which reads each CTA's rows of the map in place and
+// rewrites them there, where the rows start on 128-byte lines (NP a
+// multiple of 32: K5's bench pad, 896) or the band no longer fits shared
+// memory (from ~850 real rows); rows that straddle lines (K4 at 785) keep
+// the band, which reads faster there (normalize_route). At
 // B=160, N=577 in fp32
 // K4 moves 429 MB (qkv, out, the map) and its products are 164 GFLOP at
 // H=12: 2.44 ms on the CUDA cores bounds it; the normalize's round trip of
@@ -148,23 +151,62 @@ normalize_kernel(float* __restrict__ map, int NP, int real_n, int keep,
   if constexpr (!kOneStep) ppf::cluster_wait();
 }
 
-// The normalize kernel for real_n real tokens at row stride NP.
-auto normalize_for(int real_n, int NP) {
-  switch (ppf::map_route(real_n, real_n, NP)) {
+// The normalize kernel on `route` (ppf::map_route's numbers).
+auto normalize_kernel_on(int route) {
+  switch (route) {
     case ppf::kMapOneStep: return normalize_kernel<ppf::kMapOneStep>;
     case ppf::kMapLong: return normalize_kernel<ppf::kMapLong>;
     default: return normalize_kernel<ppf::kMapGlobal>;
   }
 }
 
-cudaLaunchConfig_t normalize_config(int B, int NP, int real_n,
+// The normalize's route for the real (real_n, real_n) block at row stride
+// NP: the select's (ppf::map_route), but past kMapLongCols columns the
+// band in shared memory where it fits unless the rows start on 128-byte
+// lines (NP a multiple of 32). The in-place route rewrites each row where
+// it lies, blended, then divided: on rows that straddle lines it reads
+// slower than the band, on aligned ones faster (K5's NP 896; measured at
+// 641-849 real rows, cli.time_long_kernels, PERF.md).
+int normalize_route(int real_n, int NP) {
+  const int route = ppf::map_route(real_n, real_n, NP);
+  if (route == ppf::kMapGlobal && NP % 32 != 0 &&
+      ppf::map_route_takes(ppf::kMapLong, real_n, real_n, NP))
+    return ppf::kMapLong;
+  return route;
+}
+
+cudaLaunchConfig_t normalize_config(int B, int NP, int real_n, int route,
                                     cudaStream_t stream,
                                     cudaLaunchAttribute* attr) {
-  return ppf::cluster_launch_config(ppf::map_cluster_size(real_n), B,
-                                    ppf::kMapThreads,
-                                    ppf::map_select_smem(real_n, real_n, NP),
-                                    stream,
-                                    attr);
+  return ppf::cluster_launch_config(
+      ppf::map_cluster_size(real_n), B, ppf::kMapThreads,
+      ppf::map_route_smem(route, real_n, real_n, NP), stream, attr);
+}
+
+cudaError_t normalize_setup(const cudaLaunchConfig_t& cfg, int route) {
+  const auto kernel = normalize_kernel_on(route);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)cfg.dynamicSmemBytes);
+  return e == cudaSuccess ? ppf::allow_map_clusters(kernel, (int)cfg.gridDim.x)
+                          : e;
+}
+
+// Phase 2 on `route` (-1: the one chosen by shape, normalize_route).
+cudaError_t launch_normalize(float* map, int B, int NP, int real_n, int keep,
+                             float identity_weight, float one_plus_iw,
+                             int route, cudaStream_t stream) {
+  if (route < 0) route = normalize_route(real_n, NP);
+  if (!ppf::map_route_takes(route, real_n, real_n, NP))
+    return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      normalize_config(B, NP, real_n, route, stream, attr);
+  cudaError_t e = normalize_setup(cfg, route);
+  if (e != cudaSuccess) return e;
+  e = cudaLaunchKernelEx(&cfg, normalize_kernel_on(route), map, NP, real_n,
+                         keep, identity_weight, one_plus_iw);
+  return e == cudaSuccess ? cudaGetLastError() : e;
 }
 
 }  // namespace
@@ -182,26 +224,36 @@ extern "C" int ppf_attention_core(const void* qkv, const void* policy, int B,
                                   float identity_weight, float one_plus_iw,
                                   void* out, void* map, void* stream,
                                   void* scratch) {
-  if (ppf::map_route(real_n, real_n, NP) != ppf::kMapGlobal &&
-      !ppf::hist_counts_fit(ppf::map_band_rows(real_n), real_n))
+  if (!ppf::map_route_takes(normalize_route(real_n, NP), real_n, real_n, NP))
     return cudaErrorInvalidValue;
   const int err = ppf_attention_mean(qkv, policy, B, NP, C, H, real_n, is_bf16,
                                      scale, eps_over_n, out, map, stream,
                                      scratch);
   if (err != 0) return err;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = normalize_config(
-      B, NP, real_n, static_cast<cudaStream_t>(stream), attr);
-  const auto kernel = normalize_for(real_n, NP);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)cfg.dynamicSmemBytes);
-  if (e == cudaSuccess) e = ppf::allow_map_clusters(kernel, (int)cfg.gridDim.x);
-  if (e != cudaSuccess) return e;
-  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<float*>(map), NP, real_n,
-                         keep, identity_weight, one_plus_iw);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  return launch_normalize(static_cast<float*>(map), B, NP, real_n, keep,
+                          identity_weight, one_plus_iw, -1,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// Phase 2 alone, in place on a raw (B, NP, NP) fp32 map (phase 1's), on
+// `route` (-1 the one chosen by shape; else ppf_map_stats_route's
+// numbers), for comparing the select's routes on the same map; the other
+// arguments as ppf_attention_core's. cudaErrorInvalidValue where the
+// route does not take the shape.
+extern "C" int ppf_attention_core_normalize(void* map, int B, int NP,
+                                            int real_n, int keep,
+                                            float identity_weight,
+                                            float one_plus_iw, void* stream,
+                                            int route) {
+  return launch_normalize(static_cast<float*>(map), B, NP, real_n, keep,
+                          identity_weight, one_plus_iw, route,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The normalize's select route (ppf_map_stats_route's numbers) for
+// real_n real rows at row stride NP.
+extern "C" int ppf_attention_core_route(int real_n, int NP) {
+  return normalize_route(real_n, NP);
 }
 
 // CTAs per sample (the cluster size) of the normalize launch.
@@ -210,19 +262,26 @@ extern "C" int ppf_attention_core_cluster_size(int real_n) {
 }
 
 // How many of the normalize launch's clusters the card can hold at once
-// (negative: the cudaError_t of the query).
-extern "C" int ppf_attention_core_active_clusters(int real_n, int NP) {
+// on `route` (-1 the one chosen by shape; 0 where the route does not take
+// the shape; negative: the cudaError_t of the query).
+extern "C" int ppf_attention_core_route_active_clusters(int real_n, int NP,
+                                                        int route) {
+  if (route < 0) route = normalize_route(real_n, NP);
+  if (!ppf::map_route_takes(route, real_n, real_n, NP)) return 0;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = normalize_config(1, NP, real_n, nullptr, attr);
+  const cudaLaunchConfig_t cfg =
+      normalize_config(1, NP, real_n, route, nullptr, attr);
   int clusters = 0;
-  const auto kernel = normalize_for(real_n, NP);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)cfg.dynamicSmemBytes);
-  if (e == cudaSuccess) e = ppf::allow_map_clusters(kernel, (int)cfg.gridDim.x);
+  cudaError_t e = normalize_setup(cfg, route);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    e = cudaOccupancyMaxActiveClusters(&clusters, normalize_kernel_on(route),
+                                       &cfg);
   return e == cudaSuccess ? clusters : -static_cast<int>(e);
+}
+
+// The same on the route chosen by shape.
+extern "C" int ppf_attention_core_active_clusters(int real_n, int NP) {
+  return ppf_attention_core_route_active_clusters(real_n, NP, -1);
 }
 
 // ppf_map_stats_select_route for the normalize's select above 256 tokens.

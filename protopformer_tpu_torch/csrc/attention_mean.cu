@@ -82,10 +82,11 @@
 //    models' operands; PERF.md): 6.13 -> 3.35 ms at 577 on K4's operands
 //    (B=160, H=12), 2.56 -> 1.51 ms on K5's bench operands (B=256, real
 //    577 in NP 640, H=3).
-// Above 640 tokens neither long kernel holds a row block's head mean in
-// registers, nor the fp32 one its P in shared memory (at NP = 1,152, P
-// alone would be 148 KB beside a 104 KB ring, and the head mean 144
-// registers a thread).
+// Above 640 tokens the fp32 long kernel holds neither a row block's head
+// mean in registers nor its P in shared memory (at NP = 1,152, P alone
+// would be 148 KB beside a 104 KB ring, and the head mean 144 registers a
+// thread); the bf16 one holds its head mean in registers in 2 row tiles
+// up to 1,152 tokens.
 //  * fp32, up to 5,120 columns (mean_split_kernel, the split route): a
 //    thread block cluster of ceil(cols / 640) CTAs takes each block of 32
 //    rows, CTA r the keys of its run of 128-key chunks (at most 5), so
@@ -111,16 +112,33 @@
 //    operations bound); what holds it above the register route's rate is
 //    each CTA's fixed work a head spread over 3-5 chunks, the runs'
 //    unequal chunk counts (3 + 4 at 785) meeting at the maxima's barrier.
-//  * bf16, and fp32 above 5,120 columns: the global route, a simple route
-//    not yet tuned (PERF.md has its time against its bound): the head
-//    mean accumulates in the output map itself, in global memory (zeroed
+//  * bf16 up to 1,152 tokens (mean_long_kernel<7, 2> up to 896 and
+//    <9, 2> above; K4's attention at DeiT-Tiny/16's 448 px, K5's on its
+//    bench pad to 896): the register route above in 2 row tiles (32 rows,
+//    256 threads), each warp's 4 rows of the head mean in registers, 7 or
+//    9 steps of 4 columns a lane (112 or 144 registers: 3 tiles' 384
+//    threads would spill), ~160 KB of shared memory at 785, one block an
+//    SM; the map is written once at the end. Bound at B=160, NP=785, H=3:
+//    bytes, 588 MB (qkv, out, the fp32 map) = 0.1755 ms. The map is the
+//    global route's bit for bit (the same adds in the same order) and out
+//    too (held to 1e-5, tests/test_torch_gpu.py). Measured against the
+//    global route and against a head split (a cluster of H CTAs, one a
+//    head, each its head's fp32 probabilities of the band in shared
+//    memory, the head mean added over distributed shared memory as K1's
+//    is), in cli.time_long_kernels calls on an H100 at 700 W (PERF.md):
+//    the head split exchanged twice K1's bytes (fp32 probabilities) over
+//    distributed shared memory and read no faster than the global route.
+//  * bf16 above 1,152 tokens, and fp32 above 5,120 columns: the global
+//    route, a simple route not yet tuned (PERF.md has its time against its
+//    bound): the head mean accumulates in the output map itself, in
+//    global memory (zeroed
 //    by the block first, each entry updated by one lane in the same order:
 //    acc = acc + p * (1/H), head by head, so the map is the one the
 //    register route would give), and the entries outside the real block
 //    are zeroed at the end; the softmax loops over a row's steps, writing
 //    e back in place, then p; bf16: the block's fp32 logits stay in
-//    shared memory, in 3 row tiles (48 rows, up to ~900 tokens) or 1 (16
-//    rows, up to ~2,900); fp32: P lies in a scratch buffer in global
+//    shared memory, in 3 row tiles where they fit, else 1 (16 rows, up to
+//    ~2,900 tokens); fp32: P lies in a scratch buffer in global
 //    memory (32 rows a block, L2-resident while the block runs), and the
 //    8 warps' P V sums meet in shared memory.
 #include "common.cuh"
@@ -325,16 +343,26 @@ struct LongLayout {
 };
 
 // The long kernel's route at NP tokens: ST = long_steps(NP) up to 640
-// tokens (the head mean in registers, 3 row tiles), else ST = 0, the
-// global route, in 3 row tiles where their logits fit shared memory, else 1.
+// tokens (the head mean in registers, 3 row tiles); ST = 7 up to 896 and
+// 9 up to 1,152 (the same in 2 row tiles, whose registers hold 4 rows'
+// head mean of 7 or 9 steps a lane: 3 tiles would spill); else ST = 0,
+// the global route, in 3 row tiles where their logits fit shared memory,
+// else 1.
 struct LongRoute {
   int st, tiles;
 };
 
+// The global route at NP tokens (past 1,152 tokens, and on request).
+LongRoute global_route(int NP, int hd) {
+  return {0, LongLayout(NP, hd, 3).total <= ppf::kMaxSmemPerBlock ? 3 : 1};
+}
+
 LongRoute long_route(int NP, int hd) {
   const int st = long_steps(NP);
   if (st <= 5) return {st, 3};
-  return {0, LongLayout(NP, hd, 3).total <= ppf::kMaxSmemPerBlock ? 3 : 1};
+  if (st <= 9 && LongLayout(NP, hd, 2).total <= ppf::kMaxSmemPerBlock)
+    return {st <= 7 ? 7 : 9, 2};
+  return global_route(NP, hd);
 }
 
 // rows kLongRows * blockIdx.x on of sample blockIdx.y; ST and TILES its
@@ -703,22 +731,33 @@ mean_long_kernel(const __nv_bfloat16* __restrict__ qkv,
 
 bool long_tokens(int NP) { return NP >= ppf::kLongMinTokens; }
 
-size_t smem_bytes(int NP, int hd) {
+// The route at NP tokens: long_route's, or with `global` the global
+// route past 640 tokens (the route there before the register route took
+// 641 to 1,152 tokens).
+LongRoute route_of(int NP, int hd, bool global) {
+  return global && long_steps(NP) > 5 ? global_route(NP, hd)
+                                      : long_route(NP, hd);
+}
+
+size_t smem_bytes(int NP, int hd, bool global = false) {
   if (!long_tokens(NP)) return Layout(NP, hd).total;
-  return LongLayout(NP, hd, long_route(NP, hd).tiles).total;
+  return LongLayout(NP, hd, route_of(NP, hd, global).tiles).total;
 }
 
 // Runs the statements given with `kernel` the bf16 kernel for NP tokens at
-// head dim HD and `threads` its block size; returns cudaErrorInvalidValue
-// where none takes NP.
-#define PPF_DISPATCH_BF16(NP, HD, ...)                                     \
+// head dim HD (on the global route past 640 tokens where GLOBAL) and
+// `threads` its block size; returns cudaErrorInvalidValue where none
+// takes NP.
+#define PPF_DISPATCH_BF16(NP, HD, GLOBAL, ...)                             \
   if (long_tokens(NP)) {                                                   \
-    const LongRoute rt = long_route(NP, HD);                               \
+    const LongRoute rt = route_of(NP, HD, GLOBAL);                         \
     const int threads = 32 * kLongWarps * rt.tiles;                        \
     switch (10 * rt.st + rt.tiles) {                                       \
       case 33: { auto kernel = mean_long_kernel<3, 3>; __VA_ARGS__ } break; \
       case 43: { auto kernel = mean_long_kernel<4, 3>; __VA_ARGS__ } break; \
       case 53: { auto kernel = mean_long_kernel<5, 3>; __VA_ARGS__ } break; \
+      case 72: { auto kernel = mean_long_kernel<7, 2>; __VA_ARGS__ } break; \
+      case 92: { auto kernel = mean_long_kernel<9, 2>; __VA_ARGS__ } break; \
       case 3: { auto kernel = mean_long_kernel<0, 3>; __VA_ARGS__ } break;  \
       case 1: { auto kernel = mean_long_kernel<0, 1>; __VA_ARGS__ } break;  \
       default: return cudaErrorInvalidValue;                               \
@@ -731,15 +770,16 @@ size_t smem_bytes(int NP, int hd) {
     });                                                                    \
   }
 
+// `global`: the global route past 640 tokens instead of the chosen one.
 cudaError_t launch(const void* qkv, const float* policy, int B, int NP, int C,
                    int H, int real_n, float scale, float eps_over_n, void* out,
-                   float* map, cudaStream_t stream) {
-  const size_t smem = smem_bytes(NP, C / H);
-  const int long_rows = 16 * long_route(NP, C / H).tiles;
+                   float* map, bool global, cudaStream_t stream) {
+  const size_t smem = smem_bytes(NP, C / H, global);
+  const int long_rows = 16 * route_of(NP, C / H, global).tiles;
   const dim3 grid = long_tokens(NP)
                         ? dim3((NP + long_rows - 1) / long_rows, B)
                         : dim3(((NP + 15) / 16 + kTiles - 1) / kTiles, B);
-  PPF_DISPATCH_BF16(NP, C / H, {
+  PPF_DISPATCH_BF16(NP, C / H, global, {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -754,7 +794,7 @@ cudaError_t launch(const void* qkv, const float* policy, int B, int NP, int C,
 int resident_blocks(int NP, int hd) {
   const size_t smem = smem_bytes(NP, hd);
   int blocks = 0;
-  PPF_DISPATCH_BF16(NP, hd, {
+  PPF_DISPATCH_BF16(NP, hd, false, {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err == cudaSuccess)
@@ -1876,7 +1916,7 @@ extern "C" int ppf_attention_mean(const void* qkv, const void* policy, int B,
   float* m = static_cast<float*>(map);
   if (is_bf16)
     return bf16k::launch(qkv, pol, B, NP, C, H, real_n, scale, eps_over_n, out,
-                         m, st);
+                         m, false, st);
   return f32k::launch(qkv, pol, B, NP, C, H, real_n, scale, eps_over_n, out, m,
                       static_cast<float*>(scratch), st);
 }
@@ -1901,6 +1941,20 @@ extern "C" int ppf_attention_mean_global_route(int NP, int hd, int is_bf16) {
   if (is_bf16)
     return bf16k::long_tokens(NP) && bf16k::long_route(NP, hd).st == 0;
   return f32k::long_tokens(NP) && f32k::cluster_size(NP) == 0;
+}
+
+// K3's bf16 launch on the global route past 640 tokens (below, the route
+// ppf_attention_mean takes), to compare the two routes on the same
+// operands; the arguments as ppf_attention_mean's.
+extern "C" int ppf_attention_mean_bf16_global(const void* qkv,
+                                              const void* policy, int B,
+                                              int NP, int C, int H, int real_n,
+                                              float scale, float eps_over_n,
+                                              void* out, void* map,
+                                              void* stream) {
+  return bf16k::launch(qkv, static_cast<const float*>(policy), B, NP, C, H,
+                       real_n, scale, eps_over_n, out, static_cast<float*>(map),
+                       true, static_cast<cudaStream_t>(stream));
 }
 
 // CTAs of the fp32 kernel's cluster a row block of 32 at NP tokens: 2-8

@@ -751,31 +751,45 @@ __host__ __device__ inline size_t map_band_smem(int rows, int cols,
 }
 
 // The routes of the map select (cluster_map_select), chosen by shape:
-// kMapOneStep up to kRowStep columns; kMapLong above, each CTA's band in
-// shared memory as fp32; kMapGlobal where that band does not fit a block's
-// shared memory (from ~850 tokens at 16 CTAs a sample; 1,025 tokens, DeiT
-// at 512 px, take 65-row bands of 266 KB): each CTA reads its band in
-// place, in the map's own dtype, on every pass (from L2 while the map
-// stays there), and counts into 32-bit histogram copies, so no band size
-// overflows them. The cluster, the lists and the select's digits are the
-// long route's, so every route returns the same key.
+// kMapOneStep up to kRowStep columns; kMapLong up to kMapLongCols, each
+// CTA's band in shared memory as fp32; kMapGlobal above: each CTA reads
+// its band in place, in the map's own dtype, on every pass (from L2 while
+// the map stays there), and counts into 32-bit histogram copies, so no
+// band size overflows them. The band in shared memory fits a block up to
+// ~850 columns, but there it holds one CTA an SM, 7 clusters of 16 on the
+// card, against the in-place route's 42 (35 on a bf16 map): the in-place
+// route reads faster from 641 columns on (cli.time_long_kernels,
+// PERF.md). The cluster, the lists and the select's digits are the long
+// route's, so every route returns the same key.
 constexpr int kMapOneStep = 0;
 constexpr int kMapLong = 1;
 constexpr int kMapGlobal = 2;
+constexpr int kMapLongCols = 640;
 
 __host__ __device__ inline int map_route(int rows, int cols, int stride) {
   if (cols <= kRowStep) return kMapOneStep;
-  return map_band_smem(rows, cols, stride) <= kMaxSmemPerBlock ? kMapLong
-                                                               : kMapGlobal;
+  return cols <= kMapLongCols ? kMapLong : kMapGlobal;
 }
 
-// Shared bytes of one CTA of the select on its route.
-__host__ __device__ inline size_t map_select_smem(int rows, int cols,
-                                                  int stride) {
-  if (map_route(rows, cols, stride) != kMapGlobal)
-    return map_band_smem(rows, cols, stride);
+// Shared bytes of one CTA of the select on `route` (map_route's).
+__host__ __device__ inline size_t map_route_smem(int route, int rows,
+                                                 int cols, int stride) {
+  if (route != kMapGlobal) return map_band_smem(rows, cols, stride);
   return map_gather_offset(true) +
          select_gather_cap(cols) * sizeof(unsigned short);
+}
+
+// Whether `route` takes a map of `rows` x `cols` values at row stride
+// `stride`: the one-step route exactly up to kRowStep columns, the others
+// above, the band in shared memory where it fits a block and the 16-bit
+// histogram counters hold it (the in-place route counts in 32 bits).
+__host__ __device__ inline bool map_route_takes(int route, int rows,
+                                                int cols, int stride) {
+  if (route < kMapOneStep || route > kMapGlobal) return false;
+  if ((route == kMapOneStep) != (cols <= kRowStep)) return false;
+  return route == kMapGlobal ||
+         (map_band_smem(rows, cols, stride) <= kMaxSmemPerBlock &&
+          hist_counts_fit(map_band_rows(rows), cols));
 }
 
 // Lets a kernel take clusters of `cs` CTAs where that is above the portable
@@ -905,7 +919,7 @@ using map_band_t =
 // over the bands. On kMapOneStep and kMapLong (map_route) the CTA loads
 // its band into `smem` (map_band_smem bytes) as fp32, pad columns left
 // out; on kMapGlobal the band is the map's own rows, read in place (`smem`
-// map_select_smem bytes). The rows are whole, so each CTA's epilogue on
+// map_route_smem bytes). The rows are whole, so each CTA's epilogue on
 // `band` needs no cluster traffic. Called by every thread of every CTA.
 // kMapOneStep (cols <= kRowStep) runs cluster_radix_select; the others
 // cluster_radix_select_long, after which the caller calls cluster_wait()

@@ -50,13 +50,18 @@
 // model's maps; PERF.md): 0.574 -> 0.357 ms at 577, 0.126 -> 0.086 ms at
 // 257; as K1's select at 577 0.347 -> 0.251 ms (bf16 map) and 0.556 ->
 // 0.351 ms (fp32).
-// Where a band of fp32 rows no longer fits a CTA's shared memory (from
-// ~850 tokens; DeiT at 512 px has 1,025), the select takes its global
-// route (common.cuh, ppf::map_route): each CTA reads its band of the map
-// where it lies, on each of its passes, and counts into 32-bit histogram
-// copies. Bound there: bytes, the map read once; what holds it above: the
-// passes re-read the band, from L2 where the map stays there (a simple
-// route, not yet tuned).
+// Past 640 tokens (DeiT at 448 px has 785, at 512 px 1,025) the select
+// takes its in-place route (common.cuh, ppf::map_route): each CTA reads
+// its band of the map where it lies, on each of its passes, and counts
+// into 32-bit histogram copies. Its band of fp32 rows would fit shared
+// memory up to ~850 tokens, but there one CTA an SM holds 7 clusters of
+// 16 at once (~23 rounds at B=160) against the in-place route's 42 (35
+// on a bf16 map), which reads faster at every count measured from 641 to
+// 849 (cli.time_long_kernels, PERF.md); a band kept as bf16 (two CTAs an
+// SM, 14 clusters) read between the two. Bound there: bytes, the map
+// read once; what holds it above: the passes re-read the band, from L2
+// where the map stays there. ppf_map_stats_on_route runs a route of the
+// caller's choosing, to compare them on the same maps.
 // Above 256 tokens the same launch is also K1's select, on the map K1's
 // heads kernel stored (attention_block_stats.cu).
 #include "common.cuh"
@@ -82,63 +87,85 @@ map_stats_kernel(const T* __restrict__ map, int N, int keep, bool prefix16,
   if constexpr (kRoute != ppf::kMapOneStep) ppf::cluster_wait();
 }
 
-// The kernel for maps of T at N tokens.
+// The kernel for maps of T on `route` (ppf::map_route's numbers).
 template <typename T>
-auto kernel_for(int N) {
-  switch (ppf::map_route(N, N, N)) {
+auto kernel_for(int route) {
+  switch (route) {
     case ppf::kMapOneStep: return map_stats_kernel<T, ppf::kMapOneStep>;
     case ppf::kMapLong: return map_stats_kernel<T, ppf::kMapLong>;
     default: return map_stats_kernel<T, ppf::kMapGlobal>;
   }
 }
 
-// Whether the 16-bit histogram counters hold the band of a shared-memory
-// route at N tokens (the global route counts in 32 bits).
-bool counters_hold(int N) {
-  return ppf::map_route(N, N, N) == ppf::kMapGlobal ||
-         ppf::hist_counts_fit(ppf::map_band_rows(N), N);
+// The launch configuration of B maps at N tokens on `route`, its kernel
+// set up for it. `attr` must outlive the launch call.
+template <typename T>
+cudaError_t configure(int route, int B, int N, cudaStream_t stream,
+                      cudaLaunchAttribute* attr, cudaLaunchConfig_t& cfg) {
+  if (!ppf::map_route_takes(route, N, N, N)) return cudaErrorInvalidValue;
+  cfg = ppf::cluster_launch_config(ppf::map_cluster_size(N), B,
+                                   ppf::kMapThreads,
+                                   ppf::map_route_smem(route, N, N, N),
+                                   stream, attr);
+  const auto kernel = kernel_for<T>(route);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)cfg.dynamicSmemBytes);
+  return err == cudaSuccess
+             ? ppf::allow_map_clusters(kernel, ppf::map_cluster_size(N))
+             : err;
 }
 
+// route: -1 the one chosen by shape (ppf::map_route), else one of its
+// numbers.
 template <typename T>
 cudaError_t launch(const void* map, int B, int N, int keep, bool prefix16,
-                   unsigned hi, void* t_out, void* s_out,
+                   unsigned hi, void* t_out, void* s_out, int route,
                    cudaStream_t stream) {
-  if (!counters_hold(N)) return cudaErrorInvalidValue;
-  const size_t smem = ppf::map_select_smem(N, N, N);
+  if (route < 0) route = ppf::map_route(N, N, N);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = ppf::cluster_launch_config(
-      ppf::map_cluster_size(N), B, ppf::kMapThreads, smem, stream, attr);
-  const auto kernel = kernel_for<T>(N);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess)
-    err = ppf::allow_map_clusters(kernel, ppf::map_cluster_size(N));
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = configure<T>(route, B, N, stream, attr, cfg);
   if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(map), N, keep,
-                           prefix16, hi, static_cast<float*>(t_out),
+  err = cudaLaunchKernelEx(&cfg, kernel_for<T>(route),
+                           static_cast<const T*>(map), N, keep, prefix16, hi,
+                           static_cast<float*>(t_out),
                            static_cast<float*>(s_out));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <typename T>
-int active_clusters(int N) {
-  const size_t smem = ppf::map_select_smem(N, N, N);
+int active_clusters(int N, int route) {
+  if (route < 0) route = ppf::map_route(N, N, N);
+  if (!ppf::map_route_takes(route, N, N, N)) return 0;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = ppf::cluster_launch_config(
-      ppf::map_cluster_size(N), 1, ppf::kMapThreads, smem, nullptr, attr);
+  cudaLaunchConfig_t cfg;
   int clusters = 0;
-  const auto kernel = kernel_for<T>(N);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = configure<T>(route, 1, N, nullptr, attr, cfg);
   if (err == cudaSuccess)
-    err = ppf::allow_map_clusters(kernel, ppf::map_cluster_size(N));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel_for<T>(route),
+                                         &cfg);
   return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }
 
 }  // namespace
+
+// ppf_map_stats_at_most on a route of the caller's choosing (-1 the one
+// chosen by shape; else ppf_map_stats_route's numbers), for comparing the
+// routes on the same maps; cudaErrorInvalidValue where the route does not
+// take them.
+extern "C" int ppf_map_stats_on_route(const void* map, int map_is_bf16,
+                                      int B, int N, int keep, int prefix16,
+                                      unsigned hi, void* t_out, void* s_out,
+                                      void* stream, int route) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (map_is_bf16)
+    return launch<__nv_bfloat16>(map, B, N, keep, prefix16 != 0, hi, t_out,
+                                 s_out, route, s);
+  return launch<float>(map, B, N, keep, prefix16 != 0, hi, t_out, s_out,
+                       route, s);
+}
 
 // map: (B, N, N) fp32 or bf16 (map_is_bf16), any N; t_out: (B,) fp32;
 // s_out: (B, N) fp32; the key capped at `hi` (0: the top of the key space;
@@ -148,11 +175,8 @@ extern "C" int ppf_map_stats_at_most(const void* map, int map_is_bf16, int B,
                                      int N, int keep, int prefix16,
                                      unsigned hi, void* t_out, void* s_out,
                                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (map_is_bf16)
-    return launch<__nv_bfloat16>(map, B, N, keep, prefix16 != 0, hi, t_out,
-                                 s_out, s);
-  return launch<float>(map, B, N, keep, prefix16 != 0, hi, t_out, s_out, s);
+  return ppf_map_stats_on_route(map, map_is_bf16, B, N, keep, prefix16, hi,
+                                t_out, s_out, stream, -1);
 }
 
 // K2: the same with no cap.
@@ -172,11 +196,18 @@ extern "C" int ppf_map_stats_cluster_size(int N) {
 // 2 the band read in place from global memory (ppf::map_route).
 extern "C" int ppf_map_stats_route(int N) { return ppf::map_route(N, N, N); }
 
-// How many of those clusters the card can hold at once (negative: the
-// cudaError_t of the query).
+// How many of those clusters the card can hold at once on `route` (-1 the
+// one chosen by shape; 0 where the route does not take the shape;
+// negative: the cudaError_t of the query).
+extern "C" int ppf_map_stats_route_active_clusters(int N, int map_is_bf16,
+                                                   int route) {
+  return map_is_bf16 ? active_clusters<__nv_bfloat16>(N, route)
+                     : active_clusters<float>(N, route);
+}
+
+// The same on the route chosen by shape.
 extern "C" int ppf_map_stats_active_clusters(int N, int map_is_bf16) {
-  return map_is_bf16 ? active_clusters<__nv_bfloat16>(N)
-                     : active_clusters<float>(N);
+  return ppf_map_stats_route_active_clusters(N, map_is_bf16, -1);
 }
 
 // The route record of this file's select above 256 tokens (K2, and K1's

@@ -84,11 +84,18 @@ def map_stats_plain(fmap: torch.Tensor, keep: int, prefix16: bool
     return t, masked_row_sums(a, t)
 
 
+# The select's routes (``csrc/common.cuh::map_route``), as
+# ``ppf_map_stats_route`` numbers them: one step up to 256 columns; each
+# CTA's band in shared memory as fp32 (up to 640 columns, and on request
+# to ~850); the band read in place from the map (past 640 columns).
+SELECT_ROUTES = {"one_step": 0, "band": 1, "in_place": 2}
+
+
 def check_map(fmap: torch.Tensor) -> Tuple[int, int]:
     """The checks of ``map_stats_cuda`` on a map: a contiguous (B, N, N)
-    fp32 or bf16 map of any N (up to ~850 tokens each CTA of a sample's
+    fp32 or bf16 map of any N (up to 640 tokens each CTA of a sample's
     cluster holds its band in shared memory; above, it reads the band where
-    the map lies, ``csrc/common.cuh::map_route``). Returns (B, N)."""
+    the map lies, ``SELECT_ROUTES``). Returns (B, N)."""
     if fmap.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"map_stats: map dtype {fmap.dtype} not fp32/bf16")
     if fmap.dim() != 3 or fmap.shape[1] != fmap.shape[2]:
@@ -116,6 +123,26 @@ def map_stats_cuda(fmap: torch.Tensor, keep: int, prefix16: bool
 
 
 map_stats_cuda.launches = 0
+
+
+def map_stats_on_route(fmap: torch.Tensor, keep: int, prefix16: bool,
+                       route: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``map_stats_cuda`` on the select route ``route`` (a key of
+    ``SELECT_ROUTES``) instead of the one the shape picks, to compare the
+    routes on the same maps; counts no launch. Raises where the route does
+    not take the map."""
+    B, N = check_map(fmap)
+    lib = _build.library()
+    t = torch.empty(B, dtype=torch.float32, device=fmap.device)
+    s = torch.empty((B, N), dtype=torch.float32, device=fmap.device)
+    with _build.on_device(fmap.device) as stream:
+        code = lib.ppf_map_stats_on_route(
+            fmap.data_ptr(), int(fmap.dtype == torch.bfloat16), B, N, keep,
+            int(prefix16), 0, t.data_ptr(), s.data_ptr(), stream,
+            SELECT_ROUTES[route],
+        )
+    _build.check_launch(f"map_stats on route {route}", code)
+    return t, s
 
 
 def select_route(tokens: int, launches: str = "map_stats",

@@ -368,9 +368,9 @@ def _mean_bf16_null_policy(qkv, H, real_n):
     (577, 640, 192, 3, "null"),
     (640, 640, 192, 3, "zeros"),
     (640, 640, 768, 12, "null"),
-    # past 640: the global route (the head mean in the map) in 3 row tiles
-    # at 785 (DeiT-Tiny/16 at 448) and 896 (K5's bench pad of it), in 1
-    # at 1,025 (512 px) and 1,601
+    # past 640: the register route in 2 row tiles at 785 (DeiT-Tiny/16 at
+    # 448), 896 (K5's bench pad of it), 1,025 (512 px) and 1,152; the
+    # global route (the head mean in the map) in 1 row tile at 1,601
     (785, 785, 192, 3, "null"),
     (785, 896, 192, 3, "zeros"),
     (1025, 1025, 192, 3, "null"),
@@ -632,12 +632,11 @@ def test_block_stats_past_640_above_16_heads_keeps_its_route(rng, cuda,
 @pytest.mark.parametrize("N", _PAST_640 + [2305])
 def test_map_stats_past_640_matches_plain(rng, cuda, exact, N):
     """K2 past 640 tokens (B=3, B=2 at 2,305): t bit-equal, s within 1e-6;
-    the route is the band in shared memory up to ~850 tokens and the band
-    read in place above (``ppf_map_stats_route``)."""
+    the route is the band read in place (``ppf_map_stats_route``)."""
     from protopformer_tpu_torch.kernels import _build
 
     B = 2 if N > 1601 else 3
-    assert _build.library().ppf_map_stats_route(N) == (1 if N <= 850 else 2)
+    assert _build.library().ppf_map_stats_route(N) == 2
     maps = _prob_maps(rng, B, N).to(cuda)
     if not exact:
         maps = maps.bfloat16()
@@ -654,14 +653,16 @@ def test_map_stats_past_640_matches_plain(rng, cuda, exact, N):
 def test_mean_padded_past_640_matches_plain(rng, cuda, dtype, N):
     """K3 past 640 tokens, held as ``test_mean_padded_kernel_matches_plain``
     holds it, at B=3: fp32 on its split route (``_SPLIT_CTAS`` CTAs a row
-    block of 32, P and the head mean on chip), bf16 on its global route
-    (the head mean in the map)."""
+    block of 32, P and the head mean on chip), bf16 on the register route
+    in 2 row tiles up to 1,152 tokens and on its global route (the head
+    mean in the map) above."""
     from protopformer_tpu_torch.kernels import _build
 
     bf16 = int(dtype == torch.bfloat16)
     lib = _build.library()
     if bf16:
-        assert lib.ppf_attention_mean_global_route(N, 64, bf16) == 1
+        assert lib.ppf_attention_mean_global_route(N, 64, bf16) == int(
+            N > 1152)
     else:
         assert lib.ppf_attention_mean_global_route(N, 64, bf16) == 0
         assert lib.ppf_attention_mean_f32_cluster_size(N) == _SPLIT_CTAS[N]
@@ -728,6 +729,106 @@ def test_core_padded_past_640_pads_exactly_zero(rng, cuda, dtype, N, NP):
     qkv, pol = qkv.to(cuda, dtype), pol.to(cuda)
     out, fmap = ac.fused_attention_core_padded(qkv, pol, 3, N)
     p_out, p_map = ac.core_padded_plain(qkv, pol, 3, N)
+    _check_core(qkv, pol, 3, N, out, fmap, p_out, p_map)
+
+
+# --- past 640 tokens: the routes that replaced the simple ones --------------
+
+@pytest.mark.parametrize("N,NP,C,H", [
+    # one past 640, DeiT-Tiny/16 at 448 (785) and K5's bench pad of it
+    # (896), 897 (9 row steps), 512 px (1,025, and 1,152 as the JAX bench
+    # pads it), at 3, 6, 12 and 24 heads, and 1,153, past the register
+    # route, on the global route
+    (641, 641, 192, 3), (785, 785, 192, 3), (785, 896, 192, 3),
+    (897, 897, 384, 6), (1025, 1025, 192, 3), (785, 785, 768, 12),
+    (1025, 1152, 768, 12), (785, 785, 192, 24), (1153, 1153, 192, 3),
+])
+def test_mean_bf16_past_640_matches_the_global_route(rng, cuda, N, NP, C, H):
+    """K3 bf16 past 640 tokens on the register route (the head mean of 4
+    rows a warp in registers, 2 row tiles a CTA) against the global route
+    on the same operands (``mean_bf16_global_route``): the map bit for bit
+    (K4/K5's order statistic magnifies one ulp), out within 1e-5; and
+    against ``mean_padded_plain`` as ``test_mean_padded_kernel_matches_plain``
+    holds it, the pads exactly 0. B=3 (2 past 1,024 tokens); row 5's query
+    is zero, so its logits tie."""
+    from protopformer_tpu_torch.kernels import _build
+
+    assert _build.library().ppf_attention_mean_global_route(
+        NP, C // H, 1) == int(NP > 1152)
+    qkv, pol = _qkv_policy(rng, 2 if NP > 1024 else 3, N, NP, C)
+    qkv[:, 5, :C] = 0.0
+    qkv, pol = qkv.to(cuda, torch.bfloat16), pol.to(cuda)
+    before = kernels.launch_counts()["fused_attention_mean_padded"]
+    out, fmap = ac.fused_attention_mean_padded(qkv, pol, H, real_n=N)
+    assert kernels.launch_counts()["fused_attention_mean_padded"] == before + 1
+    g_out, g_map = ac.mean_bf16_global_route(qkv, pol, H, N)
+    p_out, p_map = ac.mean_padded_plain(qkv, pol, H, N)
+    torch.cuda.synchronize()
+    assert torch.equal(fmap.view(torch.int32), g_map.view(torch.int32))
+    assert _max_err(out, g_out) <= 1e-5
+    assert _max_err(out[:, :N], p_out[:, :N]) <= 1e-2
+    assert _max_err(fmap, p_map) <= 1e-6
+    assert float(fmap[:, N:].abs().sum() + fmap[:, :, N:].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("N", [641, 700, 785, 849, 850, 1025])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_map_select_past_640_routes_agree(rng, cuda, N, dtype):
+    """The select past 640 tokens reads each CTA's band in place (K2, and
+    K1's select on its stored map); against the band in shared memory (the
+    route there before, which fits a block up to ~850 tokens) and
+    ``map_stats_plain`` on maps with a row and a run of -0.0, at keep = 1,
+    10 % of the entries and all of them, both key widths: t bit-equal
+    (sign bit too), s bit-equal between the routes and within 1e-6 of the
+    plain version."""
+    from protopformer_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    assert lib.ppf_map_stats_route(N) == stats.SELECT_ROUTES["in_place"]
+    maps = _select_maps(rng, 3, N, "signed zeros").to(dtype)
+    on_card = maps.to(cuda)
+    routes = ["in_place"] + (["band"] if N <= 850 else [])
+    for keep in (1, N * N - int(N * N * 0.9), N * N):
+        for prefix16 in (False, True):
+            want_t, want_s = stats.map_stats_plain(maps, keep, prefix16)
+            got = {route: stats.map_stats_on_route(on_card, keep, prefix16,
+                                                   route)
+                   for route in routes}
+            t, s = stats.map_stats_cuda(on_card, keep, prefix16)
+            assert torch.equal(t.view(torch.int32),
+                               got["in_place"][0].view(torch.int32))
+            for rt, rs in got.values():
+                assert torch.equal(rt.cpu().view(torch.int32),
+                                   want_t.view(torch.int32))
+                assert torch.equal(rs, got["in_place"][1])
+                assert _max_err(rs.cpu(), want_s) <= 1e-6
+
+
+@pytest.mark.parametrize("N,NP", [(785, 785), (785, 896), (641, 768),
+                                  (849, 849)])
+def test_core_normalize_past_640_routes_agree(rng, cuda, N, NP):
+    """K4/K5's normalize past 640 real rows: the band in shared memory
+    where the rows straddle 128-byte lines and fit a block (785 and 849 at
+    their own stride), the rows rewritten in place where they start on
+    lines (NP 768, 896). Each launch's map bit-equal to the other route's
+    normalize of K3's raw map (``normalize_on_route``), and held by
+    ``_check_core`` against the plain normalize of that map (which sums a
+    row in another order: kept entries identical, within 1e-6), B=3."""
+    qkv, pol = _qkv_policy(rng, 3, N, NP, 192)
+    qkv, pol = qkv.to(cuda, torch.bfloat16), pol.to(cuda)
+    if NP == N:
+        pol = torch.ones_like(pol)
+        out, fmap = ac.fused_attention_core(qkv, None, 3, ones_policy=True)
+        p_out, p_map = ac.core_plain(qkv, pol, 3)
+    else:
+        out, fmap = ac.fused_attention_core_padded(qkv, pol, 3, N)
+        p_out, p_map = ac.core_padded_plain(qkv, pol, 3, N)
+    _, raw = ac.fused_attention_mean_padded(qkv, pol, 3, N)
+    for route in ("band", "in_place"):
+        other = ac.normalize_on_route(raw, N, route)
+        torch.cuda.synchronize()
+        assert torch.equal(fmap.view(torch.int32), other.view(torch.int32))
     _check_core(qkv, pol, 3, N, out, fmap, p_out, p_map)
 
 

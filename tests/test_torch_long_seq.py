@@ -378,8 +378,9 @@ def test_time_long_kernels_thresh_and_bench_readings(monkeypatch):
     """The readings ``--against parent`` takes beside the serving ones,
     rehearsed on the CPU at B=2 (the plain versions, the host clock):
     the bf16 exact ``masked_forward_thresh`` of ``deit_tiny_patch2_32``
-    (its img/s, K4 and K4's attention phase on the first K4 call's
-    operands), K5 on the kernel bench's operands at 577 tokens and K3 on
+    (its img/s, K4, K4's attention phase and its normalize on the first K4
+    call's operands), K5 and its attention phase on the kernel bench's
+    operands at 577 and 785 tokens (and K5's normalize at 785) and K3 on
     them at 257, each case held against its plain version before it is
     timed."""
     from protopformer_tpu_torch.cli import bench_kernels
@@ -400,11 +401,17 @@ def test_time_long_kernels_thresh_and_bench_readings(monkeypatch):
     got = tl.thresh_readings(cfg, ppnet, state_dict, cpu)
     got.update(tl.bench_readings(cpu))
     assert set(got) == {"K3[bf16,thresh,N=257,H=3]", "K4[bf16,thresh,N=257,H=3]",
-                        "img_per_sec[thresh_bf16_exact]",
+                        "K4_normalize[bf16,thresh,N=257]",
+                        "img_per_sec[thresh_bf16_exact,N=257]",
                         "K3[bf16,bench,577 in 640]",
                         "K5[bf16,bench,577 in 640]",
+                        "K3[bf16,bench,785 in 896]",
+                        "K5[bf16,bench,785 in 896]",
+                        "K5_normalize[bench,785 in 896]",
                         "K3[bf16,bench,257]"}
-    assert all(v > 0 for v in got.values())
+    # a normalize is a difference of two host-clock times
+    assert all(v > 0 for k, v in got.items() if "normalize" not in k)
+    assert all(math.isfinite(v) for v in got.values())
 
 
 def test_time_long_kernels_short_readings(monkeypatch):
