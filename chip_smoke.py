@@ -35,7 +35,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      and 2000 global prototypes answers requests of 1, 160 and 333 images;
      every kernel launch counter is set to 0 just before a mode's requests
      and read just after, and must show the launches that mode's forward
-     makes; then throughput_probe at B=160 and a torch.profiler breakdown
+     makes; then a torch.profiler breakdown
      of one chunk's forward (device-busy time, idle share, top kernels);
   4b. the threshold-pruning forward (DeiTBackbone.masked_forward_thresh,
      eager rollout) at full depth and B=160 on the same weights: bf16
@@ -50,8 +50,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      prototypes and classes, reserve at class-attention block 1 keeping
      81) answers the same requests; the launch counters must read 0 for
      every kernel (its blocks and its signed statistics run no kernel of
-     kernels/); a throughput_probe of 1,600 images, 2 reps, and a profile
-     of one chunk; then on 2 images the card against the CPU: fp32
+     kernels/); a profile of one chunk; then on 2 images the card against the CPU: fp32
      cls_token_attn within 1e-5, logits within 1e-4 and the same top-81;
      bf16 speed and exact keep at least 76 of the CPU fp32 top-81, drop
      none of fp32 rank below 60, and keep the logits within phase 5's
@@ -77,8 +76,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
   4f. DeiT-Small/16@224 and DeiT-Base/16@224 PPNets at the CUB preset
      (2000 + 2000 prototypes of width 192, 200 classes, reserve 81 at block
      11; seeded weights), B=160: DeiT-S served in the three modes, DeiT-B in
-     bf16 speed and fp32, each with the launch counters on one chunk, a
-     throughput_probe and a profile of one chunk; K1 (6 and 12 heads, by
+     bf16 speed and fp32, each with the launch counters on one chunk
+     and a profile of one chunk; K1 (6 and 12 heads, by
      k1_contract, whose differing-entries limit grows with the heads), K3
      and K2 against their plain versions on the model's
      own qkv and maps, timed and bounded; fp32 card vs CPU on 2 images
@@ -96,7 +95,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      stats_kernel="off" and
      rollout_discard_sample=4, fp32 with rollout_stats_batched="on" (no
      kernel; logits within 1e-4 of the kernel-on fp32 forward, the same
-     top-81), each with img/s; BaseNet and DistilledDeiT over DeiT-Tiny,
+     top-81); BaseNet and DistilledDeiT over DeiT-Tiny,
      B=32, fp32: no kernel launched, logits of 8 images within 1e-4 of the
      CPU's;
   4g. token counts above 256: the DeiT-B/16@384 PPNet (577 tokens, 12
@@ -188,12 +187,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      10 steps; the mesh ServingEngine (every card, or card 0 twice) in
      fp32 at B=160 a device against the one-device engine (logits within
      1e-5, the same top-81 and top_class; a chunk launches each kernel
-     once a device) with both img/s; bf16 speed serving plain, int8
+     once a device); bf16 speed serving plain, int8
      (quantize="int8") and with ln_stats "mxu" and "compute" at B=160,
      each against the fp32 engine (phase 5's contract on 2 images, the
-     160-image readings recorded), launching K1 x 11 + K3 x 1 a chunk, with
-     its img/s; a profile of an int8 chunk, and a utils.profiling.trace of
-     one int8 chunk whose file holds its annotate span; every line with
+     160-image readings recorded), launching K1 x 11 + K3 x 1 a chunk; a
+     profile of an int8 chunk, and a utils.profiling.trace of
+     one int8 chunk whose file holds its span; every line with
      the card's name and power limit;
   5. the card against the CPU: fp32 parity on 2 images (logits within
      1e-4, the same top-81 tokens), and bf16 speed and bf16 exact against
@@ -234,8 +233,6 @@ NP = 256  # K5's padded token count (the JAX kernel bench's)
 N_GATHERED = 82  # CLS + the 81 kept tokens after the prune-point gather
 DISCARD = 0.9
 REQUESTS = (1, 160, 333)
-PROBE_IMAGES = 160 * 8
-CAIT_PROBE_IMAGES = 160 * 10
 TRAIN_B = 128  # scripts/train_cub.sh's default batch
 # CUB-200-2011's 5,994 training images in full batches of 128
 TRAIN_STEPS_PER_EPOCH = 5994 // TRAIN_B
@@ -545,8 +542,11 @@ def phase_ms(kernel, attention, reps: int = 5,
     events = sorted(prof.events(), key=lambda e: e.time_range.start)
     work = [e.name for e in events if e.device_type == DeviceType.CPU
             and any(w in e.name for w in ("Launch", "Memcpy", "Memset"))]
-    device = {e.name for e in events if e.device_type == DeviceType.CUDA}
-    kept = sum(e.device_type == DeviceType.CUDA for e in events)
+    # a user annotation (the kernel entry's span) spans kernels, not work
+    ran = [e for e in events if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    device = {e.name for e in ran}
+    kept = len(ran)
     launch = "cudaLaunchKernelExC" if attention_cluster else "cudaLaunchKernel"
     require(work == [launch, "cudaLaunchKernelExC"] * reps
             and all("mean_" in n or "normalize_kernel" in n for n in device),
@@ -806,7 +806,7 @@ def profile_chunk(forward, reps: int = 3, top: int = 8) -> dict:
 
 
 def serve(dev: torch.device, state_dict, rng: np.random.Generator) -> dict:
-    """Returns {mode: {"launches": {...}, "img_per_sec": x}}."""
+    """Returns {mode: {"launches": {...}}}."""
     from protopformer_tpu_torch import kernels
     from protopformer_tpu_torch.serving import ServingEngine
 
@@ -835,11 +835,8 @@ def serve(dev: torch.device, state_dict, rng: np.random.Generator) -> dict:
                     f"serve {mode}: non-finite output for {n} images")
             require(bool((res.top_class == res.logits.argmax(-1)).all()),
                     f"serve {mode}: top_class is not the argmax")
-        probe = engine.throughput_probe(n_images=PROBE_IMAGES, reps=3)
-        log(f"serve {mode}: throughput_probe {json.dumps(probe)}")
         log(f"serve {mode}: profile {json.dumps(profile_forward(engine))}")
-        results[mode] = {"launches": launches,
-                         "img_per_sec": probe["img_per_sec"]}
+        results[mode] = {"launches": launches}
         del engine
     return results
 
@@ -1114,8 +1111,8 @@ def bench(dev: torch.device, tokens: int = N, path: str = "bench") -> dict:
 
 def cait(dev: torch.device, rng: np.random.Generator) -> dict:
     """CaiT-XXS-24 PPNet serving in three modes, each launching no kernel,
-    then the card against the CPU on 2 images. Returns {mode: {"launches",
-    "img_per_sec"}}."""
+    then the card against the CPU on 2 images. Returns {mode:
+    {"launches"}}."""
     from protopformer_tpu_torch import kernels
     from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
     from protopformer_tpu_torch.models import construct_ppnet
@@ -1153,16 +1150,13 @@ def cait(dev: torch.device, rng: np.random.Generator) -> dict:
                              and np.isfinite(res.cls_token_attn).all()),
                     f"serve {mode}: wrong shape or non-finite output for "
                     f"{n} images")
-        probe = engine.throughput_probe(n_images=CAIT_PROBE_IMAGES, reps=2)
-        log(f"serve {mode}: throughput_probe {json.dumps(probe)}")
         # one forward: a CaiT chunk makes ~10,000 launches, and reading
         # their trace takes seconds per forward
         t0 = time.perf_counter()
         log(f"serve {mode}: profile "
             f"{json.dumps(profile_forward(engine, reps=1))} "
             f"({time.perf_counter() - t0:.1f} s)")
-        results[mode] = {"launches": launches,
-                         "img_per_sec": probe["img_per_sec"]}
+        results[mode] = {"launches": launches}
         del engine
 
     imgs = rng.integers(0, 256, (2, 224, 224, 3), dtype=np.uint8)
@@ -1415,12 +1409,6 @@ def step_contract(cpu: dict, card: dict, replay: dict) -> dict:
 
 # --- phase 4f: DeiT-S/B at width, push_forward, the kernel-off structure ----------
 
-SB_PROBE_IMAGES = {"deit_small_patch16_224": PROBE_IMAGES,
-                   "deit_base_patch16_224": 160 * 10,
-                   "deit_base_patch16_384": 160 * 4,
-                   "deit_tiny_patch2_32": PROBE_IMAGES,
-                   "deit_tiny_patch16_224@448": 160 * 4,
-                   "deit_tiny_patch16_224@512": 160 * 4}
 # the path and record tag of each preset served at width
 WIDTH_TAGS = {"deit_small_patch16_224": "deit_s",
               "deit_base_patch16_224": "deit_b",
@@ -1428,7 +1416,6 @@ WIDTH_TAGS = {"deit_small_patch16_224": "deit_s",
               "deit_tiny_patch2_32": "deit_t_p2",
               "deit_tiny_patch16_224@448": "deit_t448",
               "deit_tiny_patch16_224@512": "deit_t512"}
-OFF_PROBE_IMAGES = PROBE_IMAGES
 UNPRUNED_B = 32
 NO_LAUNCHES = {name: 0 for name in expected_launches("fp32_parity", 0)}
 
@@ -1714,7 +1701,7 @@ def serve_width(dev: torch.device, preset: str, modes: tuple,
     """A DeiT PPNet of ``preset`` (WIDTH_TAGS; ``preset_config``'s names)
     at the CUB preset (seeded
     weights) served at B=160 in ``modes``: per mode one chunk with the
-    launch counters, a throughput probe and a profile of one chunk; the
+    launch counters and a profile of one chunk; the
     kernels against their plain versions on the model's own qkv and maps
     (K3 in bf16 at N=82 on the 224 presets only: the gathered block has the
     same shape at every image size); the card against the
@@ -1726,7 +1713,7 @@ def serve_width(dev: torch.device, preset: str, modes: tuple,
     readings
     of the card against the CPU's forward in the same mode and of the
     CPU's own bf16 against its fp32 (recorded: ranks among bf16 scores
-    move with one ulp). Returns ({path: {"launches", "img_per_sec"}},
+    move with one ulp). Returns ({path: {"launches"}},
     {record name: partial record}, state dict, images)."""
     from protopformer_tpu_torch import kernels
     from protopformer_tpu_torch.core.config import PPNetConfig
@@ -1767,13 +1754,9 @@ def serve_width(dev: torch.device, preset: str, modes: tuple,
                 and bool(np.isfinite(res.logits).all()
                          and np.isfinite(res.cls_token_attn).all()),
                 f"serve {tag} {mode}: wrong shape or non-finite output")
-        probe = engine.throughput_probe(n_images=SB_PROBE_IMAGES[preset],
-                                        reps=2)
-        log(f"serve {tag} {mode}: throughput_probe {json.dumps(probe)}")
         log(f"serve {tag} {mode}: profile "
             f"{json.dumps(profile_forward(engine, reps=1))}")
-        results[f"{tag}_{mode}"] = {"launches": launches,
-                                    "img_per_sec": probe["img_per_sec"]}
+        results[f"{tag}_{mode}"] = {"launches": launches}
         # the kernels on this model's own operands (not counted)
         dev_chunk = torch.from_numpy(chunk).to(dev)
         with first_call(layers, "fused_attention_block_stats") as k1, \
@@ -1918,8 +1901,7 @@ def kernel_off_phase(dev: torch.device, state_dict,
     images the tail of a bf16 selection reaches lower fp32 ranks than over
     phase 5's 2); K2's bf16 mode against its plain version on the path's
     own map.
-    Returns ({path: {"launches", "img_per_sec"}}, {record name: partial
-    record})."""
+    Returns ({path: {"launches"}}, {record name: partial record})."""
     from protopformer_tpu_torch import kernels
     from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
     from protopformer_tpu_torch.models import deit
@@ -1980,10 +1962,7 @@ def kernel_off_phase(dev: torch.device, state_dict,
                     + 2e-2 * np.abs(on.logits))
                 require(bool((excess <= 0).all()),
                         f"{path}: logits outside phase 5's bound")
-        probe = engine.throughput_probe(n_images=OFF_PROBE_IMAGES, reps=2)
-        log(f"{path}: throughput_probe {json.dumps(probe)}")
-        results[path] = {"launches": launches,
-                         "img_per_sec": probe["img_per_sec"]}
+        results[path] = {"launches": launches}
         if path == "off_bf16_speed_k2":
             with first_call(deit, "fused_map_stats") as k2:
                 engine._forward(torch.from_numpy(chunk).to(dev))
@@ -2961,23 +2940,19 @@ def mesh_phase(dev: torch.device, state_dict,
     err = float(np.abs(got.logits - want.logits).max())
     same = all(a == b for a, b in zip(top81(got.cls_token_attn),
                                       top81(want.cls_token_attn)))
-    probe = engine.throughput_probe(n_images=PROBE_IMAGES, reps=3)
-    base = single.throughput_probe(n_images=PROBE_IMAGES, reps=3)
     log(f"mesh_fp32: {mesh}, B={B} a device; {len(imgs)} images against "
         f"the one-device engine: logits max abs err {err!r}, same top-81 "
         f"{same}, same top_class "
         f"{bool((got.top_class == want.top_class).all())}; launches of a "
         f"chunk {json.dumps(launches)} (one device's chunk "
-        f"{json.dumps(one_chunk)}); img/s {probe['img_per_sec']!r} "
-        f"(one device {base['img_per_sec']!r}); {nvidia_smi_line()}")
+        f"{json.dumps(one_chunk)}); {nvidia_smi_line()}")
     require(err <= 1e-5 and same
             and bool((got.top_class == want.top_class).all()),
             "mesh_fp32: differs from the one-device engine")
     require(launches == {k: v * mesh.size for k, v in one_chunk.items()}
             and one_chunk == expected_launches("fp32_parity", 1),
             "mesh_fp32: a chunk did not launch each kernel once a device")
-    return {"mesh_fp32": {"launches": launches,
-                          "img_per_sec": probe["img_per_sec"]}}
+    return {"mesh_fp32": {"launches": launches}}
 
 
 def options_phase(dev: torch.device, state_dict,
@@ -3018,21 +2993,18 @@ def options_phase(dev: torch.device, state_dict,
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
         overlap, worst = selection(got.cls_token_attn, ref.cls_token_attn)
-        probe = engine.throughput_probe(n_images=PROBE_IMAGES, reps=3)
         log(f"{path}: over {B} images against fp32, top-81 overlap min "
             f"{min(overlap)} mean {float(np.mean(overlap))!r}, images "
             f"dropping an fp32 rank below 64: "
             f"{sum(1 for r in worst if r is not None and r < 64)}; "
-            f"launches {json.dumps(launches)}; img/s "
-            f"{probe['img_per_sec']!r}; {nvidia_smi_line()}")
+            f"launches {json.dumps(launches)}; {nvidia_smi_line()}")
         held = bf16_contract(f"{path} vs fp32 (2 images)", got._replace(
             logits=got.logits[:2], cls_token_attn=got.cls_token_attn[:2]),
             two)
         require(held, f"{path}: outside phase 5's contract against fp32")
         require(launches == expected_launches("bf16_speed", 1),
                 f"{path}: expected the bf16 speed launches")
-        results[path] = {"launches": launches,
-                         "img_per_sec": probe["img_per_sec"]}
+        results[path] = {"launches": launches}
         if overrides.get("quantize") == "int8":
             log(f"{path}: profile {json.dumps(profile_forward(engine))}")
             (ROOT / "build").mkdir(exist_ok=True)
@@ -3040,7 +3012,7 @@ def options_phase(dev: torch.device, state_dict,
                                               dir=ROOT / "build"))
             chunk = torch.from_numpy(imgs).to(dev)
             with profiling.trace(str(trace_dir)):
-                with profiling.annotate("ppf_int8_chunk"):
+                with profiling.span("ppf_int8_chunk"):
                     engine._forward(chunk)
                 torch.cuda.synchronize()
             files = [f for f in trace_dir.iterdir()
@@ -3048,14 +3020,14 @@ def options_phase(dev: torch.device, state_dict,
             require(len(files) == 1, "profiling.trace wrote no trace file")
             text = files[0].read_text()
             log(f"profiling.trace: {files[0].name}, {len(text)} bytes, the "
-                f"annotate span in it {'ppf_int8_chunk' in text}; device "
+                f"span in it {'ppf_int8_chunk' in text}; device "
                 "memory MiB " + json.dumps({
                     d: {k: round(v, 1) for k, v in s.items()
                         if k in ("allocated_bytes.all.peak",
                                  "reserved_bytes.all.current")}
                     for d, s in profiling.device_memory_stats().items()}))
             require("ppf_int8_chunk" in text,
-                    "profiling.trace: the annotate span is missing")
+                    "profiling.trace: the span is missing")
     return results
 
 
@@ -3125,7 +3097,7 @@ def main() -> int:
     card_vs_cpu(dev, state_dict, rng)
     log(f"card vs cpu: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    cait_served = cait(dev, rng)
+    cait(dev, rng)
     log(f"cait: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     trained = train_phase(dev)
@@ -3250,15 +3222,12 @@ def main() -> int:
         })
     require(set(kernels.WRAPPERS) == {r["kernel"] for r in records.values()},
             "a kernel of the path has no record")
-    log("serving img/s: " + json.dumps(
-        {m: r["img_per_sec"] for m, r in {**served, **cait_served,
-                                          **wide, **long}.items()
-         if "img_per_sec" in r}))
     log("train img/s (B=128): " + json.dumps(
         {m: r["img_per_sec"] for m, r in {**trained, **fed}.items()
          if "img_per_sec" in r}))
     log("phase 4k img/s: " + json.dumps(
-        {m: r["img_per_sec"] for m, r in multi.items()}))
+        {m: r["img_per_sec"] for m, r in multi.items()
+         if "img_per_sec" in r}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

@@ -27,10 +27,8 @@ in the order A, B, B, A, and reports the mean of each side's two readings:
   serving map (t bit-equal to ``map_stats_plain``, s within 1e-6), K3 in
   fp32; the same for DeiT-Tiny/16 at 448 and 512 px (785 and 1,025
   tokens, past 640: K1's head split, K3 fp32's key split); K4 in fp32 on the
-  384 and 448 fp32 operands (its attention phase is K3's kernel);
-  DeiT-B/16@384's and DeiT-Tiny/16's at 448 and 512 px serving img/s in
-  the three modes (``ServingEngine.throughput_probe``); the 384's and the
-  448's bf16 exact ``masked_forward_thresh`` at B=160: img/s, and K4 with
+  384 and 448 fp32 operands (its attention phase is K3's kernel); the
+  384's and the 448's bf16 exact ``masked_forward_thresh`` at B=160: img/s, and K4 with
   its attention phase (K3 bf16's long kernel) and its normalize on the
   first K4 call's operands; K5 on the kernel bench's operands at 577 and
   785 tokens (real 577 in NP 640, 785 in 896, B=256; held against the
@@ -77,15 +75,11 @@ MODELS = {"N=577": ("deit_base_patch16_384", {}),
           "N=257": ("deit_tiny_patch2_32", {}),
           "N=785": ("deit_tiny_patch16_224", {"img_size": 448}),
           "N=1025": ("deit_tiny_patch16_224", {"img_size": 512})}
-# the models whose serving img/s is read in each mode (ServingEngine's
-# throughput_probe)
-PROBED = ("N=577", "N=785", "N=1025")
 MODES = ("bf16_speed", "bf16_exact", "fp32_parity")
 # (N, C, H) of the parent comparison's short readings: DeiT-Tiny and
 # DeiT-B's heads at 197, and the short route's largest N
 SHORT_CASES = ((197, 192, 3), (197, 768, 12), (256, 192, 3))
 B = 160
-PROBE_IMAGES = 3 * B
 
 
 def _bf16_ulp(x: torch.Tensor) -> float:
@@ -220,7 +214,7 @@ def parent_worker(dev: torch.device = torch.device("cuda"),
     """Serve each model of ``MODELS`` with the package on ``sys.path``;
     hold and time the long kernels on its operands, and with ``routes``
     this tree's routes past 640 side by side (``route_readings``). Returns
-    ms per kernel record and img/s per serving mode."""
+    ms per kernel record."""
     from protopformer_tpu_torch.cli.bench_kernels import _time_ms
     from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
     from protopformer_tpu_torch.kernels import attention_core as ac
@@ -279,10 +273,6 @@ def parent_worker(dev: torch.device = torch.device("cuda"),
                 name = f"K1_select[{mode[5:]},{at}]"
                 res[name] = _time_ms(_hold_k2(name, fmap, exact), dev, 3, 20)
                 del qkv, fmap
-            if at in PROBED:
-                probe = engine.throughput_probe(n_images=PROBE_IMAGES, reps=2)
-                tag = "" if at == "N=577" else f",{at}"
-                res[f"img_per_sec[{mode}{tag}]"] = probe["img_per_sec"]
             del engine, seen, seen_k2
             torch.cuda.empty_cache()
         if at in ("N=577", "N=785"):

@@ -1,8 +1,12 @@
 """Hand-written Hopper kernels of the port (CUDA C++ in ``csrc/``).
 
-Each kernel's wrapper keeps a plain integer ``launches`` counter that it
-raises by one where it launches the kernel; ``launch_counts`` reads them
-and ``reset_launch_counts`` sets them to 0.
+Each kernel's CUDA wrapper adds one to the counter
+``launches.<kernel name>`` of ``utils/profiling.py``'s registry where it
+launches the kernel; ``launch_counts`` reads those counters and
+``reset_launch_counts`` sets them to 0. Each public entry opens a span
+named after it on its operand (``profiling.span``), recorded while a
+profiler collects, whose device time is that of the launches inside it;
+K1's encloses its heads kernel and its select.
 
 No kernel fixes a most token count: each launcher picks a route by the
 shape, as the JAX kernels take any N. Up to 256 tokens K1 and K3 keep a
@@ -38,6 +42,7 @@ from protopformer_tpu_torch.kernels.stats import (
     fused_map_stats,
     map_stats_cuda,
 )
+from protopformer_tpu_torch.utils import profiling
 
 # kernel name (the JAX function it ports) -> its CUDA wrapper
 WRAPPERS = {
@@ -50,12 +55,12 @@ WRAPPERS = {
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    got = profiling.counts("launches.")
+    return {name: got.get(f"launches.{name}", 0) for name in WRAPPERS}
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    profiling.reset_counts("launches.")
 
 
 __all__ = [

@@ -27,6 +27,8 @@ from typing import Dict, Iterator, Optional
 
 import torch
 
+from protopformer_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libppf_kernels.so"
@@ -187,9 +189,15 @@ def on_device(device: torch.device) -> Iterator[int]:
     kernels' attributes and launch through the CUDA runtime, which acts on
     the current device: a replica's tensors on another card than the
     current one would otherwise be launched onto a stream of another
-    device, which CUDA rejects."""
+    device, which CUDA rejects. Inside a kernel entry's span, while a
+    profiler collects, the launch is timed by an event pair around it
+    (``profiling.launch_events``)."""
     with torch.cuda.device(device):
-        yield torch.cuda.current_stream(device).cuda_stream
+        stream = torch.cuda.current_stream(device)
+        timed = profiling.launch_events(stream)
+        yield stream.cuda_stream
+        if timed is not None:
+            timed[1].record(stream)
 
 
 def check_launch(name: str, code: int) -> None:

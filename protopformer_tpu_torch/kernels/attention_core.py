@@ -33,6 +33,7 @@ from protopformer_tpu_torch.kernels.stats import (
 )
 from protopformer_tpu_torch.ops.masking import eps_softmax
 from protopformer_tpu_torch.ops.rollout import normalize_attention_map
+from protopformer_tpu_torch.utils.profiling import count, span
 
 SOFTMAX_EPS = 1e-6
 _ONE_BITS = 0x3F800000  # fp32 bit pattern of 1.0, K1's static threshold bound
@@ -141,19 +142,18 @@ def block_stats_cuda(qkv: torch.Tensor, num_heads: int, keep: int,
     s = torch.empty((B, N), dtype=torch.float32, device=dev)
     scratch = _scratch(lib, "ppf_attention_block_stats_scratch_bytes", B, N, hd,
                        num_heads, device=dev)
+    # outside the launch context, whose timing pair (while a profiler
+    # collects) is to hold the launch alone
+    scale, eps = _bf16_value(hd ** -0.5), _bf16_value(SOFTMAX_EPS / N)
     with _build.on_device(dev) as stream:
         code = lib.ppf_attention_block_stats(
             qkv.data_ptr(), B, N, C, num_heads, keep, int(exact_discard),
-            _bf16_value(hd ** -0.5), _bf16_value(SOFTMAX_EPS / N),
-            out.data_ptr(), fmap.data_ptr(), t.data_ptr(), s.data_ptr(),
-            stream, _ptr(scratch),
+            scale, eps, out.data_ptr(), fmap.data_ptr(), t.data_ptr(),
+            s.data_ptr(), stream, _ptr(scratch),
         )
     _build.check_launch("attention_block_stats", code)
-    block_stats_cuda.launches += 1
+    count("launches.fused_attention_block_stats")
     return out, fmap, t, s
-
-
-block_stats_cuda.launches = 0
 
 
 def fused_attention_block_stats(
@@ -177,14 +177,17 @@ def fused_attention_block_stats(
     keep = E - int(E * discard_ratio)
     if not 0 < keep < E:
         raise ValueError("fused block kernel requires an active discard")
-    if qkv.is_cuda:
-        out, fmap, t, s = block_stats_cuda(qkv, num_heads, keep, exact_discard)
-    elif qkv.device.type == "cpu":
-        out, fmap, t, s = block_stats_plain(qkv, num_heads, keep, exact_discard)
-    else:
-        raise RuntimeError(
-            f"fused_attention_block_stats: no kernel for device {qkv.device}"
-        )
+    with span("fused_attention_block_stats", qkv):
+        if qkv.is_cuda:
+            out, fmap, t, s = block_stats_cuda(qkv, num_heads, keep,
+                                               exact_discard)
+        elif qkv.device.type == "cpu":
+            out, fmap, t, s = block_stats_plain(qkv, num_heads, keep,
+                                                exact_discard)
+        else:
+            raise RuntimeError(
+                f"fused_attention_block_stats: no kernel for device "
+                f"{qkv.device}")
     return out, fmap, t.to(fmap.dtype), s
 
 
@@ -257,11 +260,8 @@ def mean_padded_cuda(qkv: torch.Tensor, policy: torch.Tensor, num_heads: int,
             stream, _ptr(scratch),
         )
     _build.check_launch("attention_mean", code)
-    mean_padded_cuda.launches += 1
+    count("launches.fused_attention_mean_padded")
     return out, fmap
-
-
-mean_padded_cuda.launches = 0
 
 
 def mean_bf16_global_route(qkv: torch.Tensor, policy, num_heads: int,
@@ -305,10 +305,11 @@ def fused_attention_mean_padded(
       (out (B, NP, C) in the qkv dtype, fmap (B, NP, NP) fp32 with every
       entry outside the real (real_n, real_n) block exactly 0).
     """
-    if qkv.is_cuda:
-        return mean_padded_cuda(qkv, policy, num_heads, real_n)
-    if qkv.device.type == "cpu":
-        return mean_padded_plain(qkv, policy, num_heads, real_n)
+    with span("fused_attention_mean_padded", qkv):
+        if qkv.is_cuda:
+            return mean_padded_cuda(qkv, policy, num_heads, real_n)
+        if qkv.device.type == "cpu":
+            return mean_padded_plain(qkv, policy, num_heads, real_n)
     raise RuntimeError(
         f"fused_attention_mean_padded: no kernel for device {qkv.device}"
     )
@@ -409,11 +410,8 @@ def core_cuda(qkv: torch.Tensor, policy, num_heads: int,
     is the all-ones policy."""
     out, fmap = _core_launch("attention_core", qkv, policy, num_heads,
                              qkv.shape[1], discard_ratio, identity_weight)
-    core_cuda.launches += 1
+    count("launches.fused_attention_core")
     return out, fmap
-
-
-core_cuda.launches = 0
 
 
 def core_padded_cuda(qkv: torch.Tensor, policy: torch.Tensor, num_heads: int,
@@ -422,11 +420,8 @@ def core_padded_cuda(qkv: torch.Tensor, policy: torch.Tensor, num_heads: int,
     """Launch K5 (``csrc/attention_core.cu``)."""
     out, fmap = _core_launch("attention_core_padded", qkv, policy, num_heads,
                              real_n, discard_ratio, identity_weight)
-    core_padded_cuda.launches += 1
+    count("launches.fused_attention_core_padded")
     return out, fmap
-
-
-core_padded_cuda.launches = 0
 
 
 def fused_attention_core(
@@ -452,10 +447,11 @@ def fused_attention_core(
     """
     args = (qkv, None if ones_policy else policy, num_heads, discard_ratio,
             identity_weight)
-    if qkv.is_cuda:
-        return core_cuda(*args)
-    if qkv.device.type == "cpu":
-        return core_plain(*args)
+    with span("fused_attention_core", qkv):
+        if qkv.is_cuda:
+            return core_cuda(*args)
+        if qkv.device.type == "cpu":
+            return core_plain(*args)
     raise RuntimeError(f"fused_attention_core: no kernel for device {qkv.device}")
 
 
@@ -480,10 +476,11 @@ def fused_attention_core_padded(
       fp32, every pad row and pad column exactly 0).
     """
     args = (qkv, policy, num_heads, real_n, discard_ratio, identity_weight)
-    if qkv.is_cuda:
-        return core_padded_cuda(*args)
-    if qkv.device.type == "cpu":
-        return core_padded_plain(*args)
+    with span("fused_attention_core_padded", qkv):
+        if qkv.is_cuda:
+            return core_padded_cuda(*args)
+        if qkv.device.type == "cpu":
+            return core_padded_plain(*args)
     raise RuntimeError(
         f"fused_attention_core_padded: no kernel for device {qkv.device}"
     )

@@ -17,6 +17,7 @@ from typing import Dict, Tuple
 import torch
 
 from protopformer_tpu_torch.kernels import _build
+from protopformer_tpu_torch.utils.profiling import count, span
 
 
 def bisect_keys(a: torch.Tensor, prefix16: bool) -> torch.Tensor:
@@ -118,11 +119,8 @@ def map_stats_cuda(fmap: torch.Tensor, keep: int, prefix16: bool
             int(prefix16), t.data_ptr(), s.data_ptr(), stream,
         )
     _build.check_launch("map_stats", code)
-    map_stats_cuda.launches += 1
+    count("launches.fused_map_stats")
     return t, s
-
-
-map_stats_cuda.launches = 0
 
 
 def map_stats_on_route(fmap: torch.Tensor, keep: int, prefix16: bool,
@@ -193,10 +191,12 @@ def fused_map_stats(
             fmap.float().sum(dim=-1),
         )
     prefix16 = not exact_discard
-    if fmap.is_cuda:
-        t, s = map_stats_cuda(fmap, keep, prefix16)
-    elif fmap.device.type == "cpu":
-        t, s = map_stats_plain(fmap, keep, prefix16)
-    else:
-        raise RuntimeError(f"fused_map_stats: no kernel for device {fmap.device}")
+    with span("fused_map_stats", fmap):
+        if fmap.is_cuda:
+            t, s = map_stats_cuda(fmap, keep, prefix16)
+        elif fmap.device.type == "cpu":
+            t, s = map_stats_plain(fmap, keep, prefix16)
+        else:
+            raise RuntimeError(
+                f"fused_map_stats: no kernel for device {fmap.device}")
     return t.to(fmap.dtype), s

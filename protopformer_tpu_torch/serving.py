@@ -13,7 +13,17 @@ of ``protopformer_tpu/serving.py``).
     tools' forward) over the same chunks;
   * with ``mesh=`` (``parallel/mesh.py``) one replica a device serves its
     contiguous slice of each chunk, as the JAX engine shards a chunk on
-    its mesh's data axis.
+    its mesh's data axis;
+  * while a profiler collects, each request records the spans
+    ``serve.request`` (the whole call), ``serve.stage`` a chunk a lane
+    (children ``serve.stage.wait``, the slot's wait for its last copy, and
+    ``serve.stage.copy``, the copy into pinned memory, the pad's zero and
+    the device copy's enqueue), ``serve.dispatch`` a chunk a lane (the
+    wait on the copy and the forward's enqueue) and ``serve.fetch`` (the
+    concatenation and the copy to the host), all under the request's id
+    (``utils/profiling.py``); the counters ``serve.requests``,
+    ``serve.chunks``, ``serve.rows_asked``, ``serve.rows_computed`` (pad
+    rows included) and ``serve.bytes_staged`` count always.
 
 Runs on ``device="cuda"`` unless the caller passes ``device="cpu"``; with
 no CUDA device the default raises instead of falling back. An fp32 engine
@@ -24,7 +34,7 @@ fp32, and leaves the process-wide settings as it found them.
 from __future__ import annotations
 
 import contextlib
-import time
+import itertools
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -37,6 +47,10 @@ from protopformer_tpu_torch.data.preprocess import (
 )
 from protopformer_tpu_torch.models.ppnet import construct_ppnet
 from protopformer_tpu_torch.parallel.mesh import replicate
+from protopformer_tpu_torch.utils.profiling import count, span
+
+
+_REQUEST_IDS = itertools.count(1)  # the ids of the requests' spans
 
 
 class ServingResult(NamedTuple):
@@ -95,22 +109,27 @@ class _Lane:
         """Copy ``rows`` (zero-padded to the lane's rows) into the next
         pinned buffer and start its device copy; returns (device tensor,
         ready event or None)."""
-        real = rows.shape[0]
-        slot = self.next_slot
-        self.next_slot = (slot + 1) % len(self.host)
-        if self.host_free[slot] is not None:
-            self.host_free[slot].synchronize()  # its last copy has finished
-        host = self.host[slot]
-        host[:real].copy_(torch.from_numpy(rows))
-        host[real:].zero_()
-        if self.copy_stream is None:
-            return host.clone(), None
-        with torch.cuda.stream(self.copy_stream):
-            dev = host.to(self.device, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(self.copy_stream)
-        self.host_free[slot] = ready
-        return dev, ready
+        with span("serve.stage"):
+            real = rows.shape[0]
+            slot = self.next_slot
+            self.next_slot = (slot + 1) % len(self.host)
+            host = self.host[slot]
+            with span("serve.stage.wait"):
+                if self.host_free[slot] is not None:
+                    # its last copy has finished
+                    self.host_free[slot].synchronize()
+            with span("serve.stage.copy"):
+                host[:real].copy_(torch.from_numpy(rows))
+                host[real:].zero_()
+                count("serve.bytes_staged", host.numel())
+                if self.copy_stream is None:
+                    return host.clone(), None
+                with torch.cuda.stream(self.copy_stream):
+                    dev = host.to(self.device, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(self.copy_stream)
+            self.host_free[slot] = ready
+            return dev, ready
 
     def sync(self) -> None:
         if self.device.type == "cuda":
@@ -207,11 +226,12 @@ class ServingEngine:
     def _consume(self, staged, forward) -> List[Dict[str, torch.Tensor]]:
         outs = []
         for lane, (dev, ready) in zip(self._lanes, staged):
-            if ready is not None:
-                stream = torch.cuda.current_stream(lane.device)
-                stream.wait_event(ready)
-                dev.record_stream(stream)
-            outs.append(forward(lane.model, dev, lane.device))
+            with span("serve.dispatch"):
+                if ready is not None:
+                    stream = torch.cuda.current_stream(lane.device)
+                    stream.wait_event(ready)
+                    dev.record_stream(stream)
+                outs.append(forward(lane.model, dev, lane.device))
         return outs
 
     def warmup(self) -> None:
@@ -228,40 +248,6 @@ class ServingEngine:
         for lane in self._lanes:
             lane.sync()
 
-    def throughput_probe(self, n_images: int = 10240, reps: int = 3) -> dict:
-        """Sustained serving rate (img/s) of an n-image request with its
-        chunks already on the devices: per-chunk forwards on every replica,
-        the concatenation and one tail slice, ending in a synchronize of
-        every device.
-
-        Returns {"img_per_sec", "best_img_per_sec", "n_images", "chunks"}.
-        """
-        rng = np.random.default_rng(0)
-        shape = (self.per_device, self._img_size, self._img_size, 3)
-        chunks = [
-            [torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)
-                              ).to(lane.device) for lane in self._lanes]
-            for _ in range(0, n_images, self.batch_size)
-        ]
-        self.warmup()
-
-        def run_once() -> float:
-            t0 = time.perf_counter()
-            logits = [self._forward_on(lane.model, c, lane.device)["logits"]
-                      for parts in chunks
-                      for lane, c in zip(self._lanes, parts)]
-            torch.cat([lg.to(self.device) for lg in logits])[:n_images]
-            self._sync()
-            return time.perf_counter() - t0
-
-        dts = [run_once() for _ in range(reps)]
-        return {
-            "img_per_sec": n_images * len(dts) / sum(dts),
-            "best_img_per_sec": n_images / min(dts),
-            "n_images": n_images,
-            "chunks": len(chunks),
-        }
-
     def _run(self, images: np.ndarray, forward) -> Dict[str, np.ndarray]:
         """``forward`` over (N, H, W, 3) uint8 RGB, chunk by chunk with
         ``stage_window`` chunks staged ahead; each output concatenated over
@@ -274,27 +260,33 @@ class ServingEngine:
             )
         n = images.shape[0]
         starts = list(range(0, n, self.batch_size))
-        staged = [self._stage_chunk(images, s)
-                  for s in starts[: self.stage_window]]
-        self.last_peak_staged = min(len(starts), self.stage_window)
-        outs: Dict[str, List[torch.Tensor]] = {}
-        for i in range(len(starts)):
-            for out in self._consume(staged[i], forward):
-                for key, value in out.items():
-                    outs.setdefault(key, []).append(value)
-            staged[i] = None  # the chunk's input is consumed
-            nxt = i + self.stage_window
-            if nxt < len(starts):
-                staged.append(self._stage_chunk(images, starts[nxt]))
-            self.last_peak_staged = max(
-                self.last_peak_staged,
-                sum(1 for s in staged if s is not None),
-            )
-        # gathered on the first lane's device (``.to`` does nothing for one
-        # device), then fetched to the host once
-        return {key: torch.cat([c.to(self.device) for c in chunks]
-                               )[:n].float().cpu().numpy()
-                for key, chunks in outs.items()}
+        count("serve.requests")
+        count("serve.chunks", len(starts))
+        count("serve.rows_asked", n)
+        count("serve.rows_computed", len(starts) * self.batch_size)
+        with span("serve.request", request=next(_REQUEST_IDS)):
+            staged = [self._stage_chunk(images, s)
+                      for s in starts[: self.stage_window]]
+            self.last_peak_staged = min(len(starts), self.stage_window)
+            outs: Dict[str, List[torch.Tensor]] = {}
+            for i in range(len(starts)):
+                for out in self._consume(staged[i], forward):
+                    for key, value in out.items():
+                        outs.setdefault(key, []).append(value)
+                staged[i] = None  # the chunk's input is consumed
+                nxt = i + self.stage_window
+                if nxt < len(starts):
+                    staged.append(self._stage_chunk(images, starts[nxt]))
+                self.last_peak_staged = max(
+                    self.last_peak_staged,
+                    sum(1 for s in staged if s is not None),
+                )
+            # gathered on the first lane's device (``.to`` does nothing for
+            # one device), then fetched to the host once
+            with span("serve.fetch"):
+                return {key: torch.cat([c.to(self.device) for c in chunks]
+                                       )[:n].float().cpu().numpy()
+                        for key, chunks in outs.items()}
 
     def __call__(self, images: np.ndarray) -> ServingResult:
         """Inference on (N, H, W, 3) uint8 RGB, any N >= 1."""

@@ -362,8 +362,7 @@ def test_time_long_kernels_copies_the_package_with_the_parents_kernels(
 def test_time_long_kernels_models_are_their_token_counts():
     """``--against parent`` serves each model of ``MODELS`` at the token
     count of its tag: DeiT-Tiny/16 at 448 and 512 px reach 785 and 1,025
-    tokens, past 640, beside the 577 and 257 readings; the probed models
-    are among them."""
+    tokens, past 640, beside the 577 and 257 readings."""
     from protopformer_tpu_torch.cli import time_long_kernels as tl
     from protopformer_tpu_torch.core.config import backbone_preset
 
@@ -371,7 +370,6 @@ def test_time_long_kernels_models_are_their_token_counts():
         cfg = backbone_preset(preset, **overrides)
         assert at == f"N={cfg.num_patches + 1}", preset
     assert {"N=577", "N=257", "N=785", "N=1025"} <= set(tl.MODELS)
-    assert set(tl.PROBED) <= set(tl.MODELS)
 
 
 def test_time_long_kernels_thresh_and_bench_readings(monkeypatch):

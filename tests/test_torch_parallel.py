@@ -64,6 +64,7 @@ from protopformer_tpu_torch.parallel import (
     shard_index_for_process,
 )
 from protopformer_tpu_torch.serving import ServingEngine
+from protopformer_tpu_torch.utils import profiling
 from tests import torch_ddp_common as common
 from tests.test_torch_cli import MICRO as CLI_MICRO
 from tests.torch_port import jax_params, port_configs, to_np
@@ -200,8 +201,6 @@ def test_mesh_push_forward_and_probe_match_one_device(engines):
                                atol=1e-5)
     np.testing.assert_allclose(got.cls_token_attn, want.cls_token_attn,
                                rtol=0, atol=1e-6)
-    probe = port.throughput_probe(n_images=32, reps=1)
-    assert probe["chunks"] == 2 and probe["img_per_sec"] > 0
 
 
 class _RuntimeRecorder:
@@ -260,9 +259,7 @@ def test_every_kernel_launches_under_its_tensors_device(monkeypatch, symbol):
     monkeypatch.setattr(torch.cuda, "device", rec.device)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: SimpleNamespace(cuda_stream=0))
-    for fn in (t_stats.map_stats_cuda, t_attn.block_stats_cuda,
-               t_attn.mean_padded_cuda, t_attn.core_cuda):
-        monkeypatch.setattr(fn, "launches", fn.launches)
+    monkeypatch.setattr(profiling, "_COUNTS", dict(profiling._COUNTS))
     _LAUNCHES[symbol]()
     assert rec.launches == [(symbol, torch.device("meta"))]
     assert rec.current is None

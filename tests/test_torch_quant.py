@@ -337,7 +337,7 @@ def test_every_backbone_value_is_accepted():
 
 def test_trace_writes_a_trace_holding_the_annotate_span(tmp_path):
     with profiling.trace(str(tmp_path), device="cpu"):
-        with profiling.annotate("ppf_span"):
+        with profiling.span("ppf_span"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     files = [f for f in os.listdir(tmp_path) if f.endswith(".json")]
     assert len(files) == 1

@@ -1,7 +1,7 @@
 """The port's ServingEngine on the CPU (``device="cpu"``), mirroring
 tests/test_serving.py: the fixed-batch padding discipline, parity with the
-plain model forward and with the JAX package's ServingEngine, the staging
-window and the throughput probe's accounting."""
+plain model forward and with the JAX package's ServingEngine, and the
+staging window."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -92,15 +92,6 @@ def test_serving_engine_chunk_pad_mask_at_production_batch():
     res160 = engine(imgs[:160])
     np.testing.assert_allclose(res.logits[:160], res160.logits, rtol=0,
                                atol=1e-5)
-
-
-def test_serving_throughput_probe_counts_and_runs():
-    engine = _engine(jax_params(BK, PP, seed=3), batch_size=8)
-    out = engine.throughput_probe(n_images=20, reps=2)
-    assert out["n_images"] == 20
-    assert out["chunks"] == 3  # 8 + 8 + 4 (padded)
-    assert out["img_per_sec"] > 0
-    assert out["best_img_per_sec"] >= out["img_per_sec"] * 0.99
 
 
 def test_no_tf32_restores_the_process_settings():
