@@ -29,13 +29,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
      and K5 only at the kernel bench's shapes and inputs (B=256); the
      device time of each of their two launches (attention, normalize)
      comes from CUDA events (the attention as K3's call on the same
-     operands);
+     operands); the bf16 MLP's one-pass tanh GELU (csrc/gelu.cu) on the
+     hiddens of DeiT-Tiny/16@224 and DeiT-B/16@384 at B=160: bit-equal to
+     the eager fp32 chain, timed beside the chain and its bound;
   4. serving: one ServingEngine per mode (bf16 speed, bf16 exact, fp32
      parity) over seeded random DeiT-Tiny/16@224 weights with 2000 local
      and 2000 global prototypes answers requests of 1, 160 and 333 images;
      every kernel launch counter is set to 0 just before a mode's requests
      and read just after, and must show the launches that mode's forward
-     makes; then a torch.profiler breakdown
+     makes (and the GELU pass once a bf16 MLP, the plain chain never);
+     then a torch.profiler breakdown
      of one chunk's forward (device-busy time, idle share, top kernels);
   4b. the threshold-pruning forward (DeiTBackbone.masked_forward_thresh,
      eager rollout) at full depth and B=160 on the same weights: bf16
@@ -717,6 +720,38 @@ def core_record(name: str, q: torch.Tensor, p, n: int, heads: int) -> dict:
     )
 
 
+# the MLP hiddens (B, tokens, 4C) at B=160: DeiT-Tiny/16@224, DeiT-B/16@384
+GELU_HIDDENS = {"deit_tiny224": (B, N, 4 * C), "deit_b384": (B, 577, 3072)}
+
+
+def gelu_phase(dev: torch.device) -> dict:
+    """The bf16 MLP's tanh GELU in one pass (``csrc/gelu.cu``) on each of
+    ``GELU_HIDDENS``: bit-equal to the eager chain it replaces, its time and
+    the chain's (``time_ms``, 20 L2-warm calls) and its bound (the bf16
+    hidden read once and written once)."""
+    from protopformer_tpu_torch.kernels.activation import gelu_tanh_cuda
+    from protopformer_tpu_torch.ops.activations import gelu_speed_plain
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    records = {}
+    for name, shape in GELU_HIDDENS.items():
+        x = (torch.randn(shape, generator=gen, device=dev) * 3).to(
+            torch.bfloat16)
+        require(torch.equal(gelu_tanh_cuda(x).view(torch.int16),
+                            gelu_speed_plain(x).view(torch.int16)),
+                f"gelu {name}: the pass is not bit-equal to the chain")
+        bound_ms, bound_by = bound(4 * x.numel())
+        ms = time_ms(lambda: gelu_tanh_cuda(x))
+        rec = {"shape": list(shape), "ms": ms,
+               "plain_ms": time_ms(lambda: gelu_speed_plain(x)),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "x_bound": ms / bound_ms}
+        log(f"gelu {name}: {json.dumps(rec)}")
+        records[name] = rec
+        del x
+    return records
+
+
 # --- phase 4: serving in three modes ---------------------------------------------
 
 def model_configs():
@@ -748,6 +783,13 @@ def expected_launches(mode: str, chunks: int, depth: int = 12) -> dict:
     return {"fused_attention_block_stats": 0,
             "fused_map_stats": pre * chunks,
             "fused_attention_mean_padded": depth * chunks, **none}
+
+
+def expected_gelu(mode: str, chunks: int, depth: int = 12) -> dict:
+    """The GELU counters of ``chunks`` forwards: the one-pass kernel in
+    every bf16 MLP and the plain chain never (fp32 runs ``gelu_exact``)."""
+    passes = depth * chunks if mode.startswith("bf16") else 0
+    return {"launches.gelu_tanh": passes, "gelu.plain": 0}
 
 
 def profile_forward(engine, reps: int = 3, top: int = 8) -> dict:
@@ -809,6 +851,7 @@ def serve(dev: torch.device, state_dict, rng: np.random.Generator) -> dict:
     """Returns {mode: {"launches": {...}}}."""
     from protopformer_tpu_torch import kernels
     from protopformer_tpu_torch.serving import ServingEngine
+    from protopformer_tpu_torch.utils import profiling
 
     ppnet, modes = model_configs()
     results = {}
@@ -819,13 +862,18 @@ def serve(dev: torch.device, state_dict, rng: np.random.Generator) -> dict:
         requests = [rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
                     for n in REQUESTS]
         kernels.reset_launch_counts()
+        profiling.reset_counts("gelu.")
         answers = [engine(imgs) for imgs in requests]
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
+        gelu = {k: profiling.counts().get(k, 0)
+                for k in ("launches.gelu_tanh", "gelu.plain")}
         chunks = sum(-(-n // B) for n in REQUESTS)
         want = expected_launches(mode, chunks)
-        log(f"serve {mode}: launches {json.dumps(launches)}")
+        log(f"serve {mode}: launches {json.dumps(launches)} {json.dumps(gelu)}")
         require(launches == want, f"serve {mode}: expected launches {want}")
+        want_gelu = expected_gelu(mode, chunks)
+        require(gelu == want_gelu, f"serve {mode}: expected GELU {want_gelu}")
         for n, res in zip(REQUESTS, answers):
             require(res.logits.shape == (n, ppnet.num_classes)
                     and res.cls_token_attn.shape == (n, 196),
@@ -3076,6 +3124,7 @@ def main() -> int:
     t0 = time.perf_counter()
     records = check_kernels(dev, gen)
     records.update(check_core_kernels(dev, gen))
+    gelu_phase(dev)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
     ppnet, modes = model_configs()

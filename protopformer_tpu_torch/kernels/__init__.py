@@ -24,6 +24,15 @@ at B=160, N=577, H=12, hd=64 on an H100 (bytes at 3.35 TB/s, operations
 at 989 TFLOP/s bf16 or 67 TFLOP/s fp32): K1 674 MB (speed) / 780 MB
 (exact), 0.201 / 0.233 ms; K2 213 MB, 0.064 ms; K3 fp32 164 GFLOP,
 2.44 ms.
+
+Beside the five ports, ``activation.gelu_tanh_cuda`` (``csrc/gelu.cu``)
+runs the bf16 MLP's tanh GELU in one pass with the eager chain's bits,
+where ``ops.activations.gelu_speed`` gets a CUDA bf16 tensor that needs no
+gradient. It ports no JAX kernel, so it is not in ``WRAPPERS`` nor in
+``launch_counts``; it counts ``launches.gelu_tanh`` (and ``gelu_speed``
+counts ``gelu.plain`` where a CUDA tensor takes the chain), 12 and 0 a
+served bf16 chunk. Bound: bytes, the hidden read and written once (1.134
+GB at B=160 for DeiT-B/16@384, 0.339 ms).
 """
 
 from typing import Dict

@@ -7,7 +7,8 @@ machine run it without the suite's conftest (which imports JAX):
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-Tolerances: thresholds t bit-equal, row sums 1e-6, fp32 outputs 1e-5 and
+Tolerances: thresholds t bit-equal, the one-pass tanh GELU bit-equal to
+the eager chain it replaces, row sums 1e-6, fp32 outputs 1e-5 and
 maps 1e-6 (those of the JAX package's kernel tests); K3's bf16 output 1e-2;
 a micro train step on the card against the CPU in fp32, and two gloo ranks
 sharing the card against the one-process card step: the loss within
@@ -1421,3 +1422,115 @@ def test_int8_serving_on_the_card_keeps_the_bf16_selection_contract(
         assert all(rank[t] >= 64 for t in want - got)
     atol = 2e-2 * float(np.abs(cpu.logits).max())
     np.testing.assert_allclose(card.logits, cpu.logits, rtol=2e-2, atol=atol)
+
+
+# --- the bf16 MLP's tanh GELU in one pass (csrc/gelu.cu) ---------------------
+
+def _gelu_bits(x):
+    """The pass and the plain chain on ``x``, as int16 bit patterns."""
+    from protopformer_tpu_torch.kernels.activation import gelu_tanh_cuda
+    from protopformer_tpu_torch.ops.activations import gelu_speed_plain
+
+    got = gelu_tanh_cuda(x)
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    return got.view(torch.int16), gelu_speed_plain(x).view(torch.int16)
+
+
+@pytest.mark.parametrize("shape", [(160, 197, 768), (160, 577, 3072),
+                                   (1_000_003,), (8,), (13,), (3,)],
+                         ids=["hidden224", "hidden384", "ragged", "one_vec",
+                              "vec_and_tail", "tail_only"])
+def test_gelu_pass_is_bit_equal_to_the_plain_chain(cuda, shape):
+    """The MLP hiddens of DeiT-Tiny/16@224 and DeiT-B/16@384 at B=160, and
+    counts that are not multiples of 8: every bit of the chain's."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    x = (torch.randn(shape, generator=gen, device=cuda) * 3).to(torch.bfloat16)
+    keep = x.clone()
+    got, want = _gelu_bits(x)
+    assert torch.equal(got, want)
+    assert torch.equal(x, keep)
+
+
+@pytest.mark.parametrize("offset", [1, 3, 7])
+def test_gelu_pass_on_a_view_off_16_bytes(cuda, offset):
+    """A contiguous view whose start lies ``offset`` values past a 16-byte
+    boundary (the output is a fresh, aligned tensor): bit-equal."""
+    gen = torch.Generator(device=cuda).manual_seed(offset)
+    buf = (torch.randn(4099 + offset, generator=gen, device=cuda) * 4).to(
+        torch.bfloat16)
+    x = buf[offset:]
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2 * offset
+    got, want = _gelu_bits(x)
+    assert torch.equal(got, want)
+
+
+def test_gelu_pass_on_every_bf16_value(cuda):
+    """Every bf16 bit pattern (±inf, NaNs, ±0, subnormals, |x| past tanh's
+    saturation up to the largest finite value), behind a 1-value offset
+    and aligned, and the named ones again: the chain's bits."""
+    every = torch.arange(-32768, 32768, dtype=torch.int32, device=cuda).to(
+        torch.int16).view(torch.bfloat16)
+    named = torch.tensor([float("inf"), -float("inf"), float("nan"), -0.0,
+                          0.0, 20.0, -20.0, 19.875, -19.875, 3.0, -3.0,
+                          1e-30, -1e-30], device=cuda).to(torch.bfloat16)
+    for x in (every, torch.cat([named[:1], every])[1:], named):
+        got, want = _gelu_bits(x)
+        assert torch.equal(got, want)
+
+
+def test_gelu_speed_on_the_card_counts_its_route(cuda):
+    """A CUDA bf16 tensor that needs no gradient takes the pass
+    (``launches.gelu_tanh``); one that requires grad under autograd, or an
+    fp32 one, takes the chain (``gelu.plain``), with its gradient."""
+    from protopformer_tpu_torch.ops.activations import (
+        gelu_speed,
+        gelu_speed_plain,
+    )
+    from protopformer_tpu_torch.utils import profiling
+
+    x = torch.randn((4, 33), device=cuda).to(torch.bfloat16)
+    profiling.reset_counts("launches.gelu_tanh")
+    profiling.reset_counts("gelu.plain")
+    assert torch.equal(gelu_speed(x).view(torch.int16),
+                       gelu_speed_plain(x).view(torch.int16))
+    with torch.no_grad():
+        gelu_speed(x.clone().requires_grad_())
+    assert profiling.counts("launches.gelu_tanh")["launches.gelu_tanh"] == 2
+    xg = x.clone().requires_grad_()
+    y = gelu_speed(xg)
+    y.float().sum().backward()
+    assert xg.grad is not None and torch.isfinite(xg.grad.float()).all()
+    gelu_speed(x.float())
+    assert profiling.counts("gelu.plain") == {"gelu.plain": 2}
+    assert profiling.counts("launches.gelu_tanh")["launches.gelu_tanh"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_a_served_chunk_runs_the_gelu_pass_in_every_block(cuda, dtype,
+                                                          monkeypatch):
+    """DeiT-Tiny/16@224 at the CUB head: a bf16 chunk launches the pass in
+    each of its 12 MLPs and never the chain, and its logits are bit-equal
+    to those with the chain in its place; fp32 parity launches neither."""
+    from protopformer_tpu_torch.models import layers
+    from protopformer_tpu_torch.ops.activations import gelu_speed_plain
+    from protopformer_tpu_torch.serving import ServingEngine
+    from protopformer_tpu_torch.utils import profiling
+
+    bk, pp, sd = _tiny_224(dtype, rollout_exact_discard=False)
+    imgs = np.random.default_rng(19).integers(0, 256, (200, 224, 224, 3),
+                                              dtype=np.uint8)
+    engine = ServingEngine(bk, pp, sd, device=cuda, batch_size=160,
+                           compute_dtype=dtype, with_attn=True)
+    profiling.reset_counts("launches.gelu_tanh")
+    profiling.reset_counts("gelu.plain")
+    got = engine(imgs)
+    torch.cuda.synchronize()
+    counts = profiling.counts()
+    bf16 = dtype == torch.bfloat16
+    assert counts.get("launches.gelu_tanh", 0) == (24 if bf16 else 0)
+    assert counts.get("gelu.plain", 0) == 0
+    monkeypatch.setattr(layers, "gelu_speed", gelu_speed_plain)
+    want = engine(imgs)
+    np.testing.assert_array_equal(got.logits, want.logits)
+    np.testing.assert_array_equal(got.cls_token_attn, want.cls_token_attn)

@@ -4,7 +4,14 @@ Each case makes its inputs from a seed with numpy and feeds the same arrays
 to the JAX function and to its port (CPU tensors). Tolerances: 1e-6 in
 fp32; 1e-2 where bf16 rounds (the bf16 ``eps_softmax`` branch and the bf16
 ``l2_distances`` cross term); every discard threshold bit-equal.
+``gelu_speed``'s routes (the one-pass kernel or the plain chain) are
+followed on a CPU tensor that says it lies on the card, with a recording
+launcher in place of the kernel library.
 """
+
+import contextlib
+import dataclasses
+import inspect
 
 import numpy as np
 import jax.numpy as jnp
@@ -21,6 +28,11 @@ from protopformer_tpu_torch.ops import distances as t_dist
 from protopformer_tpu_torch.ops import masking as t_mask
 from protopformer_tpu_torch.ops import rollout as t_roll
 from protopformer_tpu_torch.ops import tokens as t_tok
+from protopformer_tpu_torch.core.config import BackboneConfig, PPNetConfig
+from protopformer_tpu_torch.kernels import _build
+from protopformer_tpu_torch.kernels.activation import gelu_tanh_cuda
+from protopformer_tpu_torch.models.layers import Mlp
+from protopformer_tpu_torch.utils import profiling
 from tests.torch_port import to_np
 
 
@@ -75,6 +87,123 @@ def test_activation_matches_jax(rng, name):
     want = getattr(j_act, name)(jnp.asarray(x))
     got = getattr(t_act, name)(torch.from_numpy(x))
     np.testing.assert_allclose(to_np(got), to_np(want), atol=1e-6)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the card, to follow
+    ``gelu_speed``'s routes where there is none."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+class _GeluLibrary:
+    """The kernel library's GELU launcher, recording the counts it gets."""
+
+    def __init__(self):
+        self.calls = []
+
+    def ppf_gelu_tanh_bf16(self, x, y, n, stream):
+        self.calls.append(n)
+        return 0
+
+
+@pytest.fixture
+def gelu_library(monkeypatch):
+    """A fresh counter registry and the recording launcher in place of the
+    built library (no launch, no stream)."""
+    lib = _GeluLibrary()
+    monkeypatch.setattr(profiling, "_COUNTS", {})
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "on_device",
+                        lambda dev: contextlib.nullcontext(0))
+    return lib
+
+
+@pytest.mark.parametrize("on_card,dtype,requires_grad,grad_mode,route", [
+    (False, torch.bfloat16, False, True, "cpu"),
+    (False, torch.bfloat16, True, True, "cpu"),
+    (False, torch.float32, False, True, "cpu"),
+    (True, torch.bfloat16, False, True, "pass"),
+    (True, torch.bfloat16, True, False, "pass"),
+    (True, torch.bfloat16, True, True, "plain"),
+    (True, torch.float32, False, True, "plain"),
+    (True, torch.float16, False, True, "plain"),
+], ids=["cpu_bf16", "cpu_bf16_grad", "cpu_fp32", "card_bf16",
+        "card_bf16_no_grad_mode", "card_bf16_autograd", "card_fp32",
+        "card_fp16"])
+def test_gelu_speed_routes_by_what_the_tensor_shows(
+        rng, gelu_library, on_card, dtype, requires_grad, grad_mode, route):
+    """The pass for a bf16 tensor on the card that needs no gradient, one
+    launch counted ``launches.gelu_tanh``; else the plain chain, its
+    outputs (and gradient) unchanged, counted ``gelu.plain`` on the card
+    alone."""
+    x = torch.from_numpy((rng.normal(size=(4, 33)) * 3).astype(np.float32)
+                         ).to(dtype)
+    want = t_act.gelu_speed_plain(x)
+    if on_card:
+        x = x.as_subclass(_OnCard)
+    x.requires_grad_(requires_grad)
+    with torch.set_grad_enabled(grad_mode):
+        got = t_act.gelu_speed(x)
+    assert profiling.counts() == {
+        "pass": {"launches.gelu_tanh": 1}, "plain": {"gelu.plain": 1},
+        "cpu": {}}[route]
+    assert gelu_library.calls == ([x.numel()] if route == "pass" else [])
+    assert got.shape == x.shape and got.dtype == dtype
+    if route != "pass":
+        assert torch.equal(got.detach().view(torch.uint8),
+                           want.view(torch.uint8))
+    if requires_grad and grad_mode:
+        got.float().sum().backward()
+        assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+
+
+def test_gelu_speed_hands_the_pass_a_contiguous_tensor(rng, gelu_library):
+    x = torch.from_numpy(rng.normal(size=(6, 5)).astype(np.float32)).to(
+        torch.bfloat16).as_subclass(_OnCard).t()
+    assert not x.is_contiguous()
+    assert t_act.gelu_speed(x).shape == (5, 6)
+    assert gelu_library.calls == [30]
+
+
+@pytest.mark.parametrize("case,error", [("cpu", ValueError),
+                                        ("fp32", TypeError),
+                                        ("strided", ValueError)])
+def test_gelu_pass_refuses_what_its_kernel_does_not_take(gelu_library, case,
+                                                         error):
+    x = torch.zeros((4, 16), dtype=torch.bfloat16)
+    if case != "cpu":
+        x = x.as_subclass(_OnCard)
+    if case == "fp32":
+        x = x.float()
+    if case == "strided":
+        x = x.t()
+    with pytest.raises(error):
+        gelu_tanh_cuda(x)
+    assert gelu_library.calls == [] and profiling.counts() == {}
+
+
+@pytest.mark.parametrize("training", [False, True], ids=["eval", "train"])
+def test_a_bf16_mlp_takes_the_pass_with_no_option(rng, gelu_library,
+                                                  training):
+    """``Mlp`` in bf16 on the card: the pass once a forward under no_grad,
+    the chain under training's autograd; nothing selects the route but the
+    tensor (no config field, no argument of ``gelu_speed``)."""
+    mlp = Mlp(8, 32, torch.bfloat16).train(training)
+    x = torch.from_numpy(rng.normal(size=(2, 5, 8)).astype(np.float32)).to(
+        torch.bfloat16).as_subclass(_OnCard)
+    with torch.set_grad_enabled(training):
+        y = mlp(x)
+    assert y.shape == (2, 5, 8)
+    assert profiling.counts() == ({"gelu.plain": 1} if training
+                                  else {"launches.gelu_tanh": 1})
+    assert gelu_library.calls == ([] if training else [2 * 5 * 32])
+    assert list(inspect.signature(t_act.gelu_speed).parameters) == ["x"]
+    for cfg in (BackboneConfig, PPNetConfig):
+        assert not [f.name for f in dataclasses.fields(cfg)
+                    if "gelu" in f.name]
 
 
 # --- tokens ------------------------------------------------------------------
