@@ -8,13 +8,26 @@ block, the lazy rollout's raw head-mean map with its discard threshold and
 masked row sums, in the signed key space: talking-heads maps are not
 probabilities and can be negative throughout (ROADMAP F4). Under
 ``rollout_stats_batched="on"`` one search covers all of them
-(``masked_map_stats_multi``, bit-identical); under "max"/"min" head fusion
-the blocks return per-head maps, fused here. At a
+(``masked_map_stats_multi``, bit-identical). Each block fuses its heads
+(``rollout_head_fusion``) and stores the map, in bf16 in speed mode
+(``rollout_exact_discard=False``), else in fp32. At a
 class-attention block ``i`` in the reserve list, the mean of the
 normalized class-attention rows so far (CLS column dropped) is rolled back
 through the self-attention maps, and its top-k policy masks the
 class-attention softmax from block ``i`` on. No block here runs a kernel
 of ``kernels/``: the JAX package runs this path outside any Pallas kernel.
+
+While a profiler collects, the pruning forward records spans, each timed
+on the card over its region's work (``utils/profiling.py``):
+``cait.talking_heads`` in each self-attention block (``layers.py``),
+``cait.signed_stats`` around each map's threshold search and masked row
+sums (one around the stacked search under ``rollout_stats_batched="on"``;
+attributes ``batch``, ``tokens``, ``map_dtype`` and ``passes``, the
+search's count passes), ``cait.rollout`` around the lazy rollout and the
+policy at a reserve block, and ``cait.class_attn`` around each
+class-attention block with its map's normalization. The always-on
+counter ``cait.maps_searched`` counts the maps whose threshold was
+searched.
 In training mode the maps are detached, position dropout and dropout take
 ``drop_rate``, and every self-attention block's stochastic depth is the
 uniform ``drop_path_rate`` (the class-attention blocks have none).
@@ -34,6 +47,7 @@ from protopformer_tpu_torch.models.layers import (
     LayerScaleBlockClassAttn,
     PatchEmbed,
     dropout,
+    dtype_name,
     layer_norm,
 )
 from protopformer_tpu_torch.ops.rollout import (
@@ -44,6 +58,7 @@ from protopformer_tpu_torch.ops.rollout import (
     rollout_row_scores_lazy,
 )
 from protopformer_tpu_torch.ops.tokens import reserve_policy
+from protopformer_tpu_torch.utils.profiling import count, span
 
 
 class CaiTBackbone(nn.Module):
@@ -63,11 +78,13 @@ class CaiTBackbone(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
         # the position embedding covers the patches only
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches, D))
+        map_dtype = (torch.float32 if cfg.rollout_exact_discard
+                     else torch.bfloat16)
         self.blocks = nn.ModuleList([
             LayerScaleBlock(D, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
                             cfg.init_scale, cfg.layer_norm_eps, compute_dtype,
                             cfg.drop_rate, cfg.drop_path_rate,
-                            cfg.rollout_head_fusion)
+                            cfg.rollout_head_fusion, map_dtype)
             for _ in range(cfg.depth)
         ])
         self.blocks_token_only = nn.ModuleList([
@@ -117,18 +134,18 @@ class CaiTBackbone(nn.Module):
         sa_maps = []
         for blk in self.blocks:
             x, fmap = blk(x, generator)
-            if fmap.dim() == 4:  # "max"/"min" fusion: per-head maps
-                fmap = _fuse_heads(fmap.float(), cfg.rollout_head_fusion)
-            if not cfg.rollout_exact_discard:
-                fmap = fmap.to(torch.bfloat16)
             sa_maps.append(fmap)
         stats_args = (cfg.rollout_discard_ratio, cfg.rollout_exact_discard)
         if cfg.rollout_stats_batched == "on":
-            sa_stats = masked_map_stats_multi(sa_maps, *stats_args,
-                                              signed=True, sample=sample)
+            with self._stats_span(sa_maps):
+                sa_stats = masked_map_stats_multi(sa_maps, *stats_args,
+                                                  signed=True, sample=sample)
         else:
-            sa_stats = [masked_map_stats(m, *stats_args, signed=True,
-                                         sample=sample) for m in sa_maps]
+            sa_stats = []
+            for m in sa_maps:
+                with self._stats_span([m]):
+                    sa_stats.append(masked_map_stats(
+                        m, *stats_args, signed=True, sample=sample))
         sa_ts = [t for t, _ in sa_stats]
         sa_ss = [s for _, s in sa_stats]
 
@@ -140,23 +157,37 @@ class CaiTBackbone(nn.Module):
         cls_token_attn = None
         for i, blk in enumerate(self.blocks_token_only):
             if i in reserve_map:
-                cls_scores = rollout_row_scores_lazy(
-                    sa_maps, sa_ts, sa_ss, (ca_norm_sum / i)[:, :, 1:],
-                    cfg.rollout_identity_weight,
+                with span("cait.rollout", region=x):
+                    cls_scores = rollout_row_scores_lazy(
+                        sa_maps, sa_ts, sa_ss, (ca_norm_sum / i)[:, :, 1:],
+                        cfg.rollout_identity_weight,
+                    )
+                    cls_token_attn = cls_scores[:, 0]
+                    policy, _ = reserve_policy(
+                        cls_token_attn, reserve_map[i], seq_len
+                    )
+            with span("cait.class_attn", region=x):
+                cls_tokens, attn = blk(x, cls_tokens, policy)
+                ca_norm_sum = ca_norm_sum + normalize_attention_map(
+                    _fuse_heads(attn.detach().float(),
+                                cfg.rollout_head_fusion),
+                    discard_ratio=cfg.rollout_discard_ratio,
+                    identity_weight=cfg.rollout_identity_weight,
                 )
-                cls_token_attn = cls_scores[:, 0]
-                policy, _ = reserve_policy(
-                    cls_token_attn, reserve_map[i], seq_len
-                )
-            cls_tokens, attn = blk(x, cls_tokens, policy)
-            ca_norm_sum = ca_norm_sum + normalize_attention_map(
-                _fuse_heads(attn.detach().float(), cfg.rollout_head_fusion),
-                discard_ratio=cfg.rollout_discard_ratio,
-                identity_weight=cfg.rollout_identity_weight,
-            )
 
         x = torch.cat([cls_tokens, x], dim=1)
         return layer_norm(x, self.norm, self.compute_dtype), cls_token_attn
+
+    def _stats_span(self, maps):
+        """The ``cait.signed_stats`` span of one search over ``maps``, each
+        (B, N, N), and its count."""
+        B, N, _ = maps[0].shape
+        passes = 16 if maps[0].dtype == torch.bfloat16 else 32
+        count("cait.maps_searched", len(maps))
+        return span("cait.signed_stats", region=maps[0], attrs={
+            "batch": B * len(maps), "tokens": N,
+            "map_dtype": dtype_name(maps[0].dtype),
+            "passes": passes})
 
     def _unmasked(self, x: torch.Tensor) -> torch.Tensor:
         """(B, 1+N, D) after the final LayerNorm, no pruning."""

@@ -71,6 +71,7 @@ from protopformer_tpu_torch.ops.masking import (
 )
 from protopformer_tpu_torch.ops.quant import int8_matmul
 from protopformer_tpu_torch.ops.rollout import _fuse_heads, normalize_attention_map
+from protopformer_tpu_torch.utils.profiling import span
 
 Policy = Union[str, torch.Tensor]
 Generator = Optional[torch.Generator]
@@ -449,6 +450,11 @@ def _scale(head_dim: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(head_dim ** -0.5, dtype=dtype))
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    """``torch.bfloat16`` -> "bfloat16"."""
+    return str(dtype).rsplit(".", 1)[-1]
+
+
 def _mix_heads(a: torch.Tensor, layer: nn.Linear, dtype: torch.dtype
                ) -> torch.Tensor:
     """Talking heads: a Linear(H, H) over the head axis of (B, H, N, M)."""
@@ -460,20 +466,24 @@ class TalkingHeadAttention(nn.Module):
     ``proj_l`` mixes the heads of the logits and ``proj_w`` those of the
     fp32 softmax cast back, both in the compute dtype.
 
-    Returns (out (B, N, C), the fp32 head mean (B, N, N) of the mixed
-    probabilities, or under "max"/"min" ``head_fusion`` the mixed
-    per-head probabilities (B, H, N, N) in the compute dtype): rows need
-    not sum to 1, and entries may be negative.
+    Returns (out (B, N, C), the map (B, N, N): the mixed probabilities'
+    heads fused by ``head_fusion`` ("mean", "max" or "min") in fp32 and
+    stored in ``map_dtype``): rows need not sum to 1, and entries may be
+    negative. While a profiler collects, the span ``cait.talking_heads``
+    covers the work from the qkv product's output to the stored map and
+    the attention output before ``proj``, and times it on the card.
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool,
                  dtype: torch.dtype, drop_rate: float = 0.0,
-                 head_fusion: str = "mean"):
+                 head_fusion: str = "mean",
+                 map_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
         self.drop_rate = drop_rate
         self.head_fusion = head_fusion
+        self.map_dtype = map_dtype
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
         self.proj_l = nn.Linear(num_heads, num_heads)
@@ -483,20 +493,23 @@ class TalkingHeadAttention(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         B, N, C = x.shape
         H, dt = self.num_heads, self.dtype
-        qkv = dense(x, self.qkv, dt).reshape(B, N, 3, H, C // H)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4)
-        q = q * _scale(C // H, dt)
-        logits = _mix_heads(torch.matmul(q, k.transpose(-1, -2)),
-                            self.proj_l, dt)
-        probs = torch.softmax(logits.float(), dim=-1).to(dt)
-        probs = _mix_heads(probs, self.proj_w, dt)
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(B, N, C)
+        qkv = dense(x, self.qkv, dt)
+        with span("cait.talking_heads", region=qkv, attrs={
+                "batch": B, "tokens": N, "heads": H, "head_dim": C // H,
+                "map_dtype": dtype_name(self.map_dtype)}):
+            q, k, v = qkv.reshape(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
+            q = q * _scale(C // H, dt)
+            logits = _mix_heads(torch.matmul(q, k.transpose(-1, -2)),
+                                self.proj_l, dt)
+            probs = torch.softmax(logits.float(), dim=-1).to(dt)
+            probs = _mix_heads(probs, self.proj_w, dt)
+            out = torch.matmul(probs, v).transpose(1, 2).reshape(B, N, C)
+            fmap = _fuse_heads(probs.detach().float(),
+                               self.head_fusion).to(self.map_dtype)
         out = dense(out, self.proj, dt)
         if self.training:
             out = dropout(out, self.drop_rate, generator)
-        if self.head_fusion != "mean":
-            return out, probs.detach()
-        return out, probs.detach().float().mean(dim=1)
+        return out, fmap
 
 
 class ClassAttention(nn.Module):
@@ -541,17 +554,18 @@ class LayerScaleBlock(nn.Module):
     """CaiT self-attention block: pre-LN talking-heads attention and MLP,
     each branch scaled by its LayerScale gamma and, in training mode, put
     through ``DropPath(drop_path)``. Returns (x, the detached map of
-    ``TalkingHeadAttention``)."""
+    ``TalkingHeadAttention``, stored in ``map_dtype``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  qkv_bias: bool, init_values: float, layer_norm_eps: float,
                  dtype: torch.dtype, drop_rate: float = 0.0,
-                 drop_path: float = 0.0, head_fusion: str = "mean"):
+                 drop_path: float = 0.0, head_fusion: str = "mean",
+                 map_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=layer_norm_eps)
         self.attn = TalkingHeadAttention(dim, num_heads, qkv_bias, dtype,
-                                         drop_rate, head_fusion)
+                                         drop_rate, head_fusion, map_dtype)
         self.norm2 = nn.LayerNorm(dim, eps=layer_norm_eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, drop_rate)
         self.gamma_1 = nn.Parameter(torch.full((dim,), init_values))

@@ -36,7 +36,14 @@ allocated and no CUDA event is recorded. While a profiler collects, a span
     being captured into a graph), and ``spans()`` sums the pairs'
     elapsed times into ``device_ms`` once they have completed. The host's
     preparation before a launch lies outside every pair, so a device left
-    waiting for it does not count as the kernel's time.
+    waiting for it does not count as the kernel's time;
+  * given a ``region`` tensor on the card instead, times the region's
+    whole work (plain PyTorch, no kernel entry): one CUDA event pair on
+    the current stream, its start recorded as the span opens and its end
+    as it closes, whose elapsed time is ``device_ms``: from the end of the
+    work enqueued on that stream before the span to the end of the work
+    enqueued inside it. Where the host enqueues the region slower than the
+    device runs it, the device's waits inside count too.
 
 A session is one collecting period of a profiler (each start of a
 ``torch.profiler.profile``, or of each recording phase of its schedule);
@@ -177,17 +184,23 @@ _OFF = _Off()
 
 
 class _Span:
-    __slots__ = ("rec", "rf")
+    __slots__ = ("rec", "rf", "stream")
 
-    def __init__(self, name: str, operand, request):
+    def __init__(self, name: str, operand, request, attrs, region):
         self.rec = {"name": name, "request": request, "attrs": {},
-                    "launches": None}
+                    "launches": None, "region": None}
+        self.stream = None
         if operand is not None:
             self.rec["attrs"] = {
                 "batch": operand.shape[0], "tokens": operand.shape[1],
                 "route": "cuda" if operand.is_cuda else "plain"}
             if operand.is_cuda:
                 self.rec["launches"] = []
+        if attrs:
+            self.rec["attrs"].update(attrs)
+        if (region is not None and region.is_cuda
+                and not torch.cuda.is_current_stream_capturing()):
+            self.stream = torch.cuda.current_stream(region.device)
 
     def __enter__(self):
         rec = self.rec
@@ -202,10 +215,16 @@ class _Span:
         self.rf.__enter__()
         stack.append(rec)
         rec["start_ns"] = time.time_ns()
+        if self.stream is not None:
+            rec["region"] = (torch.cuda.Event(enable_timing=True),
+                             torch.cuda.Event(enable_timing=True))
+            rec["region"][0].record(self.stream)
         return rec
 
     def __exit__(self, *exc):
         rec = self.rec
+        if rec["region"] is not None:
+            rec["region"][1].record(self.stream)
         rec["end_ns"] = time.time_ns()
         _SESSIONS.stack().pop()
         self.rf.__exit__(*exc)
@@ -214,16 +233,21 @@ class _Span:
 
 
 def span(name: str, operand: Optional[torch.Tensor] = None,
-         request: Optional[int] = None):
+         request: Optional[int] = None, attrs: Optional[dict] = None,
+         region: Optional[torch.Tensor] = None):
     """A named span of the program (a context manager), recorded only while
     a profiler collects. ``request`` is the request id (else the enclosing
     span's). ``operand`` marks a kernel entry's span: its (B, N, ...)
     operand gives the attributes ``batch`` B, ``tokens`` N and ``route``
     (``cuda`` or ``plain``), and on the CUDA route the span times the
-    kernel launches made inside it (``launch_events``)."""
+    kernel launches made inside it (``launch_events``). ``attrs`` are
+    further attributes. ``region``, a tensor of the region's work, marks a
+    region's span: on the card (and not while its stream is captured into
+    a graph) one event pair around the body times the region's device
+    work on the current stream."""
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
-    return _Span(name, operand, request)
+    return _Span(name, operand, request, attrs, region)
 
 
 def launch_events(stream) -> Optional[tuple]:
@@ -253,9 +277,9 @@ def spans() -> List[dict]:
     dict of ``name``, ``id``, ``parent``, ``request``, ``session``,
     ``start_ns``, ``end_ns``, ``attrs``, ``timed_launches`` (the kernel
     launches a kernel entry's span timed) and ``device_ms`` (their summed
-    device time, None where it timed none). Waits for those launches' events. Raises where
-    this torch gives no call at a profiler's start, so that sessions
-    cannot be told apart."""
+    device time, or a region's, None where it timed nothing). Waits for
+    those events. Raises where this torch gives no call at a profiler's
+    start, so that sessions cannot be told apart."""
     if not _HOOKED:
         raise RuntimeError(
             "torch.autograd.profiler has no _run_on_profiler_start in this "
@@ -265,10 +289,12 @@ def spans() -> List[dict]:
     for rec in _SESSIONS.records:
         if "launches" in rec:  # not yet resolved
             launches = rec.pop("launches") or []
-            if launches:  # one stream: the last pair ends last
-                launches[-1][1].synchronize()
-            rec["device_ms"] = (sum(a.elapsed_time(b) for a, b in launches)
-                                if launches else None)
+            region = rec.pop("region")
+            pairs = [region] if region is not None else launches
+            if pairs:  # one stream: the last pair ends last
+                pairs[-1][1].synchronize()
+            rec["device_ms"] = (sum(a.elapsed_time(b) for a, b in pairs)
+                                if pairs else None)
             rec["timed_launches"] = len(launches)
         out.append(dict(rec, attrs=dict(rec["attrs"])))
     return out

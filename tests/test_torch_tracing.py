@@ -342,6 +342,35 @@ def test_a_kernel_entrys_span_times_only_the_launches_inside_it(
     assert profiling.spans() == profiling.spans()  # resolved once
 
 
+def test_a_region_span_times_its_whole_body_with_one_pair(fresh,
+                                                         monkeypatch):
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing[0])
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: "s")
+    region = SimpleNamespace(shape=(160, 576, 576), is_cuda=True,
+                             device="cuda:0")
+    with collecting():
+        with profiling.span("r", region=region, attrs={"heads": 8}):
+            # a kernel launched inside is not added to the region's pair
+            assert profiling.launch_events("s") is None
+        with profiling.span("cpu", region=torch.ones(2), attrs={"a": 1}):
+            pass
+        capturing[0] = True
+        with profiling.span("captured", region=region):
+            pass
+    names = by_name(profiling.spans())
+    (r,) = names["r"]
+    assert r["device_ms"] == 1.5 and r["timed_launches"] == 0
+    assert r["attrs"] == {"heads": 8}
+    (cpu,) = names["cpu"]
+    assert cpu["device_ms"] is None and cpu["attrs"] == {"a": 1}
+    assert names["captured"][0]["device_ms"] is None
+    assert profiling.span("after", region=region) is profiling._OFF
+
+
 def test_trace_serving_names_idle_gaps_by_program_span():
     from protopformer_tpu_torch.cli import trace_serving as ts
 
@@ -450,6 +479,32 @@ def test_a_kernel_span_leaves_the_hosts_preparation_out(fresh, cuda):
     # the median: the profiler's first launches wait on its own buffers
     assert kernel_ms * 0.9 < statistics.median(got) < kernel_ms * 1.2 + 0.03, \
         (kernel_ms, got)
+
+
+@pytest.mark.gpu
+def test_a_region_span_times_its_work_on_the_card(fresh, cuda):
+    a = torch.randn(4096, 4096, device=cuda, dtype=torch.bfloat16)
+    torch.mm(a, a)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(5):
+            torch.cuda.synchronize()
+            with profiling.span("region", region=a):
+                for _ in range(4):
+                    torch.mm(a, a)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(4):
+            torch.mm(a, a)
+        end.record()
+        torch.cuda.synchronize()
+    got = [s["device_ms"] for s in profiling.spans()]
+    want = start.elapsed_time(end)
+    # four 4096^3 bf16 products: ~0.6 ms on an H100
+    assert len(got) == 5 and all(0.1 < g < 50 for g in got)
+    assert want * 0.8 < statistics.median(got) < want * 1.25 + 0.05, \
+        (want, got)
 
 
 @pytest.mark.gpu
