@@ -31,7 +31,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      comes from CUDA events (the attention as K3's call on the same
      operands); the bf16 MLP's one-pass tanh GELU (csrc/gelu.cu) on the
      hiddens of DeiT-Tiny/16@224 and DeiT-B/16@384 at B=160: bit-equal to
-     the eager fp32 chain, timed beside the chain and its bound;
+     the eager fp32 chain, timed beside the chain and its bound; CaiT's
+     talking-heads kernel (csrc/talking_heads.cu) at CaiT-S24@384's and
+     CaiT-XXS-24@224's shapes at B=160 against the eager chain (output
+     within 2 bf16 ulps of its largest entry, map within one, at most
+     1e-3 / 1e-4 of the entries differing), timed beside the chain and
+     its bound;
   4. serving: one ServingEngine per mode (bf16 speed, bf16 exact, fp32
      parity) over seeded random DeiT-Tiny/16@224 weights with 2000 local
      and 2000 global prototypes answers requests of 1, 160 and 333 images;
@@ -52,8 +57,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      weights (24 talking-heads blocks, 2 class-attention blocks, the same
      prototypes and classes, reserve at class-attention block 1 keeping
      81) answers the same requests; the launch counters must read 0 for
-     every kernel (its blocks and its signed statistics run no kernel of
-     kernels/); a profile of one chunk; then on 2 images the card against the CPU: fp32
+     K1-K5 (its blocks and its signed statistics run none of them) and,
+     in bf16, the talking-heads kernel 24 times a chunk and the chain
+     never (fp32: the chain 24 times a chunk); a profile of one chunk; then on 2 images the card against the CPU: fp32
      cls_token_attn within 1e-5, logits within 1e-4 and the same top-81;
      bf16 speed and exact keep at least 76 of the CPU fp32 top-81, drop
      none of fp32 rank below 60, and keep the logits within phase 5's
@@ -752,6 +758,99 @@ def gelu_phase(dev: torch.device) -> dict:
     return records
 
 
+# CaiT's talking-heads regions (B, tokens, heads) at B=160, heads of 48:
+# CaiT-S24@384 (the serving cell's) and CaiT-XXS-24@224 (phase 4d's)
+TALKING_HEADS_SHAPES = {"cait_s24_384": (B, 576, 8),
+                        "cait_xxs24_224": (B, 196, 4)}
+
+
+def ordered_bits(x: torch.Tensor) -> torch.Tensor:
+    """bf16 or fp32 values as integers in the order of the values (-0 and
+    +0 both 0): the gap of two is their distance in ulps."""
+    i = (x.view(torch.int16).int() if x.dtype == torch.bfloat16
+         else x.float().view(torch.int32).long())
+    sign = 0x7FFF if x.dtype == torch.bfloat16 else 0x7FFFFFFF
+    return torch.where(i < 0, -(i & sign), i).long()
+
+
+def talking_heads_contract(out, fmap, p_out, p_map) -> dict:
+    """The kernel's output and map against the plain chain's: the shares of
+    bit-equal entries and the largest gaps (in ulps of each entry, and over
+    the chain's largest |entry|), held to the output within 2 bf16 ulps of
+    its largest entry with at most 1e-3 of its entries (or one row)
+    differing, the map within one ulp with at most 1e-4 (or one row): the
+    kernel's fp32 sums run in another order, so a bf16 rounding flips now
+    and then (``tests/test_torch_gpu.py`` holds the same)."""
+    got, limit = {}, {}
+    for name, a, b, share, row, ulps in (
+            ("out", out, p_out, 1e-3, out.shape[-1], 2),
+            ("map", fmap, p_map, 1e-4, fmap.shape[-1], 1)):
+        differ = int((a != b).sum())
+        got[name] = {"equal": 1.0 - differ / a.numel(), "differ": differ,
+                     "max_ulps": int((ordered_bits(a)
+                                      - ordered_bits(b)).abs().max()),
+                     "max_err": max_err(a, b)}
+        limit[name] = {"differ": max(int(share * a.numel()), row),
+                       "max_err": ulps * bf16_ulp(b)}
+    holds = all(got[k][m] <= limit[k][m] for k in limit for m in limit[k])
+    return {"got": got, "limit": limit, "holds": holds}
+
+
+def talking_heads_phase(dev: torch.device) -> dict:
+    """CaiT's talking-heads attention in one kernel
+    (``csrc/talking_heads.cu``) on each of ``TALKING_HEADS_SHAPES``, with
+    seeded operands (qkv of unit scale, mixes near the identity, biases of
+    a tenth): the contract of ``talking_heads_contract`` against the eager
+    chain it replaces, its time and the chain's (``time_ms``, L2-warm
+    calls) and its bound (qkv read once, the output and the bf16 map
+    written once; 4 B N^2 C + 4 B H^2 N^2 operations at the bf16 peak)."""
+    import torch.nn as nn
+
+    from protopformer_tpu_torch.kernels.talking_heads import talking_heads_cuda
+    from protopformer_tpu_torch.ops.talking_heads import talking_heads_plain
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    scale = float(torch.tensor(48 ** -0.5, dtype=torch.bfloat16))
+    records = {}
+    for name, (b, n, heads) in TALKING_HEADS_SHAPES.items():
+        c = 48 * heads
+        qkv = torch.randn((b, n, 3 * c), generator=gen, device=dev).to(
+            torch.bfloat16)
+        mixes = [nn.Linear(heads, heads).to(dev) for _ in range(2)]
+        with torch.no_grad():
+            for mix in mixes:
+                mix.weight.copy_(torch.eye(heads, device=dev) + 0.5 * torch.randn(
+                    (heads, heads), generator=gen, device=dev))
+                mix.bias.copy_(0.1 * torch.randn((heads,), generator=gen,
+                                                 device=dev))
+
+            def kernel():
+                return talking_heads_cuda(qkv, scale, *mixes, "mean",
+                                          torch.bfloat16)
+
+            def plain():
+                return talking_heads_plain(qkv, heads, scale, *mixes, "mean",
+                                           torch.bfloat16, torch.bfloat16)
+
+            contract = talking_heads_contract(*kernel(), *plain())
+            require(contract["holds"],
+                    f"talking heads {name}: outside the contract "
+                    f"{json.dumps(contract)}")
+            bound_ms, bound_by = bound(
+                b * n * 3 * c * 2 + b * n * c * 2 + b * n * n * 2,
+                (4.0 * b * n * n * c + 4.0 * b * heads * heads * n * n,
+                 BF16_FLOPS))
+            ms = time_ms(kernel)
+            rec = {"shape": [b, n, heads, 48], "ms": ms,
+                   "plain_ms": time_ms(plain, warmup=1, iters=5),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "x_bound": ms / bound_ms, "contract": contract}
+        log(f"talking heads {name}: {json.dumps(rec)}")
+        records[name] = rec
+        del qkv
+    return records
+
+
 # --- phase 4: serving in three modes ---------------------------------------------
 
 def model_configs():
@@ -790,6 +889,15 @@ def expected_gelu(mode: str, chunks: int, depth: int = 12) -> dict:
     every bf16 MLP and the plain chain never (fp32 runs ``gelu_exact``)."""
     passes = depth * chunks if mode.startswith("bf16") else 0
     return {"launches.gelu_tanh": passes, "gelu.plain": 0}
+
+
+def expected_talking_heads(mode: str, chunks: int, depth: int = 24) -> dict:
+    """The talking-heads counters of ``chunks`` CaiT forwards: the kernel in
+    every bf16 self-attention block and the chain never; fp32 parity the
+    chain in every block."""
+    bf16 = "bf16" in mode
+    return {"launches.talking_heads": depth * chunks if bf16 else 0,
+            "talking_heads.plain": 0 if bf16 else depth * chunks}
 
 
 def profile_forward(engine, reps: int = 3, top: int = 8) -> dict:
@@ -1158,13 +1266,15 @@ def bench(dev: torch.device, tokens: int = N, path: str = "bench") -> dict:
 # --- phase 4d: CaiT serving -------------------------------------------------------
 
 def cait(dev: torch.device, rng: np.random.Generator) -> dict:
-    """CaiT-XXS-24 PPNet serving in three modes, each launching no kernel,
-    then the card against the CPU on 2 images. Returns {mode:
-    {"launches"}}."""
+    """CaiT-XXS-24 PPNet serving in three modes, each launching none of
+    K1-K5 and, in bf16, the talking-heads kernel in every self-attention
+    block (the chain in fp32), then the card against the CPU on 2 images.
+    Returns {mode: {"launches"}}."""
     from protopformer_tpu_torch import kernels
     from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
     from protopformer_tpu_torch.models import construct_ppnet
     from protopformer_tpu_torch.serving import ServingEngine
+    from protopformer_tpu_torch.utils import profiling
 
     ppnet = PPNetConfig(reserve_layers=(1,), reserve_token_nums=(81,))
     modes = {
@@ -1185,12 +1295,20 @@ def cait(dev: torch.device, rng: np.random.Generator) -> dict:
         requests = [rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
                     for n in REQUESTS]
         kernels.reset_launch_counts()
+        profiling.reset_counts("talking_heads.")
         answers = [engine(imgs) for imgs in requests]
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
-        log(f"serve {mode}: launches {json.dumps(launches)}")
+        heads = {k: profiling.counts().get(k, 0)
+                 for k in ("launches.talking_heads", "talking_heads.plain")}
+        log(f"serve {mode}: launches {json.dumps(launches)} "
+            f"{json.dumps(heads)}")
         require(set(launches.values()) == {0},
-                f"serve {mode}: a CaiT forward launched a kernel")
+                f"serve {mode}: a CaiT forward launched a kernel of K1-K5")
+        want_heads = expected_talking_heads(
+            mode, sum(-(-n // B) for n in REQUESTS))
+        require(heads == want_heads,
+                f"serve {mode}: expected talking heads {want_heads}")
         for n, res in zip(REQUESTS, answers):
             require(res.logits.shape == (n, ppnet.num_classes)
                     and res.cls_token_attn.shape == (n, 196)
@@ -3125,6 +3243,7 @@ def main() -> int:
     records = check_kernels(dev, gen)
     records.update(check_core_kernels(dev, gen))
     gelu_phase(dev)
+    talking_heads_phase(dev)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
     ppnet, modes = model_configs()

@@ -32,7 +32,15 @@ gradient. It ports no JAX kernel, so it is not in ``WRAPPERS`` nor in
 ``launch_counts``; it counts ``launches.gelu_tanh`` (and ``gelu_speed``
 counts ``gelu.plain`` where a CUDA tensor takes the chain), 12 and 0 a
 served bf16 chunk. Bound: bytes, the hidden read and written once (1.134
-GB at B=160 for DeiT-B/16@384, 0.339 ms).
+GB at B=160 for DeiT-B/16@384, 0.339 ms). Likewise
+``talking_heads.talking_heads_cuda`` (``csrc/talking_heads.cu``) runs
+CaiT's talking-heads attention (QK^T, both head mixes, the softmax, PV and
+the fused head map) in one launch, where ``ops.talking_heads`` gets a CUDA
+bf16 qkv that needs no gradient at 4 or 8 heads of 48; it counts
+``launches.talking_heads`` (and the chain ``talking_heads.plain`` on the
+card), 24 and 0 a served bf16 CaiT chunk. Bound: bytes, qkv read and the
+output and bf16 map written once (389 MB at B=160 for CaiT-S24@384, 0.116
+ms).
 """
 
 from typing import Dict

@@ -85,6 +85,8 @@ _SIGNATURES = {
     "ppf_attention_core_route_active_clusters": [_INT, _INT, _INT],
     "ppf_attention_core_select_route": [_VOIDP, _INT],
     "ppf_gelu_tanh_bf16": [_VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP],
+    "ppf_talking_heads": [_VOIDP, _INT, _INT, _INT, _FLOAT, _VOIDP, _VOIDP,
+                          _VOIDP, _VOIDP, _INT, _INT, _VOIDP, _VOIDP, _VOIDP],
 }
 _LONG_RESULTS = {"ppf_attention_block_stats_scratch_bytes",
                  "ppf_attention_mean_scratch_bytes"}

@@ -43,11 +43,13 @@ branch, in training mode; both draw from the ``torch.Generator`` the
 caller passes down.
 
 CaiT's blocks (``layers.py:635-829`` of the JAX package) run plain PyTorch
-products, as the JAX package runs them outside any Pallas kernel:
-``TalkingHeadAttention`` mixes the heads before and after its softmax, so
-its maps are not probabilities; ``ClassAttention`` attends from the CLS
-row only; the LayerScale blocks scale each residual branch by fp32 gammas
-cast to the compute dtype.
+products, as the JAX package runs them outside any Pallas kernel, but for
+the talking-heads region of a bf16 forward on the card that needs no
+gradient (``ops/talking_heads.py``: one hand-written kernel, the same
+function): ``TalkingHeadAttention`` mixes the heads before and after its
+softmax, so its maps are not probabilities; ``ClassAttention`` attends
+from the CLS row only; the LayerScale blocks scale each residual branch by
+fp32 gammas cast to the compute dtype.
 """
 
 from __future__ import annotations
@@ -71,6 +73,7 @@ from protopformer_tpu_torch.ops.masking import (
 )
 from protopformer_tpu_torch.ops.quant import int8_matmul
 from protopformer_tpu_torch.ops.rollout import _fuse_heads, normalize_attention_map
+from protopformer_tpu_torch.ops.talking_heads import talking_heads
 from protopformer_tpu_torch.utils.profiling import span
 
 Policy = Union[str, torch.Tensor]
@@ -455,12 +458,6 @@ def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).rsplit(".", 1)[-1]
 
 
-def _mix_heads(a: torch.Tensor, layer: nn.Linear, dtype: torch.dtype
-               ) -> torch.Tensor:
-    """Talking heads: a Linear(H, H) over the head axis of (B, H, N, M)."""
-    return dense(a.permute(0, 2, 3, 1), layer, dtype).permute(0, 3, 1, 2)
-
-
 class TalkingHeadAttention(nn.Module):
     """CaiT self-attention with talking heads: q scaled before QK^T,
     ``proj_l`` mixes the heads of the logits and ``proj_w`` those of the
@@ -469,7 +466,9 @@ class TalkingHeadAttention(nn.Module):
     Returns (out (B, N, C), the map (B, N, N): the mixed probabilities'
     heads fused by ``head_fusion`` ("mean", "max" or "min") in fp32 and
     stored in ``map_dtype``): rows need not sum to 1, and entries may be
-    negative. While a profiler collects, the span ``cait.talking_heads``
+    negative. ``ops.talking_heads.talking_heads`` computes them: one
+    kernel for a bf16 forward on the card that needs no gradient, else the
+    eager chain. While a profiler collects, the span ``cait.talking_heads``
     covers the work from the qkv product's output to the stored map and
     the attention output before ``proj``, and times it on the card.
     """
@@ -497,15 +496,9 @@ class TalkingHeadAttention(nn.Module):
         with span("cait.talking_heads", region=qkv, attrs={
                 "batch": B, "tokens": N, "heads": H, "head_dim": C // H,
                 "map_dtype": dtype_name(self.map_dtype)}):
-            q, k, v = qkv.reshape(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
-            q = q * _scale(C // H, dt)
-            logits = _mix_heads(torch.matmul(q, k.transpose(-1, -2)),
-                                self.proj_l, dt)
-            probs = torch.softmax(logits.float(), dim=-1).to(dt)
-            probs = _mix_heads(probs, self.proj_w, dt)
-            out = torch.matmul(probs, v).transpose(1, 2).reshape(B, N, C)
-            fmap = _fuse_heads(probs.detach().float(),
-                               self.head_fusion).to(self.map_dtype)
+            out, fmap = talking_heads(qkv, H, _scale(C // H, dt), self.proj_l,
+                                      self.proj_w, self.head_fusion,
+                                      self.map_dtype, dt)
         out = dense(out, self.proj, dt)
         if self.training:
             out = dropout(out, self.drop_rate, generator)

@@ -26,7 +26,11 @@ of that map's masked row sums; against the plain version the map within
 one bf16 ulp of its largest entry, out within 2 bf16 ulps of max|out|, at
 most 1e-4 of the map's entries per 3 heads (or one row) differing, and t
 differing in
-at most max(1, B // 80) samples, each one whose map differs. K4/K5
+at most max(1, B // 80) samples, each one whose map differs. CaiT's
+talking-heads kernel sums its dots, head mixes and softmax in another
+order than the eager chain too: its output is held within 2 bf16 ulps of
+the chain's largest entry with at most 1e-3 of the entries (or one row)
+differing, its map within one ulp with at most 1e-4 (or one row). K4/K5
 emit a map normalized after a k-th largest discard, where a one-ulp
 difference in the raw map can move an entry across the threshold: each is
 held against the plain normalize of K3's raw map on the same inputs (the
@@ -1534,3 +1538,109 @@ def test_a_served_chunk_runs_the_gelu_pass_in_every_block(cuda, dtype,
     want = engine(imgs)
     np.testing.assert_array_equal(got.logits, want.logits)
     np.testing.assert_array_equal(got.cls_token_attn, want.cls_token_attn)
+
+
+# --- CaiT's talking-heads attention in one kernel (csrc/talking_heads.cu) -----
+
+def _th_operands(cuda, B, N, heads, bias, seed=21):
+    """A seeded bf16 qkv (B, N, 3 * 48 * heads) on the card and the two
+    talking-heads mixes: weights near the identity (as trained mixes are),
+    biases of a tenth or zero."""
+    import torch.nn as nn
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn((B, N, 3 * 48 * heads), generator=gen,
+                      device=cuda).to(torch.bfloat16)
+    mixes = [nn.Linear(heads, heads).to(cuda) for _ in range(2)]
+    with torch.no_grad():
+        for mix in mixes:
+            mix.weight.copy_(torch.eye(heads, device=cuda) + 0.5 * torch.randn(
+                (heads, heads), generator=gen, device=cuda))
+            mix.bias.copy_(0.1 * torch.randn((heads,), generator=gen,
+                                             device=cuda) if bias else 0.0)
+    return qkv, mixes
+
+
+def _th_contract(got, want, share: float, row: int) -> dict:
+    """The kernel's output or map against the plain chain's: the largest
+    gap (held to bf16 ulps of the chain's largest |entry|) and the entries
+    not bit-equal, of which at most ``share`` (or one ``row``) may be. The
+    kernel sums its dots, the two head mixes and the softmax's sum in fp32
+    in another order than the chain's GEMMs and softmax, so a logit, a
+    probability or a mixed entry rounds one bf16 ulp the other way now and
+    then, and that moves its row's output and its map entries (on the card
+    at CaiT-S24@384, B=160: 99.97 % of the output and 99.999 % of the map
+    bit-equal, the largest gap 0.34 % / 0.09 % of the largest entry)."""
+    diff = (got.float() - want.float()).abs()
+    return {"max": float(diff.max()), "differ": int((got != want).sum()),
+            "limit_differ": max(int(got.numel() * share), row)}
+
+
+def _th_check(cuda, B, N, heads, fusion="mean", map_dtype=torch.bfloat16,
+              bias=True):
+    from protopformer_tpu_torch.kernels.talking_heads import talking_heads_cuda
+    from protopformer_tpu_torch.ops.talking_heads import talking_heads_plain
+
+    qkv, (proj_l, proj_w) = _th_operands(cuda, B, N, heads, bias)
+    keep = qkv.clone()
+    scale = float(torch.tensor(48 ** -0.5, dtype=torch.bfloat16))
+    with torch.no_grad():
+        out, fmap = talking_heads_cuda(qkv, scale, proj_l, proj_w, fusion,
+                                       map_dtype)
+        p_out, p_map = talking_heads_plain(qkv, heads, scale, proj_l, proj_w,
+                                           fusion, map_dtype, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(qkv, keep)
+    assert out.shape == p_out.shape and out.dtype == torch.bfloat16
+    assert fmap.shape == (B, N, N) and fmap.dtype == map_dtype
+    assert bool(torch.isfinite(out).all() and torch.isfinite(fmap).all())
+    got_out = _th_contract(out, p_out, 1e-3, 48 * heads)
+    got_map = _th_contract(fmap, p_map, 1e-4, N)
+    assert got_out["max"] <= 2 * _bf16_ulp(p_out), got_out
+    assert got_out["differ"] <= got_out["limit_differ"], got_out
+    assert got_map["max"] <= _bf16_ulp(p_map), got_map
+    assert got_map["differ"] <= got_map["limit_differ"], got_map
+
+
+@pytest.mark.parametrize("B", [1, 7, 160])
+@pytest.mark.parametrize("N,heads", [(196, 4), (196, 8), (576, 4), (576, 8)],
+                         ids=["196_h4", "196_h8", "576_h4", "576_h8"])
+def test_talking_heads_kernel_against_the_chain(cuda, B, N, heads):
+    """CaiT-XXS's 196 tokens of 4 heads and CaiT-S24@384's 576 of 8 (and
+    the other pairs), at one image, a ragged few and a serving chunk: the
+    bf16 head-mean map and the output within the contract above."""
+    _th_check(cuda, B, N, heads, bias=B != 7)
+
+
+@pytest.mark.parametrize("map_dtype", [torch.bfloat16, torch.float32],
+                         ids=["map_bf16", "map_fp32"])
+@pytest.mark.parametrize("fusion", ["mean", "max", "min"])
+@pytest.mark.parametrize("bias", [False, True], ids=["zero_bias", "bias"])
+def test_talking_heads_kernel_settings(cuda, map_dtype, fusion, bias):
+    """Each head fusion and map dtype, with zero and non-zero biases of
+    both mixes, at 8 heads over 577 tokens (no multiple of the kernel's
+    tiles)."""
+    _th_check(cuda, 3, 577, 8, fusion, map_dtype, bias)
+
+
+@pytest.mark.parametrize("dtype,exact", [(torch.float32, True),
+                                         (torch.bfloat16, True),
+                                         (torch.bfloat16, False)])
+def test_cait_forward_counts_the_talking_heads_kernel(cuda, dtype, exact):
+    """A CaiT-XXS-24 forward with no gradient: in bf16 (either map dtype)
+    the kernel in each of its 24 self-attention blocks and never the chain;
+    in fp32 the chain in each, no launch."""
+    from protopformer_tpu_torch.utils import profiling
+
+    model = _cait_ppnet({"rollout_exact_discard": exact}, dtype).to(cuda)
+    x = torch.zeros((2, 224, 224, 3), device=cuda)
+    profiling.reset_counts("launches.talking_heads")
+    profiling.reset_counts("talking_heads.plain")
+    with torch.inference_mode():
+        out = model(x)
+    torch.cuda.synchronize()
+    counts = profiling.counts()
+    bf16 = dtype == torch.bfloat16
+    assert counts.get("launches.talking_heads", 0) == (24 if bf16 else 0)
+    assert counts.get("talking_heads.plain", 0) == (0 if bf16 else 24)
+    assert bool(torch.isfinite(out.logits).all())
