@@ -1,50 +1,40 @@
-"""K1's and K3's long kernels, timed against their short ones at N <= 256
-or against a parent commit's at the models' own operands.
+"""K1's and K3's long kernels, timed against a parent commit's at the
+models' own operands.
 
 K1 and K3 launch their long kernels (``block_stats_long_kernel``,
-``bf16k``/``f32k::mean_long_kernel``) from ``kLongMinTokens`` = 257 tokens
-on (``csrc/common.cuh``) and their short ones below. Each comparison runs
-its two sides in processes of their own, each building its own library,
-in the order A, B, B, A, and reports the mean of each side's two readings:
+``bf16k``/``f32k::mean_long_kernel``) from 257 tokens on
+(``csrc/common.cuh``) and their short ones below. The comparison runs a
+copy under ``build/long_kernels_parent/`` whose ``csrc/`` is DIR's (A;
+DIR holds an unpacked tree of the parent commit, ``git archive HEAD | tar
+-x -C DIR``), the Python being this checkout's, against the package (B),
+each side in a process of its own that builds its own library, in the
+order A, B, B, A, and reports the mean of each side's two readings.
 
-* ``--against short`` (the default): the package (A) against a copy
-  under ``build/long_kernels/`` with ``kLongMinTokens`` set to 1 (B), so
-  that every N takes the long kernels, at the short kernels' token counts
-  on seeded random operands. N = 257 takes the long kernels in both and is
-  the control. Every case is first held against its plain version (K1: t
-  equal to ``masked_map_stats`` on its own map, s within 1e-6, the map
-  within one bf16 ulp and out within two of their largest entries; K3: out
-  within 1e-5 in fp32 or 1e-2 in bf16, the map within 1e-6).
-* ``--against parent --parent DIR``: a copy under
-  ``build/long_kernels_parent/`` whose ``csrc/`` is DIR's (A; DIR holds an
-  unpacked tree of the parent commit, ``git archive HEAD | tar -x -C
-  DIR``), the Python being this checkout's, against the package (B). Each
-  side builds DeiT-B/16@384's and ``deit_tiny_patch2_32``'s PPNets at the
-  CUB preset from a seed and serves a chunk in each mode, capturing the
-  operands of the first K1, K2 and K3 calls (block 0's), holds the
-  kernels against their plain versions on them as above and times them:
-  K1, K1's select alone (K2's launch on K1's stored map), K2 on the fp32
-  serving map (t bit-equal to ``map_stats_plain``, s within 1e-6), K3 in
-  fp32; the same for DeiT-Tiny/16 at 448 and 512 px (785 and 1,025
-  tokens, past 640: K1's head split, K3 fp32's key split); K4 in fp32 on the
-  384 and 448 fp32 operands (its attention phase is K3's kernel); the
-  384's and the 448's bf16 exact ``masked_forward_thresh`` at B=160: img/s, and K4 with
-  its attention phase (K3 bf16's long kernel) and its normalize on the
-  first K4 call's operands; K5 on the kernel bench's operands at 577 and
-  785 tokens (real 577 in NP 640, 785 in 896, B=256; held against the
-  plain normalize of K3's map) with its attention phase, and K3 bf16 on
-  the bench's operands at 257; the routes at N <= 256 that share the
-  select's code, on seeded random operands: K1 in both modes and K2 on
-  K1's exact map at 197 and 256 tokens, and K5 on the bench's operands
-  at 197 and 256 with its attention phase and its normalize (the call
-  less that phase); and on the change's side alone its routes past 640
-  side by side (``route_readings``).
+Each side builds DeiT-B/16@384's and ``deit_tiny_patch2_32``'s PPNets at
+the CUB preset from a seed and serves a chunk in each mode, capturing the
+operands of the first K1, K2 and K3 calls (block 0's), holds the kernels
+against their plain versions on them (K1: t equal to ``masked_map_stats``
+on its own map, s within 1e-6, the map within one bf16 ulp and out within
+two of their largest entries; K2: t bit-equal to ``map_stats_plain``, s
+within 1e-6; K3: out within 1e-5 in fp32 or 1e-2 in bf16, the map within
+1e-6) and times them: K1, K1's select alone (K2's launch on K1's stored
+map), K2 on the fp32 serving map, K3 in fp32; the same for DeiT-Tiny/16 at
+448 and 512 px (785 and 1,025 tokens, past 640: K1's head split, K3 fp32's
+key split); K4 in fp32 on the 384 and 448 fp32 operands (its attention
+phase is K3's kernel); the 384's and the 448's bf16 exact
+``masked_forward_thresh`` at B=160: img/s, and K4 with its attention phase
+(K3 bf16's long kernel) and its normalize on the first K4 call's operands;
+K5 on the kernel bench's operands at 577 and 785 tokens (real 577 in NP
+640, 785 in 896, B=256; held against the plain normalize of K3's map) with
+its attention phase, and K3 bf16 on the bench's operands at 257; and the
+routes at N <= 256 that share the select's code, on seeded random
+operands: K1 in both modes and K2 on K1's exact map at 197 and 256 tokens,
+and K5 on the bench's operands at 197 and 256 with its attention phase and
+its normalize (the call less that phase).
 
 B = 160 (a serving chunk) but for the bench's K5. Needs a CUDA card.
 
-    python -m protopformer_tpu_torch.cli.time_long_kernels
-    python -m protopformer_tpu_torch.cli.time_long_kernels --against parent \\
-        --parent build/parent
+    python -m protopformer_tpu_torch.cli.time_long_kernels --parent build/parent
 """
 
 from __future__ import annotations
@@ -63,20 +53,15 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[2]
 PACKAGE = "protopformer_tpu_torch"
-COPY = ROOT / "build" / "long_kernels"
 PARENT_COPY = ROOT / "build" / "long_kernels_parent"
-THRESHOLD = "constexpr int kLongMinTokens = 257;"
-# (N, C, H): DeiT-Tiny at 197 tokens and after the gather (82), DeiT-B's
-# heads at 197, and the control at 257
-CASES = ((197, 192, 3), (82, 192, 3), (197, 768, 12), (257, 192, 3))
-# the models of the parent comparison, by the record tag of their token
+# the models of the comparison, by the record tag of their token
 # count: a preset and its overrides (DeiT-Tiny/16 at 448 and 512 px)
 MODELS = {"N=577": ("deit_base_patch16_384", {}),
           "N=257": ("deit_tiny_patch2_32", {}),
           "N=785": ("deit_tiny_patch16_224", {"img_size": 448}),
           "N=1025": ("deit_tiny_patch16_224", {"img_size": 512})}
 MODES = ("bf16_speed", "bf16_exact", "fp32_parity")
-# (N, C, H) of the parent comparison's short readings: DeiT-Tiny and
+# (N, C, H) of the short readings: DeiT-Tiny and
 # DeiT-B's heads at 197, and the short route's largest N
 SHORT_CASES = ((197, 192, 3), (197, 768, 12), (256, 192, 3))
 B = 160
@@ -165,29 +150,6 @@ def _hold_k5(name: str, qkv: torch.Tensor, pol: torch.Tensor, heads: int,
     return call
 
 
-def short_worker() -> Dict[str, float]:
-    """Hold and time every case of ``CASES`` with the package on
-    ``sys.path``."""
-    from protopformer_tpu_torch.cli.bench_kernels import _time_ms
-
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(1)
-    ms = {}
-    for n, c, h in CASES:
-        qb = torch.randn((B, n, 3 * c), generator=gen).to(dev, torch.bfloat16)
-        q32 = torch.randn((B, n, 3 * c), generator=gen).to(dev)
-        pol = (torch.rand((B, n), generator=gen) > 0.3).float()
-        pol[:, 0] = 1.0
-        pol = pol.to(dev)
-        for exact in (False, True):
-            name = f"K1[{'exact' if exact else 'speed'},N={n},H={h}]"
-            ms[name] = _time_ms(_hold_k1(name, qb, h, exact), dev, 3, 20)
-        for q, tag in ((q32, "fp32"), (qb, "bf16")):
-            name = f"K3[{tag},N={n},H={h}]"
-            ms[name] = _time_ms(_hold_k3(name, q, pol, h), dev, 3, 20)
-    return ms
-
-
 @contextlib.contextmanager
 def _first_calls(module, names):
     """Record the arguments of the first call of each ``module.<name>``
@@ -209,12 +171,10 @@ def _first_calls(module, names):
             setattr(module, name, fn)
 
 
-def parent_worker(dev: torch.device = torch.device("cuda"),
-                  routes: bool = False) -> Dict[str, float]:
+def worker(dev: torch.device = torch.device("cuda")) -> Dict[str, float]:
     """Serve each model of ``MODELS`` with the package on ``sys.path``;
-    hold and time the long kernels on its operands, and with ``routes``
-    this tree's routes past 640 side by side (``route_readings``). Returns
-    ms per kernel record."""
+    hold and time the long kernels on its operands. Returns ms per kernel
+    record."""
     from protopformer_tpu_torch.cli.bench_kernels import _time_ms
     from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
     from protopformer_tpu_torch.kernels import attention_core as ac
@@ -280,8 +240,6 @@ def parent_worker(dev: torch.device = torch.device("cuda"),
         del state_dict
     res.update(bench_readings(dev))
     res.update(short_readings(dev))
-    if routes:
-        res.update(route_readings(dev))
     return res
 
 
@@ -398,103 +356,11 @@ def short_readings(dev) -> Dict[str, float]:
     return res
 
 
-# token counts of the route readings past 640: one past, 700, DeiT-Tiny/16
-# at 448 px (785) and 849, the last the band in shared memory fits
-ROUTE_TOKENS = (641, 700, 785, 849)
-
-
-def route_readings(dev) -> Dict[str, float]:
-    """This tree's routes past 640 tokens side by side on the same
-    operands, held equal first (a route that differs raises): the map
-    select on its band in shared memory (the route there before) and read
-    in place, on seeded probability maps in fp32 and bf16 at
-    ``ROUTE_TOKENS``, B=160, 16-bit prefix on bf16; K4/K5's normalize on
-    both routes alone (``normalize_on_route``, less a copy of the map it
-    works on) on K3's raw map of seeded operands at 785 (B=160), real 785
-    in NP 896 and real 641 in NP 768 (B=256), and at 700 and 849; K3 bf16
-    on the register and the global route at 785, 897 and 1,025 (B=160),
-    real 785 in NP 896 (B=256) and real 1,025 in NP 1,152."""
-    from protopformer_tpu_torch.cli.bench_kernels import _time_ms
-    from protopformer_tpu_torch.kernels import attention_core as ac
-    from protopformer_tpu_torch.kernels import stats
-
-    gen = torch.Generator().manual_seed(14)
-    res = {}
-    for n in ROUTE_TOKENS:
-        maps = torch.rand((B, n, n), generator=gen)
-        maps = (maps / maps.sum(-1, keepdim=True)).to(dev)
-        keep = n * n - int(n * n * 0.9)
-        for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
-            m = maps.to(dtype)
-            prefix16 = dtype == torch.bfloat16
-            want = stats.map_stats_cuda(m, keep, prefix16)
-            for route in ("band", "in_place"):
-                got = stats.map_stats_on_route(m, keep, prefix16, route)
-                if not (torch.equal(got[0], want[0])
-                        and torch.equal(got[1], want[1])):
-                    raise AssertionError(f"select N={n} {tag}: {route} "
-                                         "differs")
-                res[f"select_route[{route},{tag},N={n}]"] = _time_ms(
-                    lambda: stats.map_stats_on_route(m, keep, prefix16,
-                                                     route), dev, 3, 20)
-            del m, want, got
-        del maps
-    for b, n, np_ in ((B, 785, 785), (256, 785, 896), (256, 641, 768),
-                      (B, 700, 700), (B, 849, 849)):
-        qkv = torch.randn((b, np_, 576), generator=gen).to(dev,
-                                                            torch.bfloat16)
-        pol = torch.ones((b, np_), device=dev)
-        pol[:, n:] = 0.0
-        _, raw = ac.fused_attention_mean_padded(qkv, pol, 3, n)
-        copy = _time_ms(lambda: raw.clone(), dev, 3, 20)
-        at = f"B={b},{n} in {np_}"
-        outs = {}
-        for route in ("band", "in_place"):
-            outs[route] = ac.normalize_on_route(raw, n, route)
-            res[f"normalize_route[{route},{at}]"] = _time_ms(
-                lambda: ac.normalize_on_route(raw, n, route), dev, 3,
-                20) - copy
-        if not torch.equal(outs["band"], outs["in_place"]):
-            raise AssertionError(f"normalize {at}: the routes differ")
-        del qkv, pol, raw, outs
-        torch.cuda.empty_cache()
-    for b, n, np_ in ((B, 785, 785), (256, 785, 896), (B, 897, 897),
-                      (B, 1025, 1025), (B, 1025, 1152)):
-        qkv = torch.randn((b, np_, 576), generator=gen).to(dev,
-                                                            torch.bfloat16)
-        pol = torch.ones((b, np_), device=dev)
-        pol[:, n:] = 0.0
-        at = f"B={b},{n} in {np_}"
-        out, fmap = ac.fused_attention_mean_padded(qkv, pol, 3, n)
-        g_out, g_map = ac.mean_bf16_global_route(qkv, pol, 3, n)
-        if not (torch.equal(fmap, g_map) and torch.equal(out, g_out)):
-            raise AssertionError(f"K3 bf16 {at}: the routes differ")
-        res[f"K3_global_route[bf16,{at}]"] = _time_ms(
-            lambda: ac.mean_bf16_global_route(qkv, pol, 3, n), dev, 3, 20)
-        res[f"K3_chosen_route[bf16,{at}]"] = _time_ms(
-            lambda: ac.fused_attention_mean_padded(qkv, pol, 3, n), dev, 3,
-            20)
-        del qkv, pol, out, fmap, g_out, g_map
-        torch.cuda.empty_cache()
-    return res
-
-
 def _copy_package(dest: Path) -> Path:
     shutil.rmtree(dest, ignore_errors=True)
     shutil.copytree(ROOT / PACKAGE, dest / PACKAGE,
                     ignore=shutil.ignore_patterns("__pycache__"))
     return dest
-
-
-def make_copy() -> Path:
-    """The package under ``COPY`` with every N taking the long kernels."""
-    header = _copy_package(COPY) / PACKAGE / "csrc" / "common.cuh"
-    text = header.read_text()
-    if THRESHOLD not in text:
-        raise RuntimeError(f"{header}: no line {THRESHOLD!r} to change")
-    header.write_text(text.replace(THRESHOLD,
-                                   "constexpr int kLongMinTokens = 1;"))
-    return COPY
 
 
 def make_parent(parent: Path) -> Path:
@@ -509,22 +375,16 @@ def make_parent(parent: Path) -> Path:
     return PARENT_COPY
 
 
-def run(against: str = "short", parent: Path = None) -> Dict[str, object]:
+def run(parent: Path) -> Dict[str, object]:
     if not torch.cuda.is_available():
         raise RuntimeError("time_long_kernels needs a CUDA card")
-    if against == "short":
-        roots = {"short": ROOT, "long": make_copy()}
-    else:
-        roots = {"parent": make_parent(parent), "change": ROOT}
+    roots = {"parent": make_parent(parent), "change": ROOT}
     a, b = roots
     readings = {a: [], b: []}
     for side in (a, b, b, a):
-        # the change's own routes side by side, on its side alone
-        extra = ["--routes"] if against == "parent" and side == b else []
         proc = subprocess.run(
             [sys.executable, "-m", f"{PACKAGE}.cli.time_long_kernels",
-             "--worker", against, *extra], cwd=roots[side],
-            capture_output=True, text=True)
+             "--worker"], cwd=roots[side], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"the {side} side failed:\n{proc.stderr}")
         readings[side].append(json.loads(proc.stdout.strip().splitlines()[-1]))
@@ -537,29 +397,22 @@ def run(against: str = "short", parent: Path = None) -> Dict[str, object]:
         if len(values[k]) == 2:
             values[k][f"{b}_over_{a}"] = mean[b][k] / mean[a][k]
     return {"device": torch.cuda.get_device_name(0), "batch": B,
-            "against": against, "values": values, "readings": readings}
+            "values": values, "readings": readings}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--against", choices=("short", "parent"),
-                        default="short")
     parser.add_argument("--parent", type=Path,
-                        help="an unpacked tree of the parent commit "
-                             "(--against parent)")
-    parser.add_argument("--worker", choices=("short", "parent"),
+                        help="an unpacked tree of the parent commit")
+    parser.add_argument("--worker", action="store_true",
                         help="time the package on sys.path and print JSON")
-    parser.add_argument("--routes", action="store_true",
-                        help="with --worker parent, also time this tree's "
-                             "routes past 640 tokens side by side")
     args = parser.parse_args(argv)
     if args.worker:
-        out = (short_worker() if args.worker == "short"
-               else parent_worker(routes=args.routes))
+        out = worker()
     else:
-        if args.against == "parent" and args.parent is None:
-            parser.error("--against parent needs --parent DIR")
-        out = run(args.against, args.parent)
+        if args.parent is None:
+            parser.error("--parent DIR is required")
+        out = run(args.parent)
     print(json.dumps(out))
     return 0
 

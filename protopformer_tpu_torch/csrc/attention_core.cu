@@ -166,7 +166,7 @@ auto normalize_kernel_on(int route) {
 // lines (NP a multiple of 32). The in-place route rewrites each row where
 // it lies, blended, then divided: on rows that straddle lines it reads
 // slower than the band, on aligned ones faster (K5's NP 896; measured at
-// 641-849 real rows, cli.time_long_kernels, PERF.md).
+// 641-849 real rows on an H100, PERF.md).
 int normalize_route(int real_n, int NP) {
   const int route = ppf::map_route(real_n, real_n, NP);
   if (route == ppf::kMapGlobal && NP % 32 != 0 &&
@@ -175,15 +175,17 @@ int normalize_route(int real_n, int NP) {
   return route;
 }
 
-cudaLaunchConfig_t normalize_config(int B, int NP, int real_n, int route,
-                                    cudaStream_t stream,
-                                    cudaLaunchAttribute* attr) {
-  return ppf::cluster_launch_config(
+// The normalize launch of B maps on its route (normalize_route), its
+// kernel set up for it. `attr` must outlive the launch call.
+cudaError_t configure_normalize(int B, int NP, int real_n, cudaStream_t stream,
+                                cudaLaunchAttribute* attr,
+                                cudaLaunchConfig_t& cfg) {
+  const int route = normalize_route(real_n, NP);
+  if (!ppf::map_route_takes(route, real_n, real_n, NP))
+    return cudaErrorInvalidValue;
+  cfg = ppf::cluster_launch_config(
       ppf::map_cluster_size(real_n), B, ppf::kMapThreads,
       ppf::map_route_smem(route, real_n, real_n, NP), stream, attr);
-}
-
-cudaError_t normalize_setup(const cudaLaunchConfig_t& cfg, int route) {
   const auto kernel = normalize_kernel_on(route);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -192,20 +194,17 @@ cudaError_t normalize_setup(const cudaLaunchConfig_t& cfg, int route) {
                           : e;
 }
 
-// Phase 2 on `route` (-1: the one chosen by shape, normalize_route).
+// Phase 2, in place on the (B, NP, NP) fp32 map.
 cudaError_t launch_normalize(float* map, int B, int NP, int real_n, int keep,
                              float identity_weight, float one_plus_iw,
-                             int route, cudaStream_t stream) {
-  if (route < 0) route = normalize_route(real_n, NP);
-  if (!ppf::map_route_takes(route, real_n, real_n, NP))
-    return cudaErrorInvalidValue;
+                             cudaStream_t stream) {
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      normalize_config(B, NP, real_n, route, stream, attr);
-  cudaError_t e = normalize_setup(cfg, route);
+  cudaLaunchConfig_t cfg;
+  cudaError_t e = configure_normalize(B, NP, real_n, stream, attr, cfg);
   if (e != cudaSuccess) return e;
-  e = cudaLaunchKernelEx(&cfg, normalize_kernel_on(route), map, NP, real_n,
-                         keep, identity_weight, one_plus_iw);
+  e = cudaLaunchKernelEx(&cfg,
+                         normalize_kernel_on(normalize_route(real_n, NP)), map,
+                         NP, real_n, keep, identity_weight, one_plus_iw);
   return e == cudaSuccess ? cudaGetLastError() : e;
 }
 
@@ -231,22 +230,7 @@ extern "C" int ppf_attention_core(const void* qkv, const void* policy, int B,
                                      scratch);
   if (err != 0) return err;
   return launch_normalize(static_cast<float*>(map), B, NP, real_n, keep,
-                          identity_weight, one_plus_iw, -1,
-                          static_cast<cudaStream_t>(stream));
-}
-
-// Phase 2 alone, in place on a raw (B, NP, NP) fp32 map (phase 1's), on
-// `route` (-1 the one chosen by shape; else ppf_map_stats_route's
-// numbers), for comparing the select's routes on the same map; the other
-// arguments as ppf_attention_core's. cudaErrorInvalidValue where the
-// route does not take the shape.
-extern "C" int ppf_attention_core_normalize(void* map, int B, int NP,
-                                            int real_n, int keep,
-                                            float identity_weight,
-                                            float one_plus_iw, void* stream,
-                                            int route) {
-  return launch_normalize(static_cast<float*>(map), B, NP, real_n, keep,
-                          identity_weight, one_plus_iw, route,
+                          identity_weight, one_plus_iw,
                           static_cast<cudaStream_t>(stream));
 }
 
@@ -262,26 +246,16 @@ extern "C" int ppf_attention_core_cluster_size(int real_n) {
 }
 
 // How many of the normalize launch's clusters the card can hold at once
-// on `route` (-1 the one chosen by shape; 0 where the route does not take
-// the shape; negative: the cudaError_t of the query).
-extern "C" int ppf_attention_core_route_active_clusters(int real_n, int NP,
-                                                        int route) {
-  if (route < 0) route = normalize_route(real_n, NP);
-  if (!ppf::map_route_takes(route, real_n, real_n, NP)) return 0;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      normalize_config(1, NP, real_n, route, nullptr, attr);
-  int clusters = 0;
-  cudaError_t e = normalize_setup(cfg, route);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveClusters(&clusters, normalize_kernel_on(route),
-                                       &cfg);
-  return e == cudaSuccess ? clusters : -static_cast<int>(e);
-}
-
-// The same on the route chosen by shape.
+// (negative: the cudaError_t of the query).
 extern "C" int ppf_attention_core_active_clusters(int real_n, int NP) {
-  return ppf_attention_core_route_active_clusters(real_n, NP, -1);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  int clusters = 0;
+  cudaError_t e = configure_normalize(1, NP, real_n, nullptr, attr, cfg);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveClusters(
+        &clusters, normalize_kernel_on(normalize_route(real_n, NP)), &cfg);
+  return e == cudaSuccess ? clusters : -static_cast<int>(e);
 }
 
 // ppf_map_stats_select_route for the normalize's select above 256 tokens.

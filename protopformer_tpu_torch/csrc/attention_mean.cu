@@ -119,13 +119,12 @@
 //    9 steps of 4 columns a lane (112 or 144 registers: 3 tiles' 384
 //    threads would spill), ~160 KB of shared memory at 785, one block an
 //    SM; the map is written once at the end. Bound at B=160, NP=785, H=3:
-//    bytes, 588 MB (qkv, out, the fp32 map) = 0.1755 ms. The map is the
-//    global route's bit for bit (the same adds in the same order) and out
-//    too (held to 1e-5, tests/test_torch_gpu.py). Measured against the
-//    global route and against a head split (a cluster of H CTAs, one a
-//    head, each its head's fp32 probabilities of the band in shared
+//    bytes, 588 MB (qkv, out, the fp32 map) = 0.1755 ms. Its head mean
+//    takes the global route's adds in the same order. Measured against
+//    the global route and against a head split (a cluster of H CTAs, one
+//    a head, each its head's fp32 probabilities of the band in shared
 //    memory, the head mean added over distributed shared memory as K1's
-//    is), in cli.time_long_kernels calls on an H100 at 700 W (PERF.md):
+//    is), on an H100 at 700 W (PERF.md):
 //    the head split exchanged twice K1's bytes (fp32 probabilities) over
 //    distributed shared memory and read no faster than the global route.
 //  * bf16 above 1,152 tokens, and fp32 above 5,120 columns: the global
@@ -137,8 +136,9 @@
 //    register route would give), and the entries outside the real block
 //    are zeroed at the end; the softmax loops over a row's steps, writing
 //    e back in place, then p; bf16: the block's fp32 logits stay in
-//    shared memory, in 3 row tiles where they fit, else 1 (16 rows, up to
-//    ~2,900 tokens); fp32: P lies in a scratch buffer in global
+//    shared memory, in 1 row tile (16 rows, up to ~2,900 tokens; 3 tiles'
+//    logits fit no head dim past 1,152 tokens); fp32: P lies in a scratch
+//    buffer in global
 //    memory (32 rows a block, L2-resident while the block runs), and the
 //    8 warps' P V sums meet in shared memory.
 #include "common.cuh"
@@ -311,12 +311,8 @@ constexpr int kLongChunk = 32 * kLongWarps;  // keys a chunk: 2 key tiles a warp
 constexpr int kLongStages = 2;
 
 // Steps of 128 columns (4 a lane) a softmax row takes at NP tokens: the
-// register route is built for 3, 4 and 5 (NP up to 384, 512 and 640; 3
-// also below 257 tokens, as cli.time_long_kernels's copy runs it there).
-inline int long_steps(int NP) {
-  const int st = (NP + kLongChunk - 1) / kLongChunk;
-  return st < 3 ? 3 : st;
-}
+// register route is built for 3, 4 and 5 (NP up to 384, 512 and 640).
+inline int long_steps(int NP) { return (NP + kLongChunk - 1) / kLongChunk; }
 
 // Its shared memory at `tiles` row tiles: the policy, each warp's row
 // maxima of its tile, the block's Q rows, the ring, and the block's fp32
@@ -346,23 +342,18 @@ struct LongLayout {
 // tokens (the head mean in registers, 3 row tiles); ST = 7 up to 896 and
 // 9 up to 1,152 (the same in 2 row tiles, whose registers hold 4 rows'
 // head mean of 7 or 9 steps a lane: 3 tiles would spill); else ST = 0,
-// the global route, in 3 row tiles where their logits fit shared memory,
-// else 1.
+// the global route, in 1 row tile (past 1,152 tokens 3 tiles' logits fit
+// shared memory at no head dim).
 struct LongRoute {
   int st, tiles;
 };
-
-// The global route at NP tokens (past 1,152 tokens, and on request).
-LongRoute global_route(int NP, int hd) {
-  return {0, LongLayout(NP, hd, 3).total <= ppf::kMaxSmemPerBlock ? 3 : 1};
-}
 
 LongRoute long_route(int NP, int hd) {
   const int st = long_steps(NP);
   if (st <= 5) return {st, 3};
   if (st <= 9 && LongLayout(NP, hd, 2).total <= ppf::kMaxSmemPerBlock)
     return {st <= 7 ? 7 : 9, 2};
-  return global_route(NP, hd);
+  return {0, 1};
 }
 
 // rows kLongRows * blockIdx.x on of sample blockIdx.y; ST and TILES its
@@ -731,26 +722,17 @@ mean_long_kernel(const __nv_bfloat16* __restrict__ qkv,
 
 bool long_tokens(int NP) { return NP >= ppf::kLongMinTokens; }
 
-// The route at NP tokens: long_route's, or with `global` the global
-// route past 640 tokens (the route there before the register route took
-// 641 to 1,152 tokens).
-LongRoute route_of(int NP, int hd, bool global) {
-  return global && long_steps(NP) > 5 ? global_route(NP, hd)
-                                      : long_route(NP, hd);
-}
-
-size_t smem_bytes(int NP, int hd, bool global = false) {
+size_t smem_bytes(int NP, int hd) {
   if (!long_tokens(NP)) return Layout(NP, hd).total;
-  return LongLayout(NP, hd, route_of(NP, hd, global).tiles).total;
+  return LongLayout(NP, hd, long_route(NP, hd).tiles).total;
 }
 
 // Runs the statements given with `kernel` the bf16 kernel for NP tokens at
-// head dim HD (on the global route past 640 tokens where GLOBAL) and
-// `threads` its block size; returns cudaErrorInvalidValue where none
-// takes NP.
-#define PPF_DISPATCH_BF16(NP, HD, GLOBAL, ...)                             \
+// head dim HD and `threads` its block size; returns cudaErrorInvalidValue
+// where none takes NP.
+#define PPF_DISPATCH_BF16(NP, HD, ...)                                     \
   if (long_tokens(NP)) {                                                   \
-    const LongRoute rt = route_of(NP, HD, GLOBAL);                         \
+    const LongRoute rt = long_route(NP, HD);                               \
     const int threads = 32 * kLongWarps * rt.tiles;                        \
     switch (10 * rt.st + rt.tiles) {                                       \
       case 33: { auto kernel = mean_long_kernel<3, 3>; __VA_ARGS__ } break; \
@@ -758,7 +740,6 @@ size_t smem_bytes(int NP, int hd, bool global = false) {
       case 53: { auto kernel = mean_long_kernel<5, 3>; __VA_ARGS__ } break; \
       case 72: { auto kernel = mean_long_kernel<7, 2>; __VA_ARGS__ } break; \
       case 92: { auto kernel = mean_long_kernel<9, 2>; __VA_ARGS__ } break; \
-      case 3: { auto kernel = mean_long_kernel<0, 3>; __VA_ARGS__ } break;  \
       case 1: { auto kernel = mean_long_kernel<0, 1>; __VA_ARGS__ } break;  \
       default: return cudaErrorInvalidValue;                               \
     }                                                                      \
@@ -770,16 +751,15 @@ size_t smem_bytes(int NP, int hd, bool global = false) {
     });                                                                    \
   }
 
-// `global`: the global route past 640 tokens instead of the chosen one.
 cudaError_t launch(const void* qkv, const float* policy, int B, int NP, int C,
                    int H, int real_n, float scale, float eps_over_n, void* out,
-                   float* map, bool global, cudaStream_t stream) {
-  const size_t smem = smem_bytes(NP, C / H, global);
-  const int long_rows = 16 * route_of(NP, C / H, global).tiles;
+                   float* map, cudaStream_t stream) {
+  const size_t smem = smem_bytes(NP, C / H);
+  const int long_rows = 16 * long_route(NP, C / H).tiles;
   const dim3 grid = long_tokens(NP)
                         ? dim3((NP + long_rows - 1) / long_rows, B)
                         : dim3(((NP + 15) / 16 + kTiles - 1) / kTiles, B);
-  PPF_DISPATCH_BF16(NP, C / H, global, {
+  PPF_DISPATCH_BF16(NP, C / H, {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -794,7 +774,7 @@ cudaError_t launch(const void* qkv, const float* policy, int B, int NP, int C,
 int resident_blocks(int NP, int hd) {
   const size_t smem = smem_bytes(NP, hd);
   int blocks = 0;
-  PPF_DISPATCH_BF16(NP, hd, false, {
+  PPF_DISPATCH_BF16(NP, hd, {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err == cudaSuccess)
@@ -996,7 +976,6 @@ mean_kernel(const float* __restrict__ qkv, const float* __restrict__ policy,
 // lane of each of a warp's 4 rows.
 constexpr int kLongChunk = 128;
 constexpr int kLongStages = 3;
-constexpr int kLongMinCols = 384;  // CT = 12 at least (long_ct)
 constexpr int kLongMaxRegCols = 640;  // CT = 20 at most; above, the global route
 
 struct LongLayout {
@@ -1004,7 +983,6 @@ struct LongLayout {
   size_t pol, red, q, ring, p, total;
   __host__ __device__ LongLayout(int NP, int hd) {
     cols = ppf::round_up(NP, kLongChunk);
-    if (cols < kLongMinCols) cols = kLongMinCols;
     const bool global = cols > kLongMaxRegCols;
     // an odd multiple of 4 floats for hd a multiple of 8: the 16-byte rows
     // of 8 consecutive keys, or of 4 rows 4 apart, fall on distinct banks
@@ -1027,9 +1005,8 @@ struct LongLayout {
 
 // Accumulator columns of a lane (lane + 32 u, u < CT = cols / 32) at NP
 // tokens: the long kernel's register route is built for CT = 12, 16 and
-// 20 (cols = 384, 512 and 640; 384 also below 385 tokens, as
-// cli.time_long_kernels's copy runs it at N <= 256); above 640 columns
-// its global route (CT = 0) holds no accumulator.
+// 20 (cols = 384, 512 and 640); above 640 columns its global route
+// (CT = 0) holds no accumulator.
 inline int long_ct(int NP) {
   const int cols = LongLayout(NP, 4).cols;
   return cols > kLongMaxRegCols ? 0 : cols / 32;
@@ -1916,7 +1893,7 @@ extern "C" int ppf_attention_mean(const void* qkv, const void* policy, int B,
   float* m = static_cast<float*>(map);
   if (is_bf16)
     return bf16k::launch(qkv, pol, B, NP, C, H, real_n, scale, eps_over_n, out,
-                         m, false, st);
+                         m, st);
   return f32k::launch(qkv, pol, B, NP, C, H, real_n, scale, eps_over_n, out, m,
                       static_cast<float*>(scratch), st);
 }
@@ -1941,20 +1918,6 @@ extern "C" int ppf_attention_mean_global_route(int NP, int hd, int is_bf16) {
   if (is_bf16)
     return bf16k::long_tokens(NP) && bf16k::long_route(NP, hd).st == 0;
   return f32k::long_tokens(NP) && f32k::cluster_size(NP) == 0;
-}
-
-// K3's bf16 launch on the global route past 640 tokens (below, the route
-// ppf_attention_mean takes), to compare the two routes on the same
-// operands; the arguments as ppf_attention_mean's.
-extern "C" int ppf_attention_mean_bf16_global(const void* qkv,
-                                              const void* policy, int B,
-                                              int NP, int C, int H, int real_n,
-                                              float scale, float eps_over_n,
-                                              void* out, void* map,
-                                              void* stream) {
-  return bf16k::launch(qkv, static_cast<const float*>(policy), B, NP, C, H,
-                       real_n, scale, eps_over_n, out, static_cast<float*>(map),
-                       true, static_cast<cudaStream_t>(stream));
 }
 
 // CTAs of the fp32 kernel's cluster a row block of 32 at NP tokens: 2-8

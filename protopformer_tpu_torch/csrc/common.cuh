@@ -758,9 +758,9 @@ __host__ __device__ inline size_t map_band_smem(int rows, int cols,
 // band size overflows them. The band in shared memory fits a block up to
 // ~850 columns, but there it holds one CTA an SM, 7 clusters of 16 on the
 // card, against the in-place route's 42 (35 on a bf16 map): the in-place
-// route reads faster from 641 columns on (cli.time_long_kernels,
-// PERF.md). The cluster, the lists and the select's digits are the long
-// route's, so every route returns the same key.
+// route reads faster from 641 columns on (measured on an H100, PERF.md).
+// The cluster, the lists and the select's digits are the long route's,
+// so every route returns the same key.
 constexpr int kMapOneStep = 0;
 constexpr int kMapLong = 1;
 constexpr int kMapGlobal = 2;
@@ -779,14 +779,13 @@ __host__ __device__ inline size_t map_route_smem(int route, int rows,
          select_gather_cap(cols) * sizeof(unsigned short);
 }
 
-// Whether `route` takes a map of `rows` x `cols` values at row stride
-// `stride`: the one-step route exactly up to kRowStep columns, the others
-// above, the band in shared memory where it fits a block and the 16-bit
-// histogram counters hold it (the in-place route counts in 32 bits).
+// Whether `route` (map_route's, or kMapLong past kMapLongCols) takes a
+// map of `rows` x `cols` values at row stride `stride`: the in-place
+// route any, the band in shared memory where it fits a block and the
+// 16-bit histogram counters hold it (the in-place route counts in 32
+// bits).
 __host__ __device__ inline bool map_route_takes(int route, int rows,
                                                 int cols, int stride) {
-  if (route < kMapOneStep || route > kMapGlobal) return false;
-  if ((route == kMapOneStep) != (cols <= kRowStep)) return false;
   return route == kMapGlobal ||
          (map_band_smem(rows, cols, stride) <= kMaxSmemPerBlock &&
           hist_counts_fit(map_band_rows(rows), cols));

@@ -57,11 +57,10 @@
 // memory up to ~850 tokens, but there one CTA an SM holds 7 clusters of
 // 16 at once (~23 rounds at B=160) against the in-place route's 42 (35
 // on a bf16 map), which reads faster at every count measured from 641 to
-// 849 (cli.time_long_kernels, PERF.md); a band kept as bf16 (two CTAs an
+// 849 (measured on an H100, PERF.md); a band kept as bf16 (two CTAs an
 // SM, 14 clusters) read between the two. Bound there: bytes, the map
 // read once; what holds it above: the passes re-read the band, from L2
-// where the map stays there. ppf_map_stats_on_route runs a route of the
-// caller's choosing, to compare them on the same maps.
+// where the map stays there.
 // Above 256 tokens the same launch is also K1's select, on the map K1's
 // heads kernel stored (attention_block_stats.cu).
 #include "common.cuh"
@@ -97,11 +96,13 @@ auto kernel_for(int route) {
   }
 }
 
-// The launch configuration of B maps at N tokens on `route`, its kernel
-// set up for it. `attr` must outlive the launch call.
+// The launch configuration of B maps at N tokens on the select's route
+// (ppf::map_route), its kernel set up for it. `attr` must outlive the
+// launch call.
 template <typename T>
-cudaError_t configure(int route, int B, int N, cudaStream_t stream,
+cudaError_t configure(int B, int N, cudaStream_t stream,
                       cudaLaunchAttribute* attr, cudaLaunchConfig_t& cfg) {
+  const int route = ppf::map_route(N, N, N);
   if (!ppf::map_route_takes(route, N, N, N)) return cudaErrorInvalidValue;
   cfg = ppf::cluster_launch_config(ppf::map_cluster_size(N), B,
                                    ppf::kMapThreads,
@@ -116,18 +117,15 @@ cudaError_t configure(int route, int B, int N, cudaStream_t stream,
              : err;
 }
 
-// route: -1 the one chosen by shape (ppf::map_route), else one of its
-// numbers.
 template <typename T>
 cudaError_t launch(const void* map, int B, int N, int keep, bool prefix16,
-                   unsigned hi, void* t_out, void* s_out, int route,
+                   unsigned hi, void* t_out, void* s_out,
                    cudaStream_t stream) {
-  if (route < 0) route = ppf::map_route(N, N, N);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  cudaError_t err = configure<T>(route, B, N, stream, attr, cfg);
+  cudaError_t err = configure<T>(B, N, stream, attr, cfg);
   if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, kernel_for<T>(route),
+  err = cudaLaunchKernelEx(&cfg, kernel_for<T>(ppf::map_route(N, N, N)),
                            static_cast<const T*>(map), N, keep, prefix16, hi,
                            static_cast<float*>(t_out),
                            static_cast<float*>(s_out));
@@ -136,36 +134,18 @@ cudaError_t launch(const void* map, int B, int N, int keep, bool prefix16,
 }
 
 template <typename T>
-int active_clusters(int N, int route) {
-  if (route < 0) route = ppf::map_route(N, N, N);
-  if (!ppf::map_route_takes(route, N, N, N)) return 0;
+int active_clusters(int N) {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
   int clusters = 0;
-  cudaError_t err = configure<T>(route, 1, N, nullptr, attr, cfg);
+  cudaError_t err = configure<T>(1, N, nullptr, attr, cfg);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel_for<T>(route),
-                                         &cfg);
+    err = cudaOccupancyMaxActiveClusters(
+        &clusters, kernel_for<T>(ppf::map_route(N, N, N)), &cfg);
   return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }
 
 }  // namespace
-
-// ppf_map_stats_at_most on a route of the caller's choosing (-1 the one
-// chosen by shape; else ppf_map_stats_route's numbers), for comparing the
-// routes on the same maps; cudaErrorInvalidValue where the route does not
-// take them.
-extern "C" int ppf_map_stats_on_route(const void* map, int map_is_bf16,
-                                      int B, int N, int keep, int prefix16,
-                                      unsigned hi, void* t_out, void* s_out,
-                                      void* stream, int route) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (map_is_bf16)
-    return launch<__nv_bfloat16>(map, B, N, keep, prefix16 != 0, hi, t_out,
-                                 s_out, route, s);
-  return launch<float>(map, B, N, keep, prefix16 != 0, hi, t_out, s_out,
-                       route, s);
-}
 
 // map: (B, N, N) fp32 or bf16 (map_is_bf16), any N; t_out: (B,) fp32;
 // s_out: (B, N) fp32; the key capped at `hi` (0: the top of the key space;
@@ -175,8 +155,11 @@ extern "C" int ppf_map_stats_at_most(const void* map, int map_is_bf16, int B,
                                      int N, int keep, int prefix16,
                                      unsigned hi, void* t_out, void* s_out,
                                      void* stream) {
-  return ppf_map_stats_on_route(map, map_is_bf16, B, N, keep, prefix16, hi,
-                                t_out, s_out, stream, -1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (map_is_bf16)
+    return launch<__nv_bfloat16>(map, B, N, keep, prefix16 != 0, hi, t_out,
+                                 s_out, s);
+  return launch<float>(map, B, N, keep, prefix16 != 0, hi, t_out, s_out, s);
 }
 
 // K2: the same with no cap.
@@ -196,18 +179,11 @@ extern "C" int ppf_map_stats_cluster_size(int N) {
 // 2 the band read in place from global memory (ppf::map_route).
 extern "C" int ppf_map_stats_route(int N) { return ppf::map_route(N, N, N); }
 
-// How many of those clusters the card can hold at once on `route` (-1 the
-// one chosen by shape; 0 where the route does not take the shape;
-// negative: the cudaError_t of the query).
-extern "C" int ppf_map_stats_route_active_clusters(int N, int map_is_bf16,
-                                                   int route) {
-  return map_is_bf16 ? active_clusters<__nv_bfloat16>(N, route)
-                     : active_clusters<float>(N, route);
-}
-
-// The same on the route chosen by shape.
+// How many of those clusters the card can hold at once (negative: the
+// cudaError_t of the query).
 extern "C" int ppf_map_stats_active_clusters(int N, int map_is_bf16) {
-  return ppf_map_stats_route_active_clusters(N, map_is_bf16, -1);
+  return map_is_bf16 ? active_clusters<__nv_bfloat16>(N)
+                     : active_clusters<float>(N);
 }
 
 // The route record of this file's select above 256 tokens (K2, and K1's

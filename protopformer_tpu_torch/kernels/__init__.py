@@ -9,7 +9,8 @@ profiler collects, whose device time is that of the launches inside it;
 K1's encloses its heads kernel and its select.
 
 No kernel fixes a most token count: each launcher picks a route by the
-shape, as the JAX kernels take any N. Up to 256 tokens K1 and K3 keep a
+shape alone (no entry point, argument or flag lets a caller choose
+another), as the JAX kernels take any N. Up to 256 tokens K1 and K3 keep a
 head's keys in shared memory and registers; from 257 on their long kernels
 stream them through shared memory in chunks, and the selects of K1, K2 and
 K4/K5's normalize split one sample over a cluster of up to 16 CTAs (a

@@ -46,11 +46,8 @@ _SIGNATURES = {
     "ppf_map_stats": [_VOIDP, _INT, _INT, _INT, _INT, _INT, _VOIDP, _VOIDP,
                       _VOIDP],
     "ppf_map_stats_cluster_size": [_INT],
-    "ppf_map_stats_on_route": [_VOIDP, _INT, _INT, _INT, _INT, _INT,
-                               ctypes.c_uint, _VOIDP, _VOIDP, _VOIDP, _INT],
     "ppf_map_stats_route": [_INT],
     "ppf_map_stats_active_clusters": [_INT, _INT],
-    "ppf_map_stats_route_active_clusters": [_INT, _INT, _INT],
     "ppf_map_stats_select_route": [_VOIDP, _INT],
     "ppf_attention_block_stats": [_VOIDP, _INT, _INT, _INT, _INT, _INT, _INT,
                                   _FLOAT, _FLOAT, _VOIDP, _VOIDP, _VOIDP,
@@ -71,18 +68,12 @@ _SIGNATURES = {
     "ppf_attention_mean_f32_cluster_size": [_INT],
     "ppf_attention_mean_f32_active_clusters": [_INT, _INT],
     "ppf_attention_mean_bf16_resident_blocks": [_INT, _INT],
-    "ppf_attention_mean_bf16_global": [_VOIDP, _VOIDP, _INT, _INT, _INT,
-                                       _INT, _INT, _FLOAT, _FLOAT, _VOIDP,
-                                       _VOIDP, _VOIDP],
     "ppf_attention_core": [_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT, _INT,
                            _INT, _FLOAT, _FLOAT, _FLOAT, _FLOAT, _VOIDP,
                            _VOIDP, _VOIDP, _VOIDP],
-    "ppf_attention_core_normalize": [_VOIDP, _INT, _INT, _INT, _INT, _FLOAT,
-                                     _FLOAT, _VOIDP, _INT],
     "ppf_attention_core_route": [_INT, _INT],
     "ppf_attention_core_cluster_size": [_INT],
     "ppf_attention_core_active_clusters": [_INT, _INT],
-    "ppf_attention_core_route_active_clusters": [_INT, _INT, _INT],
     "ppf_attention_core_select_route": [_VOIDP, _INT],
     "ppf_gelu_tanh_bf16": [_VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP],
     "ppf_talking_heads": [_VOIDP, _INT, _INT, _INT, _FLOAT, _VOIDP, _VOIDP,

@@ -264,29 +264,6 @@ def mean_padded_cuda(qkv: torch.Tensor, policy: torch.Tensor, num_heads: int,
     return out, fmap
 
 
-def mean_bf16_global_route(qkv: torch.Tensor, policy, num_heads: int,
-                           real_n: int):
-    """K3's bf16 launch (``csrc/attention_mean.cu``) on the global route
-    past 640 tokens (the head mean added into the map head by head: the
-    route there before the register route took 641 to 1,152 tokens), to
-    compare the two on the same operands; below 641 tokens the route the
-    shape picks. ``policy`` None is the all-ones policy. Counts no
-    launch."""
-    B, NP, C = _check_qkv("attention_mean", qkv, num_heads,
-                          (torch.bfloat16,))
-    pol = None if policy is None else policy.float().contiguous()
-    dev = qkv.device
-    out = torch.empty((B, NP, C), dtype=qkv.dtype, device=dev)
-    fmap = torch.empty((B, NP, NP), dtype=torch.float32, device=dev)
-    with _build.on_device(dev) as stream:
-        code = _build.library().ppf_attention_mean_bf16_global(
-            qkv.data_ptr(), _ptr(pol), B, NP, C, num_heads, real_n,
-            (C // num_heads) ** -0.5, SOFTMAX_EPS / real_n, out.data_ptr(),
-            fmap.data_ptr(), stream)
-    _build.check_launch("attention_mean bf16 on its global route", code)
-    return out, fmap
-
-
 def fused_attention_mean_padded(
     qkv: torch.Tensor,
     policy: torch.Tensor,
@@ -379,29 +356,6 @@ def _core_launch(name: str, qkv: torch.Tensor, policy, num_heads: int,
         )
     _build.check_launch(name, code)
     return out, fmap
-
-
-def normalize_on_route(raw: torch.Tensor, real_n: int, route: str,
-                       discard_ratio: float = 0.9,
-                       identity_weight: float = 0.2) -> torch.Tensor:
-    """K4/K5's second phase alone (``csrc/attention_core.cu``'s
-    normalize) on a copy of the raw (B, NP, NP) fp32 CUDA map ``raw``
-    (phase 1's, zero outside the real block), on the select route
-    ``route`` (a key of ``stats.SELECT_ROUTES``), to compare the routes on
-    the same map. Counts no launch; raises where the route does not take
-    the shape."""
-    from protopformer_tpu_torch.kernels.stats import SELECT_ROUTES
-
-    B, NP, _ = raw.shape
-    E = real_n * real_n
-    fmap = raw.float().contiguous().clone()
-    with _build.on_device(raw.device) as stream:
-        code = _build.library().ppf_attention_core_normalize(
-            fmap.data_ptr(), B, NP, real_n, E - int(E * discard_ratio),
-            identity_weight, 1.0 + identity_weight, stream,
-            SELECT_ROUTES[route])
-    _build.check_launch(f"attention_core normalize on route {route}", code)
-    return fmap
 
 
 def core_cuda(qkv: torch.Tensor, policy, num_heads: int,

@@ -86,9 +86,11 @@ def map_stats_plain(fmap: torch.Tensor, keep: int, prefix16: bool
 
 
 # The select's routes (``csrc/common.cuh::map_route``), as
-# ``ppf_map_stats_route`` numbers them: one step up to 256 columns; each
-# CTA's band in shared memory as fp32 (up to 640 columns, and on request
-# to ~850); the band read in place from the map (past 640 columns).
+# ``ppf_map_stats_route`` and ``ppf_attention_core_route`` number them:
+# one step up to 256 columns; each CTA's band in shared memory as fp32 (up
+# to 640 columns, and past 640 K4/K5's normalize where its rows straddle
+# 128-byte lines and the band fits); the band read in place from the map
+# (past 640 columns).
 SELECT_ROUTES = {"one_step": 0, "band": 1, "in_place": 2}
 
 
@@ -120,26 +122,6 @@ def map_stats_cuda(fmap: torch.Tensor, keep: int, prefix16: bool
         )
     _build.check_launch("map_stats", code)
     count("launches.fused_map_stats")
-    return t, s
-
-
-def map_stats_on_route(fmap: torch.Tensor, keep: int, prefix16: bool,
-                       route: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``map_stats_cuda`` on the select route ``route`` (a key of
-    ``SELECT_ROUTES``) instead of the one the shape picks, to compare the
-    routes on the same maps; counts no launch. Raises where the route does
-    not take the map."""
-    B, N = check_map(fmap)
-    lib = _build.library()
-    t = torch.empty(B, dtype=torch.float32, device=fmap.device)
-    s = torch.empty((B, N), dtype=torch.float32, device=fmap.device)
-    with _build.on_device(fmap.device) as stream:
-        code = lib.ppf_map_stats_on_route(
-            fmap.data_ptr(), int(fmap.dtype == torch.bfloat16), B, N, keep,
-            int(prefix16), 0, t.data_ptr(), s.data_ptr(), stream,
-            SELECT_ROUTES[route],
-        )
-    _build.check_launch(f"map_stats on route {route}", code)
     return t, s
 
 

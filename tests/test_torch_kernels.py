@@ -7,6 +7,7 @@ card by tests/test_torch_gpu.py.
 """
 
 import json
+import re
 
 import numpy as np
 import jax.numpy as jnp
@@ -17,6 +18,7 @@ from protopformer_tpu.kernels import attention_core as j_ac
 from protopformer_tpu.kernels import stats as j_stats
 from protopformer_tpu.ops import rollout as j_roll
 from protopformer_tpu_torch import kernels as t_kernels
+from protopformer_tpu_torch.kernels import _build
 from protopformer_tpu_torch.kernels import attention_core as t_ac
 from protopformer_tpu_torch.kernels import stats as t_stats
 from protopformer_tpu_torch.ops import rollout as t_roll
@@ -366,3 +368,50 @@ def test_bench_kernels_cli_times_the_three_paths_on_cpu(capsys):
         "plain", "fused_attention_core", "fused_attention_core_padded"}
     # the CPU runs the plain versions: no kernel launched
     assert sum(t_kernels.launch_counts().values()) == 0
+
+
+# --- the kernel library's C interface -------------------------------------------
+
+# entry points that once let a caller choose a launch's route; each
+# launcher now takes its route from its operands' shape alone
+_FORCING_ENTRIES = (
+    "ppf_map_stats_on_route", "ppf_map_stats_route_active_clusters",
+    "ppf_attention_core_normalize", "ppf_attention_core_route_active_clusters",
+    "ppf_attention_mean_bf16_global")
+
+
+def _extern_c_definitions():
+    """{name: [parameter names]} of every ``extern "C"`` function the
+    sources define (declarations of another source's functions left out)."""
+    defined = {}
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        for m in re.finditer(r'extern "C"\s+[\w\s*]+?\b(\w+)\s*\(([^)]*)\)\s*\{',
+                             path.read_text()):
+            params = [p.strip() for p in m.group(2).split(",") if p.strip()]
+            defined[m.group(1)] = [re.findall(r"\w+", p)[-1] for p in params]
+    return defined
+
+
+def test_every_signature_is_an_exported_symbol():
+    """Each symbol ``_build`` binds is an ``extern "C"`` function of
+    ``csrc/*.cu`` with as many parameters as its argtypes, and no exported
+    function takes a route or a ``global`` flag from its caller."""
+    defined = _extern_c_definitions()
+    assert set(_build._SIGNATURES) <= set(defined), (
+        set(_build._SIGNATURES) - set(defined))
+    assert _build._LONG_RESULTS <= set(_build._SIGNATURES)
+    for name, argtypes in _build._SIGNATURES.items():
+        assert len(argtypes) == len(defined[name]), name
+    for name, params in defined.items():
+        assert not {"route", "global"} & set(params), name
+
+
+@pytest.mark.parametrize("name", _FORCING_ENTRIES)
+def test_no_forcing_entry_is_left(name):
+    """A route-forcing entry is neither defined nor bound, and no source of
+    the port names it."""
+    assert name not in _extern_c_definitions()
+    assert name not in _build._SIGNATURES
+    package = _build.CSRC.parent
+    for path in [*package.rglob("*.py"), *_build.CSRC.glob("*.cu*")]:
+        assert name not in path.read_text(), path

@@ -307,36 +307,12 @@ def test_ppnet_bf16_speed_selection_and_logits(micro):
     )
 
 
-def test_time_long_kernels_copies_the_package_with_every_n_long(
-        tmp_path, monkeypatch):
-    """``cli.time_long_kernels`` times the long kernels at N <= 256 in a
-    copy whose only change is ``kLongMinTokens`` = 1; without a card it
-    raises."""
-    from protopformer_tpu_torch.cli import time_long_kernels as tl
-
-    monkeypatch.setattr(tl, "COPY", tmp_path / "copy")
-    copy = tl.make_copy()
-    src = tl.ROOT / "protopformer_tpu_torch"
-    header = "csrc/common.cuh"
-    assert tl.THRESHOLD in (src / header).read_text()
-    got = (copy / "protopformer_tpu_torch" / header).read_text()
-    assert got == (src / header).read_text().replace(
-        tl.THRESHOLD, "constexpr int kLongMinTokens = 1;")
-    assert not list(copy.rglob("__pycache__"))
-    for path in (src / "csrc").iterdir():
-        if path.name != "common.cuh":
-            assert (copy / "protopformer_tpu_torch" / "csrc" / path.name
-                    ).read_bytes() == path.read_bytes()
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="needs a CUDA card"):
-            tl.run()
-
-
 def test_time_long_kernels_copies_the_package_with_the_parents_kernels(
         tmp_path, monkeypatch):
-    """``cli.time_long_kernels --against parent`` times a copy of the
-    package whose ``csrc/`` is an unpacked parent tree's and whose Python
-    is this checkout's; a tree without kernel sources raises."""
+    """``cli.time_long_kernels`` times a copy of the package whose
+    ``csrc/`` is an unpacked parent tree's and whose Python is this
+    checkout's; a tree without kernel sources raises, and so does a run
+    without a card."""
     from protopformer_tpu_torch.cli import time_long_kernels as tl
 
     monkeypatch.setattr(tl, "PARENT_COPY", tmp_path / "copy")
@@ -357,10 +333,13 @@ def test_time_long_kernels_copies_the_package_with_the_parents_kernels(
             assert (copy / rel).read_bytes() == path.read_bytes(), rel
     with pytest.raises(RuntimeError, match="no kernel sources"):
         tl.make_parent(tmp_path / "missing")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="needs a CUDA card"):
+            tl.run(parent)
 
 
 def test_time_long_kernels_models_are_their_token_counts():
-    """``--against parent`` serves each model of ``MODELS`` at the token
+    """``cli.time_long_kernels`` serves each model of ``MODELS`` at the token
     count of its tag: DeiT-Tiny/16 at 448 and 512 px reach 785 and 1,025
     tokens, past 640, beside the 577 and 257 readings."""
     from protopformer_tpu_torch.cli import time_long_kernels as tl
@@ -373,7 +352,7 @@ def test_time_long_kernels_models_are_their_token_counts():
 
 
 def test_time_long_kernels_thresh_and_bench_readings(monkeypatch):
-    """The readings ``--against parent`` takes beside the serving ones,
+    """The readings ``cli.time_long_kernels`` takes beside the serving ones,
     rehearsed on the CPU at B=2 (the plain versions, the host clock):
     the bf16 exact ``masked_forward_thresh`` of ``deit_tiny_patch2_32``
     (its img/s, K4, K4's attention phase and its normalize on the first K4
@@ -413,7 +392,7 @@ def test_time_long_kernels_thresh_and_bench_readings(monkeypatch):
 
 
 def test_time_long_kernels_short_readings(monkeypatch):
-    """The readings ``--against parent`` takes at N <= 256, rehearsed on
+    """The readings ``cli.time_long_kernels`` takes at N <= 256, rehearsed on
     the CPU at B=2 (the plain versions, the host clock): K1 in both modes
     and K2 on K1's exact map at each of ``SHORT_CASES``, and K5 with its
     attention phase and its normalize on the kernel bench's operands at

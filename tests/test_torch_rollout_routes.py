@@ -300,8 +300,11 @@ def test_cait_batched_stats_and_head_fusion_match_jax(overrides):
         got = model(torch.from_numpy(x))
     want_attn = to_np(want.cls_token_attn)
     assert topk_sets(to_np(got.cls_token_attn), 9) == topk_sets(want_attn, 9)
-    np.testing.assert_allclose(to_np(got.cls_token_attn), want_attn,
-                               atol=1e-5)
+    # 1e-5 on probability-scale scores; "min" fusion's signed maps reach
+    # ~9 in magnitude, where fp32 rounding alone is of the order of 1e-5
+    np.testing.assert_allclose(
+        to_np(got.cls_token_attn), want_attn,
+        atol=1e-5 * max(1.0, float(np.abs(want_attn).max())))
     np.testing.assert_allclose(to_np(got.logits), to_np(want.logits),
                                atol=1e-4, rtol=1e-4)
 
