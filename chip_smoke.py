@@ -36,7 +36,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      CaiT-XXS-24@224's shapes at B=160 against the eager chain (output
      within 2 bf16 ulps of its largest entry, map within one, at most
      1e-3 / 1e-4 of the entries differing), timed beside the chain and
-     its bound;
+     its bound; CaiT's signed threshold search (csrc/map_stats.cu's
+     signed select) on that kernel's bf16 and fp32 maps: t bit-equal to
+     the bisection chain's, s within 1e-6, timed beside the chain and its
+     bound;
   4. serving: one ServingEngine per mode (bf16 speed, bf16 exact, fp32
      parity) over seeded random DeiT-Tiny/16@224 weights with 2000 local
      and 2000 global prototypes answers requests of 1, 160 and 333 images;
@@ -59,7 +62,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      81) answers the same requests; the launch counters must read 0 for
      K1-K5 (its blocks and its signed statistics run none of them) and,
      in bf16, the talking-heads kernel 24 times a chunk and the chain
-     never (fp32: the chain 24 times a chunk); a profile of one chunk; then on 2 images the card against the CPU: fp32
+     never (fp32: the chain 24 times a chunk), and in every mode the
+     signed select 24 times a chunk and its chain never; a profile of one
+     chunk; then on 2 images the card against the CPU: fp32
      cls_token_attn within 1e-5, logits within 1e-4 and the same top-81;
      bf16 speed and exact keep at least 76 of the CPU fp32 top-81, drop
      none of fp32 rank below 60, and keep the logits within phase 5's
@@ -834,6 +839,76 @@ def talking_heads_phase(dev: torch.device) -> dict:
     return records
 
 
+def signed_stats_phase(dev: torch.device) -> dict:
+    """CaiT's signed threshold search and masked row sums in one launch
+    (``csrc/map_stats.cu``'s signed select) on the stored maps of the
+    talking-heads kernel over ``TALKING_HEADS_SHAPES``' seeded operands, in
+    bf16 (16-bit keys, the serving cell's) and fp32 (32-bit keys): t
+    bit-equal to the bisection chain's and s within 1e-6 of its row sums,
+    the kernel's time and the chain's (``time_ms``, L2-warm calls), its
+    bound (the map read once, t and s written once) and, on 32-bit keys,
+    the select's route record (``stats.select_route``)."""
+    import torch.nn as nn
+
+    from protopformer_tpu_torch.kernels import stats
+    from protopformer_tpu_torch.kernels.talking_heads import talking_heads_cuda
+    from protopformer_tpu_torch.ops.rollout import (
+        kth_largest_bf16_signed,
+        kth_largest_signed,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    scale = float(torch.tensor(48 ** -0.5, dtype=torch.bfloat16))
+    records = {}
+    for name, (b, n, heads) in TALKING_HEADS_SHAPES.items():
+        qkv = torch.randn((b, n, 3 * 48 * heads), generator=gen,
+                          device=dev).to(torch.bfloat16)
+        mixes = [nn.Linear(heads, heads).to(dev) for _ in range(2)]
+        keep = n * n - int(n * n * DISCARD)
+        for map_dtype in (torch.bfloat16, torch.float32):
+            with torch.no_grad():
+                for mix in mixes:
+                    mix.weight.copy_(torch.eye(heads, device=dev) + 0.5 *
+                                     torch.randn((heads, heads), generator=gen,
+                                                 device=dev))
+                    mix.bias.zero_()
+                _, fmap = talking_heads_cuda(qkv, scale, *mixes, "mean",
+                                             map_dtype)
+            key16 = map_dtype == torch.bfloat16
+            flat = fmap.reshape(b, -1)
+
+            def kernel():
+                return stats.signed_map_stats_cuda(fmap, keep, key16)
+
+            def plain():
+                t = (kth_largest_bf16_signed(flat, keep) if key16
+                     else kth_largest_signed(flat, keep))
+                return t, stats.masked_row_sums(fmap.float(), t.float())
+
+            stats.select_route(n)
+            (t, s), (p_t, p_s) = kernel(), plain()
+            route = stats.select_route(n)
+            what = f"signed stats {name} {'bf16' if key16 else 'fp32'}"
+            require(torch.equal(t.view(torch.int32),
+                                p_t.float().view(torch.int32)),
+                    f"{what}: t is not the chain's")
+            require(max_err(s, p_s) <= 1e-6, f"{what}: s off the chain's")
+            bound_ms, bound_by = bound(fmap.numel() * fmap.element_size()
+                                       + 4 * b + 4 * b * n)
+            ms = time_ms(kernel)
+            rec = {"shape": [b, n, n], "ms": ms,
+                   "plain_ms": time_ms(plain, warmup=1, iters=5),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "x_bound": ms / bound_ms, "s_err": max_err(s, p_s),
+                   "negative_t": int((t < 0).sum()),
+                   "route": None if key16 else route}
+            log(f"{what}: {json.dumps(rec)}")
+            records[f"{name}_{'bf16' if key16 else 'fp32'}"] = rec
+            del fmap, flat
+        del qkv
+    return records
+
+
 # --- phase 4: serving in three modes ---------------------------------------------
 
 def model_configs():
@@ -875,12 +950,15 @@ def expected_gelu(mode: str, chunks: int, depth: int = 12) -> dict:
 
 
 def expected_talking_heads(mode: str, chunks: int, depth: int = 24) -> dict:
-    """The talking-heads counters of ``chunks`` CaiT forwards: the kernel in
-    every bf16 self-attention block and the chain never; fp32 parity the
-    chain in every block."""
+    """The talking-heads and signed-search counters of ``chunks`` CaiT
+    forwards: the talking-heads kernel in every bf16 self-attention block
+    and the chain never, fp32 parity the chain in every block; the signed
+    select on every block's map in each mode, its chain never."""
     bf16 = "bf16" in mode
     return {"launches.talking_heads": depth * chunks if bf16 else 0,
-            "talking_heads.plain": 0 if bf16 else depth * chunks}
+            "talking_heads.plain": 0 if bf16 else depth * chunks,
+            "launches.signed_map_stats": depth * chunks,
+            "signed_stats.plain": 0}
 
 
 def profile_forward(engine, reps: int = 3, top: int = 8) -> dict:
@@ -1279,11 +1357,14 @@ def cait(dev: torch.device, rng: np.random.Generator) -> dict:
                     for n in REQUESTS]
         kernels.reset_launch_counts()
         profiling.reset_counts("talking_heads.")
+        profiling.reset_counts("signed_stats.")
         answers = [engine(imgs) for imgs in requests]
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
         heads = {k: profiling.counts().get(k, 0)
-                 for k in ("launches.talking_heads", "talking_heads.plain")}
+                 for k in ("launches.talking_heads", "talking_heads.plain",
+                           "launches.signed_map_stats",
+                           "signed_stats.plain")}
         log(f"serve {mode}: launches {json.dumps(launches)} "
             f"{json.dumps(heads)}")
         require(set(launches.values()) == {0},
@@ -3199,6 +3280,7 @@ def main() -> int:
     records.update(check_core_kernels(dev, gen))
     gelu_phase(dev)
     talking_heads_phase(dev)
+    signed_stats_phase(dev)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
 
     ppnet, modes = model_configs()

@@ -72,7 +72,18 @@ __device__ __forceinline__ float div_by_recip(float x, float d, float y) {
   return __fmaf_rn(__fmaf_rn(-q, d, x), y, q);
 }
 
+// The threshold of a selected key: the inverse of select_key<kSigned> on
+// the selected value. kSigned: the key's top bit marks a non-negative
+// value, whose pattern is the key without it; otherwise the pattern is
+// the key inverted (a 16-bit key in prefix16 mode, inverted in 16 bits).
+template <bool kSigned = false>
 __device__ __forceinline__ float threshold_from_key(int lo, bool prefix16) {
+  if constexpr (kSigned) {
+    const unsigned top = prefix16 ? 0x8000u : 0x80000000u;
+    unsigned key = static_cast<unsigned>(lo);
+    key = (key & top) ? key & ~top : ~key & (top | (top - 1u));
+    return __uint_as_float(prefix16 ? key << 16 : key);
+  }
   return __int_as_float(prefix16 ? (lo << 16) : lo);
 }
 
@@ -198,10 +209,19 @@ __host__ __device__ constexpr int radix_smem_ints(bool wide = false) {
 
 // The select's key of a value: the fp32 bit pattern, or its high 16 bits
 // in prefix16 mode; a value whose sign bit is set (-0.0) has key 0, since
-// the JAX kernels bisect signed keys and never count it.
+// the JAX kernels bisect signed keys and never count it. kSigned (mixed-
+// sign maps, CaiT's): the unsigned monotone key, whose order is the
+// order of every finite value: a non-negative pattern u gains the top
+// bit, a negative one is inverted, so -0.0 ranks just below +0.0. Of a
+// bf16 value (its pattern the fp32 one's top half) the top 16 bits are
+// the 16-bit key of its own pattern.
+template <bool kSigned = false>
 __device__ __forceinline__ unsigned select_key(float v, bool prefix16) {
   unsigned key = __float_as_uint(v);
-  key = (key >> 31) ? 0u : key;
+  if constexpr (kSigned)
+    key = (key >> 31) ? ~key : key | 0x80000000u;
+  else
+    key = (key >> 31) ? 0u : key;
   return prefix16 ? key >> 16 : key;
 }
 
@@ -322,8 +342,9 @@ __device__ __forceinline__ void radix_pass_end(cg::cluster_group& cluster,
 // calling warp's rows of a band (a at row stride `stride`, `rows` x `cols`
 // of A) that match the digits above it (`prefix`; every key in pass 0), by
 // that digit; each warp's rows in steps of kRowStep columns. kWide: into
-// the 32-bit copies.
-template <bool kOneStep, bool kWide = false, typename A>
+// the 32-bit copies. kSigned: select_key<true>'s keys.
+template <bool kOneStep, bool kWide = false, bool kSigned = false,
+          typename A>
 __device__ __forceinline__ void count_band(const A* a, int rows,
                                            int cols, int stride,
                                            bool prefix16, int pass, int shift,
@@ -340,7 +361,7 @@ __device__ __forceinline__ void count_band(const A* a, int rows,
     }
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      const unsigned key = select_key(v[u], prefix16);
+      const unsigned key = select_key<kSigned>(v[u], prefix16);
       const bool counted = c0 + lane + kWarp * u < cols &&
                            (pass == 0 || (key >> (shift + 8)) == prefix);
       count_key<kWide>(mine, (key >> shift) & 255u, counted);
@@ -376,7 +397,8 @@ __device__ __forceinline__ void count_band(const A* a, int rows,
 // 16-byte aligned) is zeroed by the caller before a barrier that precedes
 // the call, which also publishes `a`. Called by every thread of every CTA.
 // Up to 256 tokens (K1's own launch, K2, K4/K5's normalize); above,
-// cluster_map_select's long path.
+// cluster_map_select's long path. kSigned: select_key<true>'s keys.
+template <bool kSigned = false>
 __device__ __forceinline__ unsigned cluster_radix_select(
     const float* a, int rows, int cols, int stride, bool prefix16, int keep,
     unsigned hi, int* smem) {
@@ -388,8 +410,8 @@ __device__ __forceinline__ unsigned cluster_radix_select(
   int k = keep;
   for (int pass = 0; pass < bits / 8; ++pass) {
     const int shift = bits - 8 * (pass + 1);
-    count_band<true>(a, rows, cols, stride, prefix16, pass, shift, prefix,
-                     mine);
+    count_band<true, false, kSigned>(a, rows, cols, stride, prefix16, pass,
+                                     shift, prefix, mine);
     radix_pass_end(cluster, pass, k, smem);
     prefix = (prefix << 8) | static_cast<unsigned>(sel[0]);
     k -= sel[1];
@@ -518,8 +540,9 @@ __device__ __forceinline__ void radix_pass_end_long(
 // caller calls cluster_wait() before its CTA exits. kWide: the band passes
 // count into 32-bit copies (the global route, whose band `a` of A lies in
 // global memory; the passes over the copied lists keep 16-bit copies,
-// which no list of at most select_gather_cap keys overflows).
-template <bool kWide, typename A>
+// which no list of at most select_gather_cap keys overflows). kSigned:
+// select_key<true>'s keys.
+template <bool kWide, bool kSigned = false, typename A>
 __device__ __forceinline__ unsigned cluster_radix_select_long(
     const A* a, int rows, int cols, int stride, bool prefix16, int keep,
     unsigned hi, int* smem, int* ctl, unsigned short* list,
@@ -544,8 +567,9 @@ __device__ __forceinline__ unsigned cluster_radix_select_long(
   // a pass over the bands, ended over the cluster
   auto band_pass = [&](int pass) {
     if (pass > 0)
-      count_band<false, kWide>(a, rows, cols, stride, prefix16, pass,
-                               bits - 8 * (pass + 1), prefix, mine);
+      count_band<false, kWide, kSigned>(a, rows, cols, stride, prefix16,
+                                        pass, bits - 8 * (pass + 1), prefix,
+                                        mine);
     radix_pass_end_long<kWide>(cluster, k, smem, local, smem + pass * 256,
                                pass == 0);
     next();
@@ -568,7 +592,7 @@ __device__ __forceinline__ unsigned cluster_radix_select_long(
       }
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
-        const unsigned key = select_key(v[u], false);
+        const unsigned key = select_key<kSigned>(v[u], false);
         if (c0 + lane + kWarp * u < cols && (key >> 16) == prefix) {
           const int pos = atomicAdd(ctl, 1);
           if (pos < kSelectListCap)
@@ -829,8 +853,8 @@ __device__ __forceinline__ void widen16(const __nv_bfloat16* p, float (&v)[8]) {
 // congruent mod 4 to src's element index, and dstride to stride, so that an
 // aligned chunk lands on 16 bytes. kCount: each value is also counted by
 // its select key's top digit into the lane's histogram copy `mine` (the
-// select's pass 0) between its load and its store.
-template <bool kCount, typename T>
+// select's pass 0) between its load and its store, select_key<kSigned>'s.
+template <bool kCount, bool kSigned = false, typename T>
 __device__ __forceinline__ void load_band(float* dst, int dstride,
                                           const T* src, int rows, int cols,
                                           int stride, bool prefix16,
@@ -873,7 +897,7 @@ __device__ __forceinline__ void load_band(float* dst, int dstride,
 #pragma unroll
         for (int j = 0; j < V; ++j) {
           const int c = c0[u] + j;
-          count_digit(mine, select_key(v[u][j], prefix16) >> top,
+          count_digit(mine, select_key<kSigned>(v[u][j], prefix16) >> top,
                       c >= 0 && c < cols);
         }
     }
@@ -922,8 +946,9 @@ using map_band_t =
 // `band` needs no cluster traffic. Called by every thread of every CTA.
 // kMapOneStep (cols <= kRowStep) runs cluster_radix_select; the others
 // cluster_radix_select_long, after which the caller calls cluster_wait()
-// before its CTA exits.
-template <int kRoute, typename T>
+// before its CTA exits. kSigned: select_key<true>'s keys (mixed-sign maps;
+// threshold_from_key<true> maps the key back).
+template <int kRoute, bool kSigned = false, typename T>
 __device__ __forceinline__ unsigned cluster_map_select(
     const T* map, int rows, int cols, int stride, bool prefix16, int keep,
     unsigned char* smem, map_band_t<kRoute, T>& band, unsigned hi = 0) {
@@ -943,9 +968,10 @@ __device__ __forceinline__ unsigned cluster_map_select(
     __syncthreads();  // the zeroed counts, before pass 0 counts into them
     // as below: no CTA adds into another's totals before all zeroed them
     cluster_arrive();
-    count_band<false, true>(src, band.rows, cols, stride, prefix16, 0,
-                            prefix16 ? 8 : 24, 0u, hist_copy(radix));
-    return cluster_radix_select_long<true>(
+    count_band<false, true, kSigned>(src, band.rows, cols, stride, prefix16,
+                                     0, prefix16 ? 8 : 24, 0u,
+                                     hist_copy(radix));
+    return cluster_radix_select_long<true, kSigned>(
         src, band.rows, cols, stride, prefix16, keep, hi, radix, ctl,
         reinterpret_cast<unsigned short*>(ctl + kSelectCtl),
         reinterpret_cast<unsigned short*>(smem + map_gather_offset(true)));
@@ -960,8 +986,8 @@ __device__ __forceinline__ unsigned cluster_map_select(
       load_band<false>(a, band.stride, src, band.rows, cols, stride,
                        prefix16, nullptr);
       __syncthreads();  // publishes the band and the zeroed counts
-      return cluster_radix_select(a, band.rows, cols, band.stride, prefix16,
-                                  keep, hi, radix);
+      return cluster_radix_select<kSigned>(a, band.rows, cols, band.stride,
+                                           prefix16, keep, hi, radix);
     } else {
       int* ctl = reinterpret_cast<int*>(smem + map_list_offset());
       if (threadIdx.x < kSelectCtl) ctl[threadIdx.x] = 0;
@@ -970,10 +996,10 @@ __device__ __forceinline__ unsigned cluster_map_select(
       // totals: no CTA adds before every CTA has zeroed them (the wait is
       // in the select's first pass end, behind the load)
       cluster_arrive();
-      load_band<true>(a, band.stride, src, band.rows, cols, stride, prefix16,
-                      hist_copy(radix));
+      load_band<true, kSigned>(a, band.stride, src, band.rows, cols, stride,
+                               prefix16, hist_copy(radix));
       // the select's first barrier publishes the band and pass 0's counts
-      return cluster_radix_select_long<false>(
+      return cluster_radix_select_long<false, kSigned>(
           a, band.rows, cols, band.stride, prefix16, keep, hi, radix,
           ctl, reinterpret_cast<unsigned short*>(ctl + kSelectCtl),
           reinterpret_cast<unsigned short*>(smem + map_gather_offset()));

@@ -63,9 +63,49 @@
 // where the map stays there.
 // Above 256 tokens the same launch is also K1's select, on the map K1's
 // heads kernel stored (attention_block_stats.cu).
+//
+// The signed instantiation (ppf_signed_map_stats, signed_map_stats_kernel)
+// is CaiT's discard search over its talking-heads maps, which hold
+// negative values. It replaces no TPU kernel: the JAX package runs that
+// search as plain jnp (protopformer_tpu/ops/rollout.py,
+// kth_largest_bf16_signed / kth_largest_signed, a bisection of the signed
+// key space), and the port ran it as 16 eager passes over the map (32 on
+// fp32 keys), each a compare, a widening and a count sum. The keys are
+// the unsigned monotone ones (common.cuh, select_key<true>): a
+// non-negative value's pattern with its top bit set, a negative one's
+// inverted, so the key order is the value order and -0.0 ranks just below
+// +0.0, as in the bisection's int16 keys; the threshold is the inverse
+// map of the selected key and the row sums take a >= t unchanged. Bound:
+// bytes, the map read once and t and s written once: 106.5 MB at
+// CaiT-S24@384's (160, 576, 576) bf16 maps, 31.8 us. The design is K2's:
+// 16 CTAs a sample each hold a band of 36 rows in shared memory as fp32,
+// counting pass 0 as it arrives, and a bf16 map's 16-bit keys take the 2
+// cluster passes; an fp32 map's 32-bit keys take 4, the last two over the
+// cluster's compact key lists. The one-step and in-place routes take the
+// other token counts, as for K2.
 #include "common.cuh"
 
 namespace {
+
+// One sample's select and row sums (blockIdx.y the sample); kSigned: in
+// the signed key space (ppf::select_key<true>).
+template <typename T, int kRoute, bool kSigned>
+__device__ __forceinline__ void map_stats(const T* __restrict__ map, int N,
+                                          int keep, bool prefix16, unsigned hi,
+                                          float* __restrict__ t_out,
+                                          float* __restrict__ s_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.y;
+  ppf::map_band_t<kRoute, T> band;
+  const unsigned key = ppf::cluster_map_select<kRoute, kSigned>(
+      map + (size_t)b * N * N, N, N, N, prefix16, keep, smem, band, hi);
+  const float t =
+      ppf::threshold_from_key<kSigned>(static_cast<int>(key), prefix16);
+  if (blockIdx.x == 0 && threadIdx.x == 0) t_out[b] = t;
+  ppf::block_masked_row_sums<kRoute == ppf::kMapOneStep>(
+      band.a, band.rows, N, band.stride, t, s_out + (size_t)b * N + band.row0);
+  if constexpr (kRoute != ppf::kMapOneStep) ppf::cluster_wait();
+}
 
 // kRoute: the select's route at N tokens (ppf::map_route).
 template <typename T, int kRoute>
@@ -74,32 +114,42 @@ __global__ void __launch_bounds__(
 map_stats_kernel(const T* __restrict__ map, int N, int keep, bool prefix16,
                  unsigned hi, float* __restrict__ t_out,
                  float* __restrict__ s_out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.y;
-  ppf::map_band_t<kRoute, T> band;
-  const unsigned key = ppf::cluster_map_select<kRoute>(
-      map + (size_t)b * N * N, N, N, N, prefix16, keep, smem, band, hi);
-  const float t = ppf::threshold_from_key(static_cast<int>(key), prefix16);
-  if (blockIdx.x == 0 && threadIdx.x == 0) t_out[b] = t;
-  ppf::block_masked_row_sums<kRoute == ppf::kMapOneStep>(
-      band.a, band.rows, N, band.stride, t, s_out + (size_t)b * N + band.row0);
-  if constexpr (kRoute != ppf::kMapOneStep) ppf::cluster_wait();
+  map_stats<T, kRoute, false>(map, N, keep, prefix16, hi, t_out, s_out);
+}
+
+// The same in the signed key space, with no cap (CaiT's maps).
+template <typename T, int kRoute>
+__global__ void __launch_bounds__(
+    ppf::kMapThreads, ppf::map_ctas_per_sm(kRoute == ppf::kMapOneStep))
+signed_map_stats_kernel(const T* __restrict__ map, int N, int keep,
+                        bool prefix16, unsigned hi, float* __restrict__ t_out,
+                        float* __restrict__ s_out) {
+  map_stats<T, kRoute, true>(map, N, keep, prefix16, hi, t_out, s_out);
 }
 
 // The kernel for maps of T on `route` (ppf::map_route's numbers).
-template <typename T>
+template <typename T, bool kSigned>
 auto kernel_for(int route) {
-  switch (route) {
-    case ppf::kMapOneStep: return map_stats_kernel<T, ppf::kMapOneStep>;
-    case ppf::kMapLong: return map_stats_kernel<T, ppf::kMapLong>;
-    default: return map_stats_kernel<T, ppf::kMapGlobal>;
+  if constexpr (kSigned) {
+    switch (route) {
+      case ppf::kMapOneStep:
+        return signed_map_stats_kernel<T, ppf::kMapOneStep>;
+      case ppf::kMapLong: return signed_map_stats_kernel<T, ppf::kMapLong>;
+      default: return signed_map_stats_kernel<T, ppf::kMapGlobal>;
+    }
+  } else {
+    switch (route) {
+      case ppf::kMapOneStep: return map_stats_kernel<T, ppf::kMapOneStep>;
+      case ppf::kMapLong: return map_stats_kernel<T, ppf::kMapLong>;
+      default: return map_stats_kernel<T, ppf::kMapGlobal>;
+    }
   }
 }
 
 // The launch configuration of B maps at N tokens on the select's route
 // (ppf::map_route), its kernel set up for it. `attr` must outlive the
 // launch call.
-template <typename T>
+template <typename T, bool kSigned>
 cudaError_t configure(int B, int N, cudaStream_t stream,
                       cudaLaunchAttribute* attr, cudaLaunchConfig_t& cfg) {
   const int route = ppf::map_route(N, N, N);
@@ -108,7 +158,7 @@ cudaError_t configure(int B, int N, cudaStream_t stream,
                                    ppf::kMapThreads,
                                    ppf::map_route_smem(route, N, N, N),
                                    stream, attr);
-  const auto kernel = kernel_for<T>(route);
+  const auto kernel = kernel_for<T, kSigned>(route);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)cfg.dynamicSmemBytes);
@@ -117,15 +167,16 @@ cudaError_t configure(int B, int N, cudaStream_t stream,
              : err;
 }
 
-template <typename T>
+template <typename T, bool kSigned = false>
 cudaError_t launch(const void* map, int B, int N, int keep, bool prefix16,
                    unsigned hi, void* t_out, void* s_out,
                    cudaStream_t stream) {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  cudaError_t err = configure<T>(B, N, stream, attr, cfg);
+  cudaError_t err = configure<T, kSigned>(B, N, stream, attr, cfg);
   if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, kernel_for<T>(ppf::map_route(N, N, N)),
+  err = cudaLaunchKernelEx(&cfg,
+                           kernel_for<T, kSigned>(ppf::map_route(N, N, N)),
                            static_cast<const T*>(map), N, keep, prefix16, hi,
                            static_cast<float*>(t_out),
                            static_cast<float*>(s_out));
@@ -138,10 +189,10 @@ int active_clusters(int N) {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
   int clusters = 0;
-  cudaError_t err = configure<T>(1, N, nullptr, attr, cfg);
+  cudaError_t err = configure<T, false>(1, N, nullptr, attr, cfg);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveClusters(
-        &clusters, kernel_for<T>(ppf::map_route(N, N, N)), &cfg);
+        &clusters, kernel_for<T, false>(ppf::map_route(N, N, N)), &cfg);
   return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }
 
@@ -168,6 +219,26 @@ extern "C" int ppf_map_stats(const void* map, int map_is_bf16, int B, int N,
                              void* stream) {
   return ppf_map_stats_at_most(map, map_is_bf16, B, N, keep, prefix16, 0,
                                t_out, s_out, stream);
+}
+
+// The same select and row sums of (B, N, N) maps that may hold negative
+// values (CaiT's talking-heads maps), in the signed key space
+// (ppf::select_key<true>): t the keep-th largest value with no cap, as
+// the bisection of ops/rollout.py's kth_largest_signed /
+// kth_largest_bf16_signed finds it, and the row sums of the entries at or
+// above it. prefix16: a bf16 map's own 16-bit keys (2 passes); otherwise
+// 32-bit keys (4 passes, on an fp32 map or an exact bf16 one). An fp32
+// map with prefix16 is refused (cudaErrorInvalidValue): the threshold of
+// a negative fp32 value's 16-bit key lies above the value.
+extern "C" int ppf_signed_map_stats(const void* map, int map_is_bf16, int B,
+                                    int N, int keep, int prefix16,
+                                    void* t_out, void* s_out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (map_is_bf16)
+    return launch<__nv_bfloat16, true>(map, B, N, keep, prefix16 != 0, 0,
+                                       t_out, s_out, s);
+  if (prefix16) return cudaErrorInvalidValue;
+  return launch<float, true>(map, B, N, keep, false, 0, t_out, s_out, s);
 }
 
 // CTAs per sample (the cluster size) of the launch at N.

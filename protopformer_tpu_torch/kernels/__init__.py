@@ -41,7 +41,13 @@ bf16 qkv that needs no gradient at 4 or 8 heads of 48; it counts
 ``launches.talking_heads`` (and the chain ``talking_heads.plain`` on the
 card), 24 and 0 a served bf16 CaiT chunk. Bound: bytes, qkv read and the
 output and bf16 map written once (389 MB at B=160 for CaiT-S24@384, 0.116
-ms).
+ms). And ``stats.signed_map_stats_cuda`` (``csrc/map_stats.cu``'s select in
+the signed key space) runs CaiT's discard search and masked row sums of a
+whole square map in one launch, where ``ops.rollout.masked_map_stats``
+gets ``signed=True`` and a CUDA map; it counts ``launches.signed_map_stats``
+(and the bisection chain ``signed_stats.plain`` on the card), 24 and 0 a
+served CaiT chunk. Bound: bytes, the map read once and t and s written
+once (106.5 MB at B=160 for CaiT-S24@384's bf16 maps, 0.0318 ms).
 """
 
 from typing import Dict

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "ppf_map_stats_route": [_INT],
     "ppf_map_stats_active_clusters": [_INT, _INT],
     "ppf_map_stats_select_route": [_VOIDP, _INT],
+    "ppf_signed_map_stats": [_VOIDP, _INT, _INT, _INT, _INT, _INT, _VOIDP,
+                             _VOIDP, _VOIDP],
     "ppf_attention_block_stats": [_VOIDP, _INT, _INT, _INT, _INT, _INT, _INT,
                                   _FLOAT, _FLOAT, _VOIDP, _VOIDP, _VOIDP,
                                   _VOIDP, _VOIDP, _VOIDP],

@@ -7,6 +7,11 @@ port's kernels find by a radix select) and the masked row sums in one pass
 over the map. A CUDA tensor goes to the hand-written kernel
 (``csrc/map_stats.cu``); a CPU tensor goes to ``map_stats_plain``, the
 plain PyTorch version of the same steps. Any other device raises.
+
+``signed_map_stats_cuda`` runs the same kernel in the signed key space
+(``ppf_signed_map_stats``) for maps that may hold negative values, CaiT's
+talking-heads maps: ``ops.rollout.masked_map_stats(signed=True)`` takes it
+on the card, and ``signed_map_stats_plain`` states its algorithm.
 """
 
 from __future__ import annotations
@@ -29,8 +34,34 @@ def bisect_keys(a: torch.Tensor, prefix16: bool) -> torch.Tensor:
     return bits
 
 
+def signed_keys(a: torch.Tensor, prefix16: bool) -> torch.Tensor:
+    """(B, ...) fp32 values -> (B, E) int64 keys of the signed select
+    (``csrc/common.cuh::select_key<true>``): each fp32 pattern u as the
+    unsigned monotone key, u with its top bit set where the sign bit is
+    clear and ~u where it is set, whose order is the values' order (-0.0
+    just below +0.0); its high 16 bits in prefix16 mode, which of a bf16
+    value are the key of its own 16-bit pattern."""
+    u = bisect_keys(a, False).to(torch.int64) & 0xFFFFFFFF
+    key = torch.where(u >> 31 == 1, u ^ 0xFFFFFFFF, u | (1 << 31))
+    return key >> 16 if prefix16 else key
+
+
+def threshold_from_signed_key(key: torch.Tensor, prefix16: bool
+                              ) -> torch.Tensor:
+    """(B,) ``signed_keys`` keys -> the fp32 values they are the keys of
+    (``csrc/common.cuh::threshold_from_key<true>``)."""
+    top = 1 << (15 if prefix16 else 31)
+    key = key.to(torch.int64)
+    bits = torch.where(key & top != 0, key & (top - 1), ~key & (2 * top - 1))
+    if prefix16:
+        bits = bits << 16
+    bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
 def radix_select_keys(keys: torch.Tensor, keep: int, key_bits: int,
-                      digit_bits: int, hi: int) -> torch.Tensor:
+                      digit_bits: int, hi: int,
+                      signed: bool = False) -> torch.Tensor:
     """Plain statement of the kernels' radix select (``csrc/common.cuh``,
     ``cluster_radix_select``, run by K1, K2 and K4/K5's normalize): per
     row of the (B, E) integer ``keys`` (``key_bits`` wide, as
@@ -41,9 +72,12 @@ def radix_select_keys(keys: torch.Tensor, keep: int, key_bits: int,
     that match the digits chosen so far by their next digit and takes the
     digit that holds the keep-th largest. This is what ``bisect_threshold``
     returns from [0, hi] on the same keys: both find the largest v <= hi
-    with count(keys >= v) >= keep. Returns (B,) in the keys' dtype."""
+    with count(keys >= v) >= keep. ``signed``: the keys are
+    ``signed_keys``', whose top bit marks a non-negative value, and none
+    counts as 0. Returns (B,) in the keys' dtype."""
     k64 = keys.to(torch.int64) & ((1 << key_bits) - 1)
-    k64 = torch.where(k64 >> (key_bits - 1) == 1, 0, k64)
+    if not signed:
+        k64 = torch.where(k64 >> (key_bits - 1) == 1, 0, k64)
     B = k64.shape[0]
     radix = 1 << digit_bits
     dev = keys.device
@@ -85,6 +119,23 @@ def map_stats_plain(fmap: torch.Tensor, keep: int, prefix16: bool
     return t, masked_row_sums(a, t)
 
 
+def signed_map_stats_plain(fmap: torch.Tensor, keep: int, prefix16: bool
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the signed kernel (``ppf_signed_map_stats``)
+    on a (B, N, N) map: the radix select of the keep-th largest of
+    ``signed_keys`` (16 bits of a bf16 map's in prefix16 mode, else 32),
+    its value by ``threshold_from_signed_key``, then the masked row sums.
+    The same t as the bisections ``ops.rollout.kth_largest_bf16_signed``
+    and ``kth_largest_signed``: each finds the keep-th largest key of one
+    order of the values. Returns (t (B,) fp32, s (B, N) fp32)."""
+    a = fmap.float()
+    bits = 16 if prefix16 else 32
+    key = radix_select_keys(signed_keys(a, prefix16), keep, bits, 8,
+                            (1 << bits) - 1, signed=True)
+    t = threshold_from_signed_key(key, prefix16)
+    return t, masked_row_sums(a, t)
+
+
 # The select's routes (``csrc/common.cuh::map_route``), as
 # ``ppf_map_stats_route`` and ``ppf_attention_core_route`` number them:
 # one step up to 256 columns; each CTA's band in shared memory as fp32 (up
@@ -122,6 +173,33 @@ def map_stats_cuda(fmap: torch.Tensor, keep: int, prefix16: bool
         )
     _build.check_launch("map_stats", code)
     count("launches.fused_map_stats")
+    return t, s
+
+
+def signed_map_stats_cuda(fmap: torch.Tensor, keep: int, prefix16: bool
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/map_stats.cu``'s signed select on a contiguous (B, N,
+    N) CUDA map of fp32 or bf16 (``check_map``), on the route the shape
+    picks; ``prefix16`` (a bf16 map's 16-bit keys) takes only a bf16 map.
+    Counts ``launches.signed_map_stats``. Returns (t (B,) fp32, s (B, N)
+    fp32)."""
+    B, N = check_map(fmap)
+    if prefix16 and fmap.dtype != torch.bfloat16:
+        raise ValueError("signed_map_stats: 16-bit keys are a bf16 map's; "
+                         "an fp32 map takes 32-bit keys")
+    if not fmap.is_cuda:
+        raise ValueError(f"signed_map_stats: expected a CUDA tensor, got "
+                         f"{fmap.device}")
+    lib = _build.library()
+    t = torch.empty(B, dtype=torch.float32, device=fmap.device)
+    s = torch.empty((B, N), dtype=torch.float32, device=fmap.device)
+    with _build.on_device(fmap.device) as stream:
+        code = lib.ppf_signed_map_stats(
+            fmap.data_ptr(), int(fmap.dtype == torch.bfloat16), B, N, keep,
+            int(prefix16), t.data_ptr(), s.data_ptr(), stream,
+        )
+    _build.check_launch("signed_map_stats", code)
+    count("launches.signed_map_stats")
     return t, s
 
 

@@ -14,8 +14,11 @@ probabilities and can be negative throughout (ROADMAP F4). Under
 class-attention block ``i`` in the reserve list, the mean of the
 normalized class-attention rows so far (CLS column dropped) is rolled back
 through the self-attention maps, and its top-k policy masks the
-class-attention softmax from block ``i`` on. No block here runs a kernel
-of ``kernels/``: the JAX package runs this path outside any Pallas kernel.
+class-attention softmax from block ``i`` on. None of the five ports of
+the JAX package's Pallas kernels runs here (its CaiT runs outside any);
+on the card the talking-heads attention (``ops/talking_heads.py``) and
+the signed searches (``ops/rollout.py``, ``signed_kernel_takes``) run
+hand-written kernels of their own.
 
 While a profiler collects, the pruning forward records spans, each timed
 on the card over its region's work (``utils/profiling.py``):
@@ -23,7 +26,8 @@ on the card over its region's work (``utils/profiling.py``):
 ``cait.signed_stats`` around each map's threshold search and masked row
 sums (one around the stacked search under ``rollout_stats_batched="on"``;
 attributes ``batch``, ``tokens``, ``map_dtype`` and ``passes``, the
-search's count passes), ``cait.rollout`` around the lazy rollout and the
+search's passes over the map on its route: the kernel's 2 or 4, the
+chain's 16 or 32, ``signed_search_passes``), ``cait.rollout`` around the lazy rollout and the
 policy at a reserve block, and ``cait.class_attn`` around each
 class-attention block with its map's normalization. The always-on
 counter ``cait.maps_searched`` counts the maps whose threshold was
@@ -56,6 +60,7 @@ from protopformer_tpu_torch.ops.rollout import (
     masked_map_stats_multi,
     normalize_attention_map,
     rollout_row_scores_lazy,
+    signed_search_passes,
 )
 from protopformer_tpu_torch.ops.tokens import reserve_policy
 from protopformer_tpu_torch.utils.profiling import count, span
@@ -137,13 +142,13 @@ class CaiTBackbone(nn.Module):
             sa_maps.append(fmap)
         stats_args = (cfg.rollout_discard_ratio, cfg.rollout_exact_discard)
         if cfg.rollout_stats_batched == "on":
-            with self._stats_span(sa_maps):
+            with self._stats_span(sa_maps, sample):
                 sa_stats = masked_map_stats_multi(sa_maps, *stats_args,
                                                   signed=True, sample=sample)
         else:
             sa_stats = []
             for m in sa_maps:
-                with self._stats_span([m]):
+                with self._stats_span([m], sample):
                     sa_stats.append(masked_map_stats(
                         m, *stats_args, signed=True, sample=sample))
         sa_ts = [t for t, _ in sa_stats]
@@ -178,11 +183,12 @@ class CaiTBackbone(nn.Module):
         x = torch.cat([cls_tokens, x], dim=1)
         return layer_norm(x, self.norm, self.compute_dtype), cls_token_attn
 
-    def _stats_span(self, maps):
+    def _stats_span(self, maps, sample: int):
         """The ``cait.signed_stats`` span of one search over ``maps``, each
         (B, N, N), and its count."""
         B, N, _ = maps[0].shape
-        passes = 16 if maps[0].dtype == torch.bfloat16 else 32
+        passes = signed_search_passes(
+            maps[0], self.config.rollout_exact_discard, sample)
         count("cait.maps_searched", len(maps))
         return span("cait.signed_stats", region=maps[0], attrs={
             "batch": B * len(maps), "tokens": N,

@@ -19,7 +19,13 @@ the bit casts are ``Tensor.view(torch.int32)`` / ``view(torch.int16)``.
 CaiT's talking-heads maps are not probabilities (whole maps can be
 negative), so their search runs in a signed key space that orders every
 finite float (``_monotone_keys_i32``). Every threshold here equals the JAX
-package's bit for bit.
+package's bit for bit. On the card a signed search of a whole square map
+runs the hand-written radix select in that order instead
+(``kernels/stats.py::signed_map_stats_cuda``, counted
+``launches.signed_map_stats``), with the same thresholds
+(``signed_kernel_takes``); the chain stays the CPU's route and that of
+sampled counts and padded maps, and counts ``signed_stats.plain`` on the
+card.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from protopformer_tpu_torch.utils.profiling import count
 
 
 def _fuse_heads(attn: torch.Tensor, head_fusion: str) -> torch.Tensor:
@@ -177,6 +185,28 @@ def kth_largest_bf16_signed(flat: torch.Tensor, keep: int, bound=None
     return torch.where(key >= 0, key, key ^ 0x7FFF).view(torch.bfloat16)
 
 
+def signed_kernel_takes(fmap: torch.Tensor, sample: int = 1,
+                        keep_elements: int = None) -> bool:
+    """Whether ``masked_map_stats(signed=True)`` runs the hand-written
+    signed select on ``fmap``: a square (B, N, N) fp32 or bf16 CUDA map,
+    searched whole (no sampled counts) with no padding. Every other signed
+    search runs the bisection chain."""
+    return (fmap.is_cuda and sample == 1 and keep_elements is None
+            and fmap.dim() == 3 and fmap.shape[1] == fmap.shape[2]
+            and fmap.dtype in (torch.float32, torch.bfloat16))
+
+
+def signed_search_passes(fmap: torch.Tensor, exact_discard: bool,
+                         sample: int = 1) -> int:
+    """The passes over ``fmap`` of its signed search: the kernel's cluster
+    passes (2 on a bf16 map's 16-bit keys in speed mode, else 4 on 32-bit
+    keys) or the chain's bisection steps (16, else 32)."""
+    key16 = fmap.dtype == torch.bfloat16 and not exact_discard
+    if signed_kernel_takes(fmap, sample):
+        return 2 if key16 else 4
+    return 16 if key16 else 32
+
+
 def masked_map_stats(
     attn_fused: torch.Tensor,
     discard_ratio: float = 0.9,
@@ -194,7 +224,8 @@ def masked_map_stats(
     ``signed``: the map may hold negative values (CaiT's talking-heads
     maps), so the search runs in the signed key space (fp32: exact in
     both discard modes); ``value_bound`` and ``stochastic_eps`` assume
-    probability maps and are rejected, ``sample`` composes.
+    probability maps and are rejected, ``sample`` composes. A signed
+    search that ``signed_kernel_takes`` runs the hand-written kernel.
     """
     B, M, N = attn_fused.shape
     if signed and (value_bound is not None or stochastic_eps is not None):
@@ -227,6 +258,17 @@ def masked_map_stats(
         t = torch.full((B,), float("-inf"), dtype=torch.float32,
                        device=a.device)
         return t, a.float().sum(dim=-1)
+    if signed and attn_fused.is_cuda:
+        if signed_kernel_takes(attn_fused, sample, keep_elements):
+            # imported here: the kernels package imports this module
+            from protopformer_tpu_torch.kernels.stats import (
+                signed_map_stats_cuda,
+            )
+
+            key16 = attn_fused.dtype == torch.bfloat16 and not exact_discard
+            t, s = signed_map_stats_cuda(attn_fused.contiguous(), keep, key16)
+            return (t.to(torch.bfloat16) if key16 else t), s
+        count("signed_stats.plain")
     flat = a.reshape(B, -1)
     if sample > 1:
         if exact_discard:

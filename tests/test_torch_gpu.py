@@ -30,7 +30,11 @@ at most max(1, B // 80) samples, each one whose map differs. CaiT's
 talking-heads kernel sums its dots, head mixes and softmax in another
 order than the eager chain too: its output is held within 2 bf16 ulps of
 the chain's largest entry with at most 1e-3 of the entries (or one row)
-differing, its map within one ulp with at most 1e-4 (or one row). K4/K5
+differing, its map within one ulp with at most 1e-4 (or one row). CaiT's
+signed threshold search (K2's select in the signed key space) returns the
+bisection chain's t bit for bit, and its row sums within 1e-6 of the
+chain's on maps whose rows' |entries| sum to about 1, as the talking-heads
+maps' do: both sum in fp32, in other orders. K4/K5
 emit a map normalized after a k-th largest discard, where a one-ulp
 difference in the raw map can move an entry across the threshold: each is
 held against the plain normalize of K3's raw map on the same inputs (the
@@ -947,7 +951,8 @@ def test_cait_forward_on_the_card_matches_the_cpu(rng, cuda):
                                          (torch.bfloat16, False)])
 def test_cait_forward_launches_no_kernel(cuda, dtype, exact):
     """A CaiT forward in each mode launches none of K1-K5: its blocks are
-    not the DeiT ``Attention`` and its signed statistics are plain."""
+    not the DeiT ``Attention``, and its signed statistics run a kernel of
+    their own (``launches.signed_map_stats``, not one of the five)."""
     model = _cait_ppnet({"rollout_exact_discard": exact}, dtype).to(cuda)
     x = torch.zeros((2, 224, 224, 3), device=cuda)
     kernels.reset_launch_counts()
@@ -1631,3 +1636,161 @@ def test_cait_forward_counts_the_talking_heads_kernel(cuda, dtype, exact):
     assert counts.get("launches.talking_heads", 0) == (24 if bf16 else 0)
     assert counts.get("talking_heads.plain", 0) == (0 if bf16 else 24)
     assert bool(torch.isfinite(out.logits).all())
+
+
+# --- CaiT's signed threshold search in one launch (csrc/map_stats.cu) ---------
+
+_SIGNED_KINDS = ["mixed", "negative", "positive", "zeros", "ties",
+                 "on_negative_zero"]
+_SIGNED_MODES = {"bf16_speed": (torch.bfloat16, False),
+                 "bf16_exact": (torch.bfloat16, True),
+                 "fp32": (torch.float32, True)}
+
+
+def _signed_card_maps(cuda, B, N, kind, dtype, seed=29):
+    """Seeded (B, N, N) maps on the card of entries of scale 1/N (a row's
+    |entries| sum to about 1, as a talking-heads map's do), and their keep
+    at a 0.9 discard. "zeros": -0.0 and +0.0 entries; "ties": multiples of
+    1/(4N) in [-2, 2]/(4N); "on_negative_zero": keep - 1 positive entries,
+    then -0.0 ones, the rest negative (t is -0.0)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    E = N * N
+    keep = E - int(E * 0.9)
+    x = torch.randn((B, E), generator=gen, device=cuda) / N
+    if kind == "negative":
+        x = -x.abs() - 1e-3 / N
+    elif kind == "positive":
+        x = x.abs() + 1e-3 / N
+    elif kind == "zeros":
+        x[:, ::3] = -0.0
+        x[:, 1::5] = 0.0
+    elif kind == "ties":
+        x = torch.randint(-2, 3, (B, E), generator=gen, device=cuda) / (4 * N)
+    elif kind == "on_negative_zero":
+        x = -x.abs() - 1e-3 / N
+        x[:, :keep - 1] = -x[:, :keep - 1]
+        x[:, keep - 1:keep + 6] = -0.0
+        order = torch.rand((B, E), generator=gen, device=cuda).argsort(dim=1)
+        x = x.gather(1, order)
+    return x.reshape(B, N, N).to(dtype).contiguous(), keep
+
+
+def _signed_chain(fmap, keep, key16):
+    """The bisection chain on the card (``masked_map_stats``'s signed steps
+    with no kernel): t in bf16 on a bf16 map's 16-bit keys, else fp32."""
+    from protopformer_tpu_torch.ops.rollout import (
+        kth_largest_bf16_signed,
+        kth_largest_signed,
+    )
+
+    flat = fmap.reshape(fmap.shape[0], -1)
+    t = (kth_largest_bf16_signed(flat, keep) if key16
+         else kth_largest_signed(flat.float(), keep))
+    return t, stats.masked_row_sums(fmap.float(), t.float())
+
+
+def _signed_check(cuda, B, N, kind, mode):
+    dtype, exact = _SIGNED_MODES[mode]
+    fmap, keep = _signed_card_maps(cuda, B, N, kind, dtype)
+    key16 = not exact
+    t, s = stats.signed_map_stats_cuda(fmap, keep, key16)
+    want_t, want_s = _signed_chain(fmap, keep, key16)
+    got_t, got_s = masked_map_stats(fmap, 0.9, exact, signed=True)
+    torch.cuda.synchronize()
+    assert torch.equal(t.view(torch.int32), want_t.float().view(torch.int32))
+    assert got_t.dtype == want_t.dtype and torch.equal(got_t, want_t)
+    assert _max_err(s, want_s) <= 1e-6 and torch.equal(got_s, s)
+    if kind == "on_negative_zero":
+        assert set(t.view(torch.int32).tolist()) == {-2 ** 31}
+
+
+@pytest.mark.parametrize("mode", list(_SIGNED_MODES))
+@pytest.mark.parametrize("kind", _SIGNED_KINDS)
+# the one-step route in 1 and 4 CTAs, the band in shared memory in 5 and
+# 16, the band read in place past 640
+@pytest.mark.parametrize("N", [24, 196, 257, 577, 785])
+def test_signed_select_matches_the_chain(cuda, N, kind, mode):
+    _signed_check(cuda, 3, N, kind, mode)
+
+
+@pytest.mark.parametrize("mode", list(_SIGNED_MODES))
+@pytest.mark.parametrize("kind", ["mixed", "zeros", "on_negative_zero"])
+def test_signed_select_at_cait_s24_384s_shape(cuda, kind, mode):
+    """A served CaiT-S24@384 chunk's maps: B=160, 576 tokens."""
+    _signed_check(cuda, 160, 576, kind, mode)
+
+
+def test_signed_search_keeps_the_chain_for_sampled_counts_and_the_cpu(cuda):
+    from protopformer_tpu_torch.utils import profiling
+
+    fmap, _ = _signed_card_maps(cuda, 2, 40, "mixed", torch.bfloat16)
+    profiling.reset_counts("launches.signed_map_stats")
+    profiling.reset_counts("signed_stats.plain")
+    t, s = masked_map_stats(fmap, 0.9, False, signed=True, sample=2)
+    cpu_t, cpu_s = masked_map_stats(fmap.cpu(), 0.9, False, signed=True)
+    card_t, card_s = masked_map_stats(fmap, 0.9, False, signed=True)
+    torch.cuda.synchronize()
+    counts = profiling.counts()
+    assert counts.get("signed_stats.plain", 0) == 1
+    assert counts.get("launches.signed_map_stats", 0) == 1
+    assert t.dtype == torch.bfloat16 and s.shape == (2, 40)
+    assert torch.equal(card_t.cpu(), cpu_t)
+    assert _max_err(card_s.cpu(), cpu_s) <= 1e-6
+
+
+def test_signed_select_refuses_what_it_does_not_take(cuda):
+    fmap = torch.zeros((2, 24, 24), device=cuda, dtype=torch.bfloat16)
+    for bad, error in ((fmap.transpose(1, 2), ValueError),
+                       (fmap[:, :23], ValueError),
+                       (fmap.half(), TypeError),
+                       (fmap.float(), ValueError)):
+        with pytest.raises(error):
+            stats.signed_map_stats_cuda(bad, 10, True)
+
+
+@pytest.mark.parametrize("batched", ["off", "on"])
+@pytest.mark.parametrize("dtype,exact", [(torch.float32, True),
+                                         (torch.bfloat16, True),
+                                         (torch.bfloat16, False)])
+def test_cait_forward_counts_the_signed_select(cuda, dtype, exact, batched):
+    """A CaiT-XXS-24 forward searches each of its 24 maps with the kernel
+    and never the chain, in every mode (one launch over the stacked maps
+    under ``rollout_stats_batched="on"``), and a bf16 speed chunk served by
+    the engine does too."""
+    from protopformer_tpu_torch.utils import profiling
+
+    model = _cait_ppnet({"rollout_exact_discard": exact,
+                         "rollout_stats_batched": batched}, dtype).to(cuda)
+    x = torch.zeros((2, 224, 224, 3), device=cuda)
+    profiling.reset_counts("launches.signed_map_stats")
+    profiling.reset_counts("signed_stats.plain")
+    with torch.inference_mode():
+        out = model(x)
+    torch.cuda.synchronize()
+    counts = profiling.counts()
+    assert counts.get("launches.signed_map_stats", 0) == (
+        24 if batched == "off" else 1)
+    assert counts.get("signed_stats.plain", 0) == 0
+    assert bool(torch.isfinite(out.logits).all())
+
+
+def test_a_served_bf16_cait_chunk_runs_the_signed_select(cuda):
+    from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
+    from protopformer_tpu_torch.serving import ServingEngine
+    from protopformer_tpu_torch.utils import profiling
+
+    bk = backbone_preset("cait_xxs24_224", rollout_exact_discard=False)
+    pp = PPNetConfig(reserve_layers=(1,), reserve_token_nums=(81,))
+    sd = _cait_ppnet({"rollout_exact_discard": False}).state_dict()
+    engine = ServingEngine(bk, pp, sd, device=cuda, batch_size=160,
+                           compute_dtype=torch.bfloat16, with_attn=True)
+    imgs = np.random.default_rng(23).integers(0, 256, (160, 224, 224, 3),
+                                              dtype=np.uint8)
+    profiling.reset_counts("launches.signed_map_stats")
+    profiling.reset_counts("signed_stats.plain")
+    res = engine(imgs)
+    torch.cuda.synchronize()
+    counts = profiling.counts()
+    assert counts.get("launches.signed_map_stats", 0) == 24
+    assert counts.get("signed_stats.plain", 0) == 0
+    assert bool(np.isfinite(res.logits).all())

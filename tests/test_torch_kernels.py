@@ -221,6 +221,85 @@ def test_select_counts_negative_zero_as_zero(rng, exact, dtype):
     assert torch.equal(selected, bisected)
 
 
+def _signed_case_maps(rng, case, B=3, N=24):
+    """(B, N, N) fp32 maps of one signed-select case (CaiT's talking-heads
+    maps may be all negative, mixed or all positive) and their keep at a
+    0.9 discard. "zeros": -0.0 and +0.0 entries around the threshold;
+    "ties": five values repeated; "on_negative_zero": keep - 1 positive
+    entries above -0.0 ones (map 0), keep - 3 above two +0.0 and then -0.0
+    ones (map 1), so that t is -0.0, and keep - 1 above +0.0 ones (map 2),
+    so that t is +0.0."""
+    E = N * N
+    keep = E - int(E * 0.9)
+    x = rng.normal(size=(B, N, N)).astype(np.float32)
+    flat = x.reshape(B, -1)
+    if case == "negative":
+        x = -np.abs(x) - 1e-3
+    elif case == "positive":
+        x = np.abs(x) + 1e-3
+    elif case == "zeros":
+        flat[:, ::3] = -0.0
+        flat[:, 1::5] = 0.0
+    elif case == "ties":
+        x = rng.choice(np.float32([-0.5, -0.25, 0.0, 0.25, 0.5]),
+                       size=(B, N, N))
+    elif case == "on_negative_zero":
+        x = -np.abs(x) - 1e-3
+        flat = x.reshape(B, -1)
+        flat[:, :keep - 1] = np.abs(flat[:, :keep - 1]) + 1e-3
+        flat[:, keep - 1:keep + 6] = -0.0
+        flat[1, keep - 3:keep - 1] = 0.0
+        flat[2, keep - 1:keep + 2] = 0.0
+        x = np.stack([m.reshape(-1)[rng.permutation(E)].reshape(N, N)
+                      for m in x])
+    return x, keep
+
+
+_SIGNED_CASES = ["negative", "mixed", "positive", "zeros", "ties",
+                 "on_negative_zero"]
+
+
+@pytest.mark.parametrize("mode", ["bf16_speed", "bf16_exact", "fp32"])
+@pytest.mark.parametrize("case", _SIGNED_CASES)
+def test_signed_radix_select_equals_the_signed_bisection(rng, case, mode):
+    """The signed kernel's algorithm (``signed_map_stats_plain``: the radix
+    select on ``signed_keys``' monotone keys, 16 bits of a bf16 map's in
+    speed mode, else 32, and their inverse) gives the bisection chain's
+    thresholds bit for bit (``kth_largest_bf16_signed`` /
+    ``kth_largest_signed``, and ``masked_map_stats(signed=True)``, whose
+    row sums it gives exactly on the CPU), and JAX's."""
+    maps, keep = _signed_case_maps(rng, case)
+    dtype = torch.float32 if mode == "fp32" else torch.bfloat16
+    t_in = torch.from_numpy(maps).to(dtype)
+    key16 = mode == "bf16_speed"
+    t, s = t_stats.signed_map_stats_plain(t_in, keep, key16)
+    kth = (t_roll.kth_largest_bf16_signed(t_in.reshape(3, -1), keep) if key16
+           else t_roll.kth_largest_signed(t_in.reshape(3, -1), keep))
+    bits = lambda x: to_np(x.float()).view(np.int32)
+    np.testing.assert_array_equal(bits(t), bits(kth))
+    want_t, want_s = t_roll.masked_map_stats(t_in, 0.9, not key16,
+                                             signed=True)
+    np.testing.assert_array_equal(bits(t), bits(want_t))
+    np.testing.assert_array_equal(to_np(s), to_np(want_s))
+    jt, _ = j_roll.masked_map_stats(
+        jnp.asarray(maps).astype("float32" if mode == "fp32" else "bfloat16"),
+        0.9, not key16, signed=True)
+    np.testing.assert_array_equal(bits(t), to_np(jt.astype(jnp.float32)
+                                                   ).view(np.int32))
+    if case == "on_negative_zero":
+        assert bits(t).tolist() == [-2**31, -2**31, 0]  # -0.0, -0.0, +0.0
+    if case == "negative":
+        assert bool((t < 0).all())
+    # the key's top bit marks a clear sign bit, and the inverse undoes it
+    keys = t_stats.signed_keys(t_in.float(), key16)
+    top = 1 << (15 if key16 else 31)
+    sign_clear = t_in.float().reshape(3, -1).view(torch.int32) >= 0
+    assert torch.equal(keys & top != 0, sign_clear)
+    np.testing.assert_array_equal(
+        bits(t_stats.threshold_from_signed_key(keys[:, 7], key16)),
+        bits(t_in.float().reshape(3, -1)[:, 7]))
+
+
 def test_map_stats_no_discard_sentinel_launches_nothing(rng):
     maps = torch.from_numpy(_prob_maps(rng, 2, 8))
     t_kernels.reset_launch_counts()

@@ -383,6 +383,119 @@ def test_masked_map_stats_signed_rejects_probability_bounds(bound):
                                 **bound)
 
 
+
+class _SignedLibrary:
+    """The kernel library's signed select launcher, recording its calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def ppf_signed_map_stats(self, fmap, map_is_bf16, B, N, keep, prefix16,
+                             t, s, stream):
+        self.calls.append({"bf16": map_is_bf16, "B": B, "N": N, "keep": keep,
+                           "key16": prefix16})
+        return 0
+
+
+@pytest.fixture
+def signed_library(monkeypatch):
+    """A fresh counter registry and the recording launcher in place of the
+    built library (no launch, no stream)."""
+    lib = _SignedLibrary()
+    monkeypatch.setattr(profiling, "_COUNTS", {})
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "on_device",
+                        lambda dev: contextlib.nullcontext(0))
+    return lib
+
+
+@pytest.mark.parametrize("on_card,dtype,exact,kw,route", [
+    (False, torch.bfloat16, False, {}, "cpu"),
+    (False, torch.float32, True, {}, "cpu"),
+    (True, torch.bfloat16, False, {}, "kernel"),
+    (True, torch.bfloat16, True, {}, "kernel"),
+    (True, torch.float32, True, {}, "kernel"),
+    (True, torch.float32, False, {}, "kernel"),
+    (True, torch.bfloat16, False, {"sample": 2}, "plain"),
+    (True, torch.float32, True, {"keep_elements": 1500}, "plain"),
+    (True, torch.float32, True, {"rows": 39}, "plain"),
+    (True, torch.float16, True, {}, "plain"),
+    (True, torch.bfloat16, False, {"signed": False}, "unsigned"),
+], ids=["cpu_bf16_speed", "cpu_fp32", "card_bf16_speed", "card_bf16_exact",
+        "card_fp32", "card_fp32_speed", "card_sampled", "card_padded",
+        "card_not_square", "card_fp16", "card_unsigned"])
+def test_signed_search_routes_by_what_the_map_shows(
+        rng, signed_library, on_card, dtype, exact, kw, route):
+    """The hand-written signed select for a whole square fp32 or bf16 map
+    on the card (16-bit keys for a bf16 map in speed mode, else 32), one
+    launch counted ``launches.signed_map_stats``, t in bf16 only there;
+    else the bisection chain, its outputs unchanged, counted
+    ``signed_stats.plain`` on the card alone (sampled counts, padded or
+    non-square maps, fp16); unsigned searches are not this route's. The
+    span's passes follow the route (``signed_search_passes``)."""
+    kw = dict(kw)
+    rows, signed = kw.pop("rows", 40), kw.pop("signed", True)
+    maps = torch.from_numpy(_signed_maps(rng, "mixed", (2, rows, 40))
+                            ).to(dtype)
+    if not signed:
+        maps = maps.abs()
+    want = t_roll.masked_map_stats(maps, 0.9, exact, signed=signed, **kw)
+    fmap = maps.as_subclass(_OnCard) if on_card else maps
+    t, s = t_roll.masked_map_stats(fmap, 0.9, exact, signed=signed, **kw)
+    assert profiling.counts() == {
+        "kernel": {"launches.signed_map_stats": 1},
+        "plain": {"signed_stats.plain": 1}, "cpu": {}, "unsigned": {}}[route]
+    key16 = dtype == torch.bfloat16 and not exact
+    keep = 1600 - int(1600 * 0.9)
+    assert signed_library.calls == ([{
+        "bf16": int(dtype == torch.bfloat16), "B": 2, "N": 40, "keep": keep,
+        "key16": int(key16)}] if route == "kernel" else [])
+    assert t.shape == (2,) and s.shape == (2, rows)
+    assert s.dtype == torch.float32
+    assert t.dtype == (torch.bfloat16 if key16 else torch.float32)
+    if route != "kernel":
+        assert torch.equal(t.float().view(torch.int32),
+                           want[0].float().view(torch.int32))
+        assert torch.equal(s, want[1])
+    if signed and "keep_elements" not in kw:  # CaiT's maps are unpadded
+        passes = {"kernel": 2 if key16 else 4}.get(route, 16 if key16 else 32)
+        assert t_roll.signed_search_passes(
+            fmap, exact, kw.get("sample", 1)) == passes
+
+
+def test_the_stacked_signed_search_is_one_launch(rng, signed_library):
+    """``masked_map_stats_multi`` (``rollout_stats_batched="on"``) hands the
+    kernel the stacked maps: one launch over every layer's rows."""
+    maps = [torch.from_numpy(_signed_maps(rng, "mixed", (2, 24, 24))).to(
+        torch.bfloat16).as_subclass(_OnCard) for _ in range(3)]
+    stats = t_roll.masked_map_stats_multi(maps, 0.9, False, signed=True)
+    assert [(t.shape, s.shape) for t, s in stats] == [((2,), (2, 24))] * 3
+    assert signed_library.calls == [{"bf16": 1, "B": 6, "N": 24,
+                                     "keep": 576 - int(576 * 0.9),
+                                     "key16": 1}]
+    assert profiling.counts() == {"launches.signed_map_stats": 1}
+
+
+@pytest.mark.parametrize("case,error", [("cpu", ValueError),
+                                        ("fp16", TypeError),
+                                        ("not_square", ValueError),
+                                        ("strided", ValueError),
+                                        ("fp32_key16", ValueError)])
+def test_signed_select_refuses_what_its_kernel_does_not_take(
+        signed_library, case, error):
+    from protopformer_tpu_torch.kernels.stats import signed_map_stats_cuda
+
+    fmap = torch.zeros((2, 8, 8), dtype=torch.bfloat16)
+    if case != "cpu":
+        fmap = fmap.as_subclass(_OnCard)
+    fmap = {"fp16": lambda m: m.half(), "not_square": lambda m: m[:, :7],
+            "strided": lambda m: m.transpose(1, 2),
+            "fp32_key16": lambda m: m.float()}.get(case, lambda m: m)(fmap)
+    with pytest.raises(error):
+        signed_map_stats_cuda(fmap, 7, True)
+    assert signed_library.calls == [] and profiling.counts() == {}
+
+
 @pytest.mark.parametrize("case", [
     dict(exact=True),
     dict(exact=False),
