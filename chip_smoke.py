@@ -205,6 +205,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
      profile of an int8 chunk, and a utils.profiling.trace of
      one int8 chunk whose file holds its span; every line with
      the card's name and power limit;
+  4l. DINOv2 ViT-g/14 with 4 registers at 518 px (the port-only preset
+     dinov2_vitg14_reg, seeded weights, the CUB head with the prune at
+     block 39 keeping 81): one bf16 speed chunk of 160 images served with
+     every kernel launch counter set to 0 just before, which must launch
+     K1 x 39 and K3 x 1, nothing else and no GELU pass (its FFN is
+     SwiGLU), run K3 on 86 tokens (the prefix of the CLS token and 4
+     registers carried through the gather ahead of the 81 kept patches)
+     and give finite logits and scores of the 1,369 patches; then on that
+     chunk's own operands K1 at 1,374 tokens in 24 heads of 64, past the
+     head split's 16 heads (the route with the band's accumulator in
+     device memory), in speed and, as a reading, exact mode (the fp32
+     map's select overflows its key lists there: its band passes are
+     recorded, not held), and K3 in bf16 at 86 tokens, each held to its
+     contract with its plain version as in phase 3 and timed beside it
+     and its bound;
   5. the card against the CPU: fp32 parity on 2 images (logits within
      1e-4, the same top-81 tokens), and bf16 speed and bf16 exact against
      the CPU's fp32 forward (at least 74 of the top-81 tokens kept, none
@@ -245,6 +260,7 @@ N_GATHERED = 82  # CLS + the 81 kept tokens after the prune-point gather
 DISCARD = 0.9
 REQUESTS = (1, 160, 333)
 TRAIN_B = 128  # scripts/train_cub.sh's default batch
+MAX_HEAD_SPLIT = 16  # csrc/attention_block_stats.cu's kMaxHeadSplit
 # CUB-200-2011's 5,994 training images in full batches of 128
 TRAIN_STEPS_PER_EPOCH = 5994 // TRAIN_B
 
@@ -1686,14 +1702,16 @@ def log_resident(what: str, ctas: int, smem: int) -> None:
 
 
 def select_reading(what: str, fmap: torch.Tensor, exact: bool,
-                   kthvalue: bool = False) -> None:
+                   kthvalue: bool = False, lists_fit: bool = True) -> None:
     """Prints the map select's launch (K2's kernel: K2 itself, or K1's
     second launch above 256 tokens, whose only difference is the cap at
     1.0) on a model's stored (B, N, N) map: t bit-equal to the plain
     version, its ms beside its bound (the map read once, t and s written
     once) and its cluster; on fp32 keys also the select's route
     (``stats.select_route``), required to be the compact lists' above
-    512 tokens. With ``kthvalue``, also the time of a two-call
+    512 tokens (with ``lists_fit`` False the route is a reading: DINOv2's
+    fp32 map at 1,374 tokens overflows them). With ``kthvalue``, also the
+    time of a two-call
     reference on the same map: ``torch.kthvalue`` of the flattened map,
     then the masked row sum (a reference, not a yardstick: kthvalue
     orders values, not the select's keys)."""
@@ -1736,7 +1754,8 @@ def select_reading(what: str, fmap: torch.Tensor, exact: bool,
     # fit; above 512 tokens the models' maps must take that route
     log(f"{what}: select route {json.dumps(route)} (band_passes: samples "
         f"whose lists overflowed)")
-    require(not exact or n <= 512 or route["band_passes"] == 0,
+    require(not (exact and lists_fit) or n <= 512
+            or route["band_passes"] == 0,
             f"{what}: the key lists overflowed on the model's map")
     if n > 640:
         # past 640 tokens the bands are read in place
@@ -1756,9 +1775,11 @@ def select_routes(n: int):
     return {"select": names[_build.library().ppf_map_stats_route(n)]}
 
 
-def k1_record(qkv: torch.Tensor, heads: int, exact: bool) -> dict:
+def k1_record(qkv: torch.Tensor, heads: int, exact: bool,
+              lists_fit: bool = True) -> dict:
     """K1 against its plain version on a model's own qkv (``k1_contract``),
-    timed and bounded; returns the partial record."""
+    timed and bounded, its select as ``select_reading`` holds it with
+    ``lists_fit``; returns the partial record."""
     from protopformer_tpu_torch.kernels import _build
     from protopformer_tpu_torch.kernels import attention_core as ac
     from protopformer_tpu_torch.kernels import stats
@@ -1780,14 +1801,17 @@ def k1_record(qkv: torch.Tensor, heads: int, exact: bool) -> dict:
                          n, c // heads, heads))
     if n > 640:
         # past 640 tokens the heads kernel runs a band in a cluster of one
-        # CTA a head (the head split)
+        # CTA a head (the head split) up to MAX_HEAD_SPLIT heads; above,
+        # one CTA a band with the band's accumulator in device memory
         size = lib.ppf_attention_block_stats_heads_cluster_size(
             n, c // heads, heads)
-        log_cluster(f"K1 heads kernel's head split at N={n}, "
-                    f"hd={c // heads}", size,
-                    lib.ppf_attention_block_stats_heads_active_clusters(
-                        n, c // heads, heads))
-        require(size == heads, f"K1 at N={n}: not on the head split")
+        if heads <= MAX_HEAD_SPLIT:
+            log_cluster(f"K1 heads kernel's head split at N={n}, "
+                        f"hd={c // heads}", size,
+                        lib.ppf_attention_block_stats_heads_active_clusters(
+                            n, c // heads, heads))
+        require(size == (heads if heads <= MAX_HEAD_SPLIT else 0),
+                f"K1 at N={n}, H={heads}: not on its route past 640 tokens")
     keep = n * n - int(n * n * DISCARD)
     out, fmap, t, s = ac.fused_attention_block_stats(qkv, heads, DISCARD, exact)
     p_out, p_map, p_t, _ = ac.block_stats_plain(qkv, heads, keep, exact)
@@ -1798,7 +1822,8 @@ def k1_record(qkv: torch.Tensor, heads: int, exact: bool) -> dict:
                       heads)
     mode = "exact" if exact else "speed"
     if n > 256:
-        select_reading(f"K1's select at N={n}, {mode}", fmap, exact)
+        select_reading(f"K1's select at N={n}, {mode}", fmap, exact,
+                       lists_fit=lists_fit)
     log(f"K1 {mode} H={heads} C={c} (model qkv): {json.dumps(res)}")
     require(res["t_equal_own"],
             f"K1 {mode} H={heads}: t differs from masked_map_stats on its map")
@@ -3247,6 +3272,79 @@ def multi_phase(dev: torch.device, state_dict,
     return results
 
 
+# --- phase 4l: DINOv2 ViT-g/14 with registers at 518 px -------------------------
+
+DINOV2_PREFIX = 5  # the CLS token and 4 registers
+DINOV2_KEEP = 81
+
+
+def dinov2_phase(dev: torch.device, rng: np.random.Generator) -> tuple:
+    """Phase 4l (see the module docstring). Returns ({path: {"launches"}},
+    {record name: partial record})."""
+    from protopformer_tpu_torch import kernels
+    from protopformer_tpu_torch.core.config import PPNetConfig, backbone_preset
+    from protopformer_tpu_torch.models import construct_ppnet, layers
+    from protopformer_tpu_torch.serving import ServingEngine
+    from protopformer_tpu_torch.utils import profiling
+
+    backbone = backbone_preset("dinov2_vitg14_reg",
+                               rollout_exact_discard=False)
+    depth, heads = backbone.depth, backbone.num_heads
+    ppnet = PPNetConfig(reserve_layers=(depth - 1,),
+                        reserve_token_nums=(DINOV2_KEEP,))
+    engine = ServingEngine(
+        backbone, ppnet, construct_ppnet(
+            backbone, ppnet, torch.float32,
+            generator=torch.Generator().manual_seed(11)).state_dict(),
+        batch_size=B, compute_dtype=torch.bfloat16, with_attn=True,
+        device=dev)
+    size = backbone.img_size
+    chunk = rng.integers(0, 256, (B, size, size, 3), dtype=np.uint8)
+    kernels.reset_launch_counts()
+    profiling.reset_counts("gelu.")
+    with first_call(layers, "fused_attention_block_stats") as k1, \
+            first_call(layers, "fused_attention_mean_padded") as k3:
+        res = engine(chunk)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    gelu = {k: profiling.counts().get(k, 0)
+            for k in ("launches.gelu_tanh", "gelu.plain")}
+    log(f"serve dinov2 bf16_speed: launches {json.dumps(launches)} "
+        f"{json.dumps(gelu)}")
+    want = expected_launches("bf16_speed", 1, depth)
+    require(launches == want, f"serve dinov2: expected launches {want}")
+    require(gelu == expected_gelu("fp32_parity", 1),
+            "serve dinov2: a GELU pass ran on the SwiGLU path")
+    gathered = DINOV2_PREFIX + DINOV2_KEEP
+    require(engine.model.features.num_prefix_tokens == DINOV2_PREFIX
+            and k3[0][0][0].shape[1] == gathered,
+            f"serve dinov2: K3 ran on {k3[0][0][0].shape[1]} tokens, not "
+            f"the prefix of {DINOV2_PREFIX} and {DINOV2_KEEP} kept patches")
+    require(res.logits.shape == (B, ppnet.num_classes)
+            and res.cls_token_attn.shape == (B, backbone.num_patches)
+            and bool(np.isfinite(res.logits).all()
+                     and np.isfinite(res.cls_token_attn).all()),
+            "serve dinov2: wrong shape or non-finite output")
+    qkv1 = k1[0][0][0].clone()
+    qkv3, pol3 = (a.clone() for a in k3[0][0][:2])
+    del engine, res, k1, k3
+    torch.cuda.empty_cache()
+    n = qkv1.shape[1]
+    records = {f"fused_attention_block_stats[speed,H={heads},N={n}]":
+               k1_record(qkv1, heads, False)}
+    # the fp32 map's compact key lists overflow at 1,374 tokens: the
+    # select's band passes are recorded, not held
+    rec = k1_record(qkv1, heads, True, lists_fit=False)
+    log(f"K1 exact at N={n}, H={heads} on the bf16 speed chunk's qkv (a "
+        "reading, not a record: no path here launches it): " + json.dumps(
+            {"ms": rec["ms"], "plain_ms": rec["plain_ms"],
+             "bound_ms": rec["bound"][0], "max_abs_err": rec["max_abs_err"]}))
+    del qkv1
+    records[f"fused_attention_mean_padded[bf16,N={gathered},H={heads}]"] = (
+        k3_record(qkv3, pol3, heads))
+    return {"dinov2_bf16_speed": {"launches": launches}}, records
+
+
 def main() -> int:
     if not (ROOT / "protopformer_tpu_torch").is_dir():
         print("chip_smoke.py: the protopformer_tpu_torch package is not "
@@ -3334,6 +3432,11 @@ def main() -> int:
     multi = multi_phase(dev, state_dict, rng)
     paths.update(multi)
     log(f"several cards and serving options: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dino, dino_records = dinov2_phase(dev, rng)
+    paths.update(dino)
+    records.update(dino_records)
+    log(f"dinov2: {time.perf_counter() - t0:.1f} s")
 
     # launches of each record's kernel on the paths that run it
     per_record_mode = {
@@ -3410,6 +3513,9 @@ def main() -> int:
         "fused_attention_mean_padded[fp32,N=1025,H=3]": [
             "deit_t512_fp32_parity"],
         "fused_map_stats[fp32,H=3,N=1025 map]": ["deit_t512_fp32_parity"],
+        "fused_attention_block_stats[speed,H=24,N=1374]": [
+            "dinov2_bf16_speed"],
+        "fused_attention_mean_padded[bf16,N=86,H=24]": ["dinov2_bf16_speed"],
     }
     line = []
     for name, rec in records.items():

@@ -103,7 +103,9 @@ def load_pretrained_backbone(path: str, backbone_cfg, device="cuda"
     if not backbone_cfg.distilled:
         sd = {k: v for k, v in sd.items()
               if not k.startswith(("head.", "head_dist."))}
-    if backbone_cfg.arch == "deit":
+    if backbone_cfg.arch in ("deit", "dinov2"):
+        # a DINOv2 file's position embedding covers its CLS token and
+        # patches (its registers carry none)
         sd["pos_embed"] = resize_pos_embed(
             sd["pos_embed"], backbone_cfg.num_patches,
             2 if "dist_token" in sd else 1)

@@ -1,7 +1,9 @@
 from protopformer_tpu_torch.core.config import (
     BACKBONE_PRESETS,
+    PORT_PRESETS,
     BackboneConfig,
     DataConfig,
+    DINOv2Config,
     ExperimentConfig,
     OptimConfig,
     PPNetConfig,
@@ -11,8 +13,10 @@ from protopformer_tpu_torch.core.config import (
 
 __all__ = [
     "BACKBONE_PRESETS",
+    "PORT_PRESETS",
     "BackboneConfig",
     "DataConfig",
+    "DINOv2Config",
     "ExperimentConfig",
     "OptimConfig",
     "PPNetConfig",

@@ -32,7 +32,7 @@ class BackboneConfig:
     """ViT backbone hyperparameters (field-for-field the JAX package's)."""
 
     name: str = "deit_tiny_patch16_224"
-    arch: str = "deit"  # "deit" | "cait"
+    arch: str = "deit"  # "deit" | "cait" ("dinov2": ``DINOv2Config``)
     img_size: int = 224
     patch_size: int = 16
     in_chans: int = 3
@@ -165,8 +165,58 @@ BACKBONE_PRESETS: Dict[str, BackboneConfig] = {
 }
 
 
+@dataclass(frozen=True)
+class DINOv2Config(BackboneConfig):
+    """A DINOv2 ViT backbone (Oquab et al., arXiv:2304.07193) with register
+    tokens (Darcet et al., arXiv:2309.16588), under DINOv2's own names for
+    what the DeiT fields do not hold. The port's only: the JAX package has
+    no such model.
+
+    ``num_register_tokens`` tokens go in between the CLS token and the
+    patches after the position embedding (which covers the CLS token and
+    the patches), so the pruning forwards carry a prefix of
+    ``1 + num_register_tokens`` tokens that the rollout never ranks and
+    the prune always keeps. The FFN is DINOv2's "swiglufused" (``w12`` to
+    twice the hidden width, ``silu(x1) * x2``, ``w3``; the hidden width
+    ``(int(C * mlp_ratio * 2/3) + 7) // 8 * 8``). Each residual branch is
+    scaled by a LayerScale gamma that starts at ``init_scale``."""
+
+    arch: str = "dinov2"
+    num_register_tokens: int = 4
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.arch != "dinov2":
+            raise ValueError(f"DINOv2Config.arch={self.arch!r}: 'dinov2' only")
+        if self.num_register_tokens < 0:
+            raise ValueError("DINOv2Config.num_register_tokens must be >= 0")
+
+    @property
+    def num_prefix_tokens(self) -> int:
+        return 1 + self.num_register_tokens
+
+
+# Presets of the port alone (no JAX counterpart), kept apart from the
+# JAX-mirrored BACKBONE_PRESETS; ``backbone_preset`` finds both.
+PORT_PRESETS: Dict[str, BackboneConfig] = {
+    # hubconf dinov2_vitg14_reg: vit_giant2, 4 registers, swiglufused (the
+    # only FFN here), LayerScale 1.0 in the hub's build
+    "dinov2_vitg14_reg": DINOv2Config(
+        name="dinov2_vitg14_reg", img_size=518, patch_size=14,
+        embed_dim=1536, depth=40, num_heads=24, init_scale=1.0,
+        num_register_tokens=4,
+    ),
+    "dinov2_micro_test": DINOv2Config(
+        name="dinov2_micro_test", img_size=56, patch_size=14,
+        embed_dim=64, depth=3, num_heads=4, init_scale=1.0,
+        num_register_tokens=4,
+    ),
+}
+
+
 def backbone_preset(name: str, **overrides: Any) -> BackboneConfig:
-    cfg = BACKBONE_PRESETS[name]
+    cfg = BACKBONE_PRESETS[name] if name in BACKBONE_PRESETS \
+        else PORT_PRESETS[name]
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 

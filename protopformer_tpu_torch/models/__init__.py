@@ -1,6 +1,7 @@
 from protopformer_tpu_torch.models.cait import CaiTBackbone
 from protopformer_tpu_torch.models.deit import (
     DeiTBackbone,
+    DINOv2Backbone,
     DistilledDeiT,
     construct_distilled_deit,
 )
@@ -23,6 +24,7 @@ __all__ = [
     "BaseNet",
     "CaiTBackbone",
     "DeiTBackbone",
+    "DINOv2Backbone",
     "DistilledDeiT",
     "EvalOutput",
     "PPNet",

@@ -69,6 +69,8 @@ from protopformer_tpu_torch.utils.profiling import count, span
 class CaiTBackbone(nn.Module):
     """CaiT encoder with attention taps and class-attention token pruning."""
 
+    num_prefix_tokens = 1  # the CLS token ahead of the patches
+
     def __init__(self, config: BackboneConfig,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()

@@ -26,6 +26,10 @@ runs the differentiable headloop and the detached maps take the same
 statistics routes. Position dropout and dropout take ``drop_rate``; block
 i's stochastic depth is ``drop_path_rate * i / (depth - 1)``.
 
+``DINOv2Backbone`` is this backbone with register tokens after the CLS
+token (a prefix of 1 + R tokens that the rollout never ranks and every
+policy and gather keeps), LayerScale and DINOv2's gated FFN.
+
 The unpruned forwards (``embed_patches``, ``feature_maps``,
 ``forward_features``, ``forward``) and ``DistilledDeiT`` run every block
 with no policy: a plain softmax and no kernel, as in the JAX package.
@@ -38,7 +42,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from protopformer_tpu_torch.core.config import BackboneConfig
+from protopformer_tpu_torch.core.config import BackboneConfig, DINOv2Config
 from protopformer_tpu_torch.core.device import resolve_device
 from protopformer_tpu_torch.kernels.stats import fused_map_stats
 from protopformer_tpu_torch.models.layers import (
@@ -82,10 +86,18 @@ def normalize_block_attention(attn: torch.Tensor, config: BackboneConfig
 
 
 class DeiTBackbone(nn.Module):
-    """DeiT/ViT encoder with attention taps and token pruning."""
+    """DeiT/ViT encoder with attention taps and token pruning.
+
+    The pruning forwards carry ``num_prefix_tokens`` tokens ahead of the
+    patches (the CLS token; ``DINOv2Backbone`` adds its registers): the
+    rollout ranks only the patches after them, and every policy and gather
+    keeps them. ``layer_scale`` and ``swiglu`` pass to each ``Block``."""
+
+    num_prefix_tokens = 1
 
     def __init__(self, config: BackboneConfig,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 layer_scale: Optional[float] = None, swiglu: bool = False):
         super().__init__()
         cfg = config
         self.config = cfg
@@ -106,7 +118,8 @@ class DeiTBackbone(nn.Module):
             Block(D, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
                   cfg.layer_norm_eps, compute_dtype, rollout, cfg.drop_rate,
                   dpr[i], cfg.rollout_head_fusion, cfg.use_pallas != "off",
-                  quant=cfg.quantize == "int8", ln_stats=cfg.ln_stats)
+                  quant=cfg.quantize == "int8", ln_stats=cfg.ln_stats,
+                  layer_scale=layer_scale, swiglu=swiglu)
             for i in range(cfg.depth)
         ])
         self.norm = nn.LayerNorm(D, eps=cfg.layer_norm_eps)
@@ -148,14 +161,19 @@ class DeiTBackbone(nn.Module):
         ``generator``: the dropout and stochastic-depth draws in training
         mode.
 
+        ``cls_embed`` holds the ``num_prefix_tokens`` prefix tokens (B, R,
+        D); the rollout's map covers them, its patch scores are the
+        columns after them, and the policy and the gather keep them.
+
         Returns:
-          (x after the final LayerNorm, in the compute dtype — (B, 1+N, D),
-           or (B, 1+k, D) under ``gather_final``;
+          (x after the final LayerNorm, in the compute dtype — (B, R+N, D),
+           or (B, R+k, D) under ``gather_final``;
            cls_token_attn (B, N) fp32 rollout scores at the last prune point).
         """
         cfg = self.config
         B, patch_num, _ = x_embed.shape
-        seq_len = 1 + patch_num
+        R = self._prefix(cls_embed)
+        seq_len = R + patch_num
         reserve_map = dict(reserve_layer_nums)
         last_prune = max(reserve_map)
 
@@ -187,15 +205,15 @@ class DeiTBackbone(nn.Module):
                     maps, [t for t, _ in stats], [s for _, s in stats],
                     cls_row, cfg.rollout_identity_weight,
                 )
-                cls_token_attn = scores[:, 0, 1:]
+                cls_token_attn = scores[:, 0, R:]
                 if gather_final and i == last_prune:
                     idx = topk_sorted_indices(cls_token_attn, reserve_map[i])
-                    x = torch.cat([x[:, :1], gather_tokens(x[:, 1:], idx)],
+                    x = torch.cat([x[:, :R], gather_tokens(x[:, R:], idx)],
                                   dim=1)
                     policy = "ones"
                 else:
                     policy, _ = reserve_policy(
-                        cls_token_attn, reserve_map[i], seq_len
+                        cls_token_attn, reserve_map[i], seq_len, prefix=R
                     )
             x, aux = blk(x, policy, tap=i < last_prune, generator=generator)
             if i >= last_prune:
@@ -242,11 +260,13 @@ class DeiTBackbone(nn.Module):
         asked for (``tap=False``).
 
         Returns:
-          (x (B, 1+N, D) after the final LayerNorm, in the compute dtype;
-           cls_token_attn (B, N) fp32 CLS row of the pre-prune rollout).
+          (x (B, R+N, D) after the final LayerNorm, in the compute dtype;
+           cls_token_attn (B, N) fp32 CLS row of the pre-prune rollout over
+           the patches).
         """
         B, patch_num, _ = x_embed.shape
-        seq_len = 1 + patch_num
+        R = self._prefix(cls_embed)
+        seq_len = R + patch_num
         layer_ids = [layer for layer, _ in reserve_layer_nums]
         first_prune = min(layer_ids)
 
@@ -260,19 +280,27 @@ class DeiTBackbone(nn.Module):
             if i in layer_ids:
                 keep = (token_attn >= 1.0 / patch_num).float()
                 policy = torch.cat(
-                    [torch.ones((B, 1), dtype=torch.float32,
+                    [torch.ones((B, R), dtype=torch.float32,
                                 device=x.device), keep], dim=1
                 )
             x, aux = blk(x, policy, tap=False, normalized=i < first_prune)
             if i < first_prune:
                 norm_maps.append(aux)
 
-        cls_token_attn = rollout_row_scores(norm_maps, cls_row)[:, 0, 1:]
+        cls_token_attn = rollout_row_scores(norm_maps, cls_row)[:, 0, R:]
         return layer_norm(x, self.norm, self.compute_dtype), cls_token_attn
+
+    def _prefix(self, cls_embed: torch.Tensor) -> int:
+        """The prefix length, checked against the prefix tokens given."""
+        R = self.num_prefix_tokens
+        if cls_embed.shape[1] != R:
+            raise ValueError(f"expected {R} prefix tokens ahead of the "
+                             f"patches, got {cls_embed.shape[1]}")
+        return R
 
     def _unmasked(self, x: torch.Tensor, generator: Generator = None
                   ) -> torch.Tensor:
-        """(B, 1+N, D) after the final LayerNorm, every block with no
+        """(B, R+N, D) after the final LayerNorm, every block with no
         policy."""
         tokens = torch.cat(self.embed_all(x, generator), dim=1)
         for blk in self.blocks:
@@ -282,7 +310,7 @@ class DeiTBackbone(nn.Module):
     def feature_maps(self, x: torch.Tensor, generator: Generator = None
                      ) -> torch.Tensor:
         """Unmasked forward, the patch features (B, N, D)."""
-        return self._unmasked(x, generator)[:, 1:]
+        return self._unmasked(x, generator)[:, self.num_prefix_tokens:]
 
     def forward_features(self, x: torch.Tensor, generator: Generator = None
                          ) -> torch.Tensor:
@@ -293,6 +321,37 @@ class DeiTBackbone(nn.Module):
     def forward(self, x: torch.Tensor, generator: Generator = None
                 ) -> torch.Tensor:
         return self.forward_features(x, generator)
+
+
+class DINOv2Backbone(DeiTBackbone):
+    """DINOv2 ViT with register tokens (``DINOv2Config``): the DeiT
+    backbone's forwards, kernels and rollout with a prefix of the CLS
+    token and ``num_register_tokens`` registers, LayerScale on both
+    residual branches and the SwiGLU FFN. DINOv2's module names
+    (``register_tokens``, ``mask_token``, ``blocks.{i}.ls1.gamma``,
+    ``ls2.gamma``, ``mlp.w12``, ``mlp.w3``), so a DINOv2 backbone state
+    dict (``head`` dropped) loads strictly. ``mask_token`` is DINOv2's
+    masked-image-modelling token: loaded, never used here."""
+
+    def __init__(self, config: DINOv2Config,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(config, compute_dtype, layer_scale=config.init_scale,
+                         swiglu=True)
+        D, R = config.embed_dim, config.num_register_tokens
+        self.num_prefix_tokens = config.num_prefix_tokens
+        self.register_tokens = nn.Parameter(torch.zeros(1, R, D))
+        self.mask_token = nn.Parameter(torch.zeros(1, D))
+
+    def embed_all(self, x: torch.Tensor, generator: Generator = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """NHWC image -> (prefix (B, 1+R, D): the CLS token with its
+        position embedding, then the R registers, which carry none;
+        patch_embed (B, N, D)), in the compute dtype (DINOv2's
+        ``prepare_tokens_with_masks``)."""
+        cls, patches = super().embed_all(x, generator)
+        regs = self.register_tokens.to(self.compute_dtype).expand(
+            x.shape[0], -1, -1)
+        return torch.cat([cls, regs], dim=1), patches
 
 
 class DistilledDeiT(nn.Module):

@@ -42,6 +42,12 @@ attention projection and each MLP product, and ``DropPath`` each residual
 branch, in training mode; both draw from the ``torch.Generator`` the
 caller passes down.
 
+DINOv2's blocks are ``Block`` with ``layer_scale`` (``LayerScale``:
+``ls1``/``ls2``, each branch scaled by its fp32 gamma cast to the compute
+dtype) and ``swiglu`` (``SwiGLUFFN``: ``w12``, the gate
+``silu(x1) * x2`` and ``w3`` in plain PyTorch, inside the region span
+``dinov2.swiglu``); the JAX package has no such block.
+
 CaiT's blocks (``layers.py:635-829`` of the JAX package) run plain PyTorch
 products, as the JAX package runs them outside any Pallas kernel, but for
 the talking-heads region of a bf16 forward on the card that needs no
@@ -194,7 +200,8 @@ def seeded_init_(model: nn.Module, features: nn.Module, arch: str,
     JAX package's flax init instead (N(0, 1/fan_in), zero bias): talking
     heads mix probabilities of about 1/N, which a default bias of up to
     1/sqrt(num_heads) would swamp. Its LayerScale gammas start at
-    ``init_scale``."""
+    ``init_scale``, as a DINOv2 backbone's do; a DINOv2 backbone's register
+    tokens are N(0, 0.02^2) too and its (unused) mask token zero."""
     def uniform_(p, bound):
         p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
 
@@ -207,10 +214,15 @@ def seeded_init_(model: nn.Module, features: nn.Module, arch: str,
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.fill_(0.0)
-    for name in ("cls_token", "dist_token", "pos_embed"):
+    for name in ("cls_token", "dist_token", "pos_embed", "register_tokens"):
         p = getattr(features, name, None)
         if p is not None:
             p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
+    if arch == "dinov2":
+        features.mask_token.zero_()
+        for name, p in features.named_parameters():
+            if name.endswith(("ls1.gamma", "ls2.gamma")):
+                p.fill_(init_scale)
     if arch == "cait":
         for m in features.modules():
             if isinstance(m, nn.Linear):
@@ -288,6 +300,54 @@ class Mlp(nn.Module):
         h = gelu_exact(h) if self.dtype == torch.float32 else gelu_speed(h)
         h = dropout(h, rate, generator)
         return dropout(dense(h, self.fc2, self.dtype), rate, generator)
+
+
+def swiglu_hidden(dim: int, mlp_ratio: float) -> int:
+    """DINOv2's ``SwiGLUFFNFused`` hidden width: two thirds of the MLP's,
+    rounded up to a multiple of 8 (4,096 at C=1536, ratio 4)."""
+    return (int(dim * mlp_ratio * 2 / 3) + 7) // 8 * 8
+
+
+class SwiGLUFFN(nn.Module):
+    """DINOv2's gated FFN (``SwiGLUFFNFused``): ``w12`` to 2 x hidden, the
+    gate ``silu(x1) * x2`` on its two halves, ``w3`` back to the width;
+    each product in the compute dtype, the gate's SiLU computed in fp32 and
+    rounded once, dropout after the gate and ``w3`` in training mode. While
+    a profiler collects, the region span ``dinov2.swiglu`` (attributes
+    ``batch``, ``tokens``, ``dim``, ``hidden``) times the three steps on
+    the card."""
+
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype,
+                 drop_rate: float = 0.0, quant: bool = False):
+        super().__init__()
+        self.dtype = dtype
+        self.drop_rate = drop_rate
+        self.hidden = hidden
+        self.w12 = linear(dim, 2 * hidden, quant)
+        self.w3 = linear(hidden, dim, quant)
+
+    def forward(self, x: torch.Tensor, generator: Generator = None
+                ) -> torch.Tensor:
+        rate = self.drop_rate if self.training else 0.0
+        with span("dinov2.swiglu", region=x, attrs={
+                "batch": x.shape[0], "tokens": x.shape[1],
+                "dim": x.shape[-1], "hidden": self.hidden}):
+            x1, x2 = dense(x, self.w12, self.dtype).chunk(2, dim=-1)
+            h = dropout(F.silu(x1) * x2, rate, generator)
+            out = dense(h, self.w3, self.dtype)
+        return dropout(out, rate, generator)
+
+
+class LayerScale(nn.Module):
+    """A residual branch scaled by the fp32 ``gamma`` cast to the branch's
+    dtype (DINOv2's ``ls1``/``ls2``)."""
+
+    def __init__(self, dim: int, init_values: float):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), init_values))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.gamma.to(x.dtype) * x
 
 
 class Attention(nn.Module):
@@ -418,21 +478,32 @@ class Block(nn.Module):
     """Pre-LN transformer block returning (x, attention aux); in training
     mode each residual branch goes through ``DropPath(drop_path)``.
     ``quant``: its four products run int8 (``QuantDense``); ``ln_stats``:
-    its two LayerNorms as ``block_norm`` picks them."""
+    its two LayerNorms as ``block_norm`` picks them. DINOv2's blocks:
+    ``layer_scale`` (an init value) scales each branch by ``ls1``/``ls2``
+    before its DropPath, and ``swiglu`` takes ``SwiGLUFFN`` for the MLP."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  qkv_bias: bool, layer_norm_eps: float, dtype: torch.dtype,
                  rollout: Tuple[float, float, bool], drop_rate: float = 0.0,
                  drop_path: float = 0.0, head_fusion: str = "mean",
                  kernels: bool = True, quant: bool = False,
-                 ln_stats: str = "fp32"):
+                 ln_stats: str = "fp32", layer_scale: Optional[float] = None,
+                 swiglu: bool = False):
         super().__init__()
         self.dtype = dtype
         self.norm1 = block_norm(dim, layer_norm_eps, ln_stats, dtype)
         self.attn = Attention(dim, num_heads, qkv_bias, dtype, rollout,
                               drop_rate, head_fusion, kernels, quant)
         self.norm2 = block_norm(dim, layer_norm_eps, ln_stats, dtype)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, drop_rate, quant)
+        if swiglu:
+            self.mlp = SwiGLUFFN(dim, swiglu_hidden(dim, mlp_ratio), dtype,
+                                 drop_rate, quant)
+        else:
+            self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, drop_rate, quant)
+        self.ls1 = self.ls2 = None
+        if layer_scale is not None:
+            self.ls1 = LayerScale(dim, layer_scale)
+            self.ls2 = LayerScale(dim, layer_scale)
         self.drop_path1 = DropPath(drop_path)
         self.drop_path2 = DropPath(drop_path)
 
@@ -442,8 +513,12 @@ class Block(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[object]]:
         h, aux = self.attn(layer_norm(x, self.norm1, self.dtype), policy, tap,
                            normalized, generator)
+        if self.ls1 is not None:
+            h = self.ls1(h)
         x = x + self.drop_path1(h, generator)
         h = self.mlp(layer_norm(x, self.norm2, self.dtype), generator)
+        if self.ls2 is not None:
+            h = self.ls2(h)
         return x + self.drop_path2(h, generator), aux
 
 

@@ -120,8 +120,8 @@ class AddOnLayers(nn.Sequential):
 
 
 class PPNet(nn.Module):
-    """Dual-branch prototype classifier over a pruning backbone (DeiT or
-    CaiT). A distilled config raises ``ValueError``: the distilled DeiT is
+    """Dual-branch prototype classifier over a pruning backbone (DeiT,
+    CaiT or DINOv2). A distilled config raises ``ValueError``: the distilled DeiT is
     a standalone classifier, not a feature extractor."""
 
     def __init__(self, backbone_config: BackboneConfig, config: PPNetConfig,
@@ -186,10 +186,10 @@ class PPNet(nn.Module):
     def _gather_at_prune(self) -> bool:
         """``prune_gather``: gather the kept set at the last prune point
         when it is the final reserve set ('auto': bf16 only). Only the DeiT
-        masked forward gathers."""
+        masked forward (DeiT's and DINOv2's) gathers."""
         cfg = self.config
         rmap = dict(cfg.reserve_layer_nums)
-        if (self.backbone_config.arch != "deit" or not rmap
+        if (self.backbone_config.arch not in ("deit", "dinov2") or not rmap
                 or rmap[max(rmap)] != cfg.final_reserve_num):
             return False
         mode = self.backbone_config.prune_gather
@@ -199,7 +199,9 @@ class PPNet(nn.Module):
 
     def conv_features(self, x: torch.Tensor, generator: Generator = None):
         """(cls_tokens (B, 1, proto_dim), img_tokens (B, k, proto_dim),
-        cls_token_attn (B, N) fp32)."""
+        cls_token_attn (B, N) fp32). The local tokens are the kept patches
+        after the backbone's prefix (a DINOv2 backbone's registers feed no
+        prototype); the global branch reads the CLS token."""
         cfg = self.config
         cls_embed, x_embed = self.features.embed_all(x, generator)
         gather_final = self._gather_at_prune()
@@ -208,11 +210,12 @@ class PPNet(nn.Module):
             **({"gather_final": True} if gather_final else {}),
             generator=generator,
         )
+        prefix = self.features.num_prefix_tokens
         if gather_final:
-            img_tokens = tokens[:, 1:]
+            img_tokens = tokens[:, prefix:]
         else:
             idx = topk_sorted_indices(cls_token_attn, cfg.final_reserve_num)
-            img_tokens = gather_tokens(tokens[:, 1:], idx)
+            img_tokens = gather_tokens(tokens[:, prefix:], idx)
         return (self.add_on_layers(tokens[:, :1]),
                 self.add_on_layers(img_tokens), cls_token_attn)
 

@@ -1,7 +1,8 @@
 """Backbone registry (port of ``protopformer_tpu/models/registry.py``):
 backbones are built from typed presets, DeiT (``DistilledDeiT`` when the
-config is distilled) or CaiT by ``arch``; any other ``arch`` raises
-``ValueError``, as in the JAX package.
+config is distilled) or CaiT by ``arch``, as in the JAX package, and the
+port's own DINOv2 (``arch="dinov2"``, a ``DINOv2Config``); any other
+``arch`` raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -13,12 +14,17 @@ import torch
 from protopformer_tpu_torch.core.config import (
     BACKBONE_PRESETS,
     BackboneConfig,
+    DINOv2Config,
     backbone_preset,
 )
 from protopformer_tpu_torch.models.cait import CaiTBackbone
-from protopformer_tpu_torch.models.deit import DeiTBackbone, DistilledDeiT
+from protopformer_tpu_torch.models.deit import (
+    DeiTBackbone,
+    DINOv2Backbone,
+    DistilledDeiT,
+)
 
-BACKBONE_REGISTRY = tuple(BACKBONE_PRESETS)
+BACKBONE_REGISTRY = tuple(BACKBONE_PRESETS)  # the JAX package's presets
 
 
 def create_backbone(
@@ -38,4 +44,9 @@ def create_backbone(
         return DeiTBackbone(cfg, compute_dtype=compute_dtype)
     if cfg.arch == "cait":
         return CaiTBackbone(cfg, compute_dtype=compute_dtype)
+    if cfg.arch == "dinov2":
+        if not isinstance(cfg, DINOv2Config):
+            raise ValueError("arch 'dinov2' needs a DINOv2Config (its "
+                             "registers and FFN)")
+        return DINOv2Backbone(cfg, compute_dtype=compute_dtype)
     raise ValueError(f"unknown backbone arch: {cfg.arch}")

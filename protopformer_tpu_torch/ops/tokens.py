@@ -39,12 +39,14 @@ def scatter_tokens_to_grid(values: torch.Tensor, indices: torch.Tensor,
 
 
 def reserve_policy(
-    cls_token_attn: torch.Tensor, reserve_num: int, seq_len: int
+    cls_token_attn: torch.Tensor, reserve_num: int, seq_len: int,
+    prefix: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Keep-policy from CLS-attention scores.
+    """Keep-policy from CLS-attention scores over the patches, which follow
+    ``prefix`` tokens (the CLS token, and a DINOv2 backbone's registers).
 
     Returns:
-      (policy (B, seq_len) fp32 in {0,1} with the CLS slot 1,
+      (policy (B, seq_len) fp32 in {0,1} with the prefix slots 1,
        patch_indices (B, reserve_num) sorted, into the patch axis).
     """
     B = cls_token_attn.shape[0]
@@ -52,6 +54,6 @@ def reserve_policy(
     policy = torch.zeros(
         (B, seq_len), dtype=torch.float32, device=cls_token_attn.device
     )
-    policy[:, 0] = 1.0
-    policy.scatter_(1, idx + 1, 1.0)
+    policy[:, :prefix] = 1.0
+    policy.scatter_(1, idx + prefix, 1.0)
     return policy, idx

@@ -584,11 +584,12 @@ _SPLIT_CTAS = {641: 2, 785: 2, 901: 2, 1025: 2, 1281: 3, 1601: 3, 2305: 4,
                5200: 0}
 
 
-def _check_block_stats_past_640(rng, cuda, exact, N, H):
-    """K1 at N tokens of H heads (C=192) held as
+def _check_block_stats_past_640(rng, cuda, exact, N, H, C=192, B=None):
+    """K1 at N tokens of H heads (C=192 unless given) held as
     ``test_block_stats_kernel_matches_plain`` holds it, at B=3 (B=2 at
-    2,305, B=1 above)."""
-    B, C = (1 if N > 2305 else 2 if N > 1601 else 3), 192
+    2,305, B=1 above) unless given."""
+    if B is None:
+        B = 1 if N > 2305 else 2 if N > 1601 else 3
     qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * C)).astype(np.float32))
     qkv = qkv.to(cuda, torch.bfloat16)
     out, fmap, t, s = ac.fused_attention_block_stats(qkv, H, 0.9, exact)
@@ -635,6 +636,76 @@ def test_block_stats_past_640_above_16_heads_keeps_its_route(rng, cuda,
     assert _build.library().ppf_attention_block_stats_heads_cluster_size(
         N, 8, 24) == 0
     _check_block_stats_past_640(rng, cuda, exact, N, 24)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_block_stats_at_dinov2_g14_reg518_keeps_its_route(rng, cuda, exact):
+    """K1 at DINOv2 ViT-g/14's shape with 4 registers at 518 px: 1,374
+    tokens, C=1536 in 24 heads of 64, past the head split's 16 heads: the
+    route with the band's accumulator in device memory (3 row tiles a
+    CTA), held as above on 2 samples."""
+    from protopformer_tpu_torch.kernels import _build
+
+    assert _build.library().ppf_attention_block_stats_heads_cluster_size(
+        1374, 64, 24) == 0
+    _check_block_stats_past_640(rng, cuda, exact, 1374, 24, C=1536, B=2)
+
+
+def test_mean_padded_bf16_at_dinov2_gathered_tokens(rng, cuda):
+    """K3 in bf16 on the DINOv2 cell's last block: 86 tokens (the CLS
+    token, 4 registers and 81 kept patches), 24 heads of 64, held as
+    ``test_mean_padded_kernel_matches_plain`` holds it."""
+    qkv, pol = _qkv_policy(rng, 8, 86, 86, 1536)
+    qkv, pol = qkv.to(cuda, torch.bfloat16), pol.to(cuda)
+    out, fmap = ac.fused_attention_mean_padded(qkv, pol, 24, real_n=86)
+    p_out, p_map = ac.mean_padded_plain(qkv, pol, 24, real_n=86)
+    torch.cuda.synchronize()
+    assert _max_err(out, p_out) <= 1e-2
+    assert _max_err(fmap, p_map) <= 1e-6
+
+
+def test_a_served_dinov2_chunk_launches_k1_39_times_and_k3_once(
+        cuda, monkeypatch):
+    """One bf16 speed-mode chunk of DINOv2 ViT-g/14-reg at 518 px under
+    the CUB head (2 images; the benchmark's seeded weights): K1 on the 39
+    blocks before the prune, K3 on the last block's 86 tokens (the prefix
+    of 5 carried through the gather ahead of the 81 kept patches), no GELU
+    pass (its FFN is SwiGLU), and finite logits and scores of the 1,369
+    patches."""
+    from benchmark import harness, weights_dinov2
+    from protopformer_tpu_torch.models import layers
+    from protopformer_tpu_torch.serving import ServingEngine
+    from protopformer_tpu_torch.utils import profiling
+
+    config = harness.read_json(
+        harness.BENCH / "configs" / "dinov2_g14_reg518_cub.json")
+    cfg = harness.model_cfg(config, "serve")
+    backbone, ppnet, dtype = harness.port_configs(config, "serve")
+    sd = weights_dinov2.state_dict(cfg, 2 ** 33 + 25, cuda)
+    engine = ServingEngine(backbone, ppnet, sd, batch_size=2,
+                           compute_dtype=dtype, with_attn=True, device=cuda)
+    imgs = weights_dinov2.uint8_images(2, 518, 25, cuda)
+    k3_tokens = []
+    k3 = layers.fused_attention_mean_padded
+
+    def spy(qkv, *args, **kwargs):
+        k3_tokens.append(qkv.shape[1])
+        return k3(qkv, *args, **kwargs)
+
+    monkeypatch.setattr(layers, "fused_attention_mean_padded", spy)
+    kernels.reset_launch_counts()
+    res = engine(imgs)
+    counts = kernels.launch_counts()
+    assert counts.pop("fused_attention_block_stats") == 39
+    assert counts.pop("fused_attention_mean_padded") == 1
+    assert set(counts.values()) == {0}
+    assert profiling.counts("launches.gelu_tanh").get(
+        "launches.gelu_tanh", 0) == 0
+    assert engine.model.features.num_prefix_tokens == 5
+    assert k3_tokens == [5 + 81]
+    assert res.cls_token_attn.shape == (2, 1369)
+    assert np.isfinite(res.logits).all()
+    assert np.isfinite(res.cls_token_attn).all()
 
 
 @pytest.mark.parametrize("exact", [True, False])
